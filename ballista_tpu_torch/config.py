@@ -1,0 +1,60 @@
+"""Session configuration: the keys the port reads, with the reference's
+names and defaults (``ballista_tpu/config.py``).
+
+An unknown key or an unparsable value raises :class:`ConfigError`, the same
+contract as the reference's ``BallistaConfig``. Keys the reference has and
+the port does not read yet are unknown here rather than silently ignored.
+"""
+
+from __future__ import annotations
+
+from ballista_tpu_torch.errors import ConfigError
+
+BALLISTA_DEFAULT_SHUFFLE_PARTITIONS = "ballista.shuffle.partitions"
+BALLISTA_AGG_CAPACITY = "ballista.tpu.agg_capacity"
+BALLISTA_TPU_BATCH_ROWS = "ballista.tpu.batch_rows"
+
+# key -> (default, parser)
+_ENTRIES: dict[str, tuple[str, type]] = {
+    BALLISTA_DEFAULT_SHUFFLE_PARTITIONS: ("2", int),
+    BALLISTA_AGG_CAPACITY: (str(1 << 16), int),
+    BALLISTA_TPU_BATCH_ROWS: (str(1 << 21), int),
+}
+
+
+class BallistaConfig:
+    """Validated string-keyed settings with typed getters."""
+
+    def __init__(self, settings: dict[str, str] | None = None):
+        self._settings: dict[str, str] = {}
+        for k, v in (settings or {}).items():
+            self._validate(k, v)
+            self._settings[k] = v
+
+    @staticmethod
+    def _validate(key: str, value: str) -> None:
+        entry = _ENTRIES.get(key)
+        if entry is None:
+            raise ConfigError(f"unknown configuration key: {key!r}")
+        try:
+            entry[1](value)
+        except Exception as e:
+            raise ConfigError(
+                f"invalid value {value!r} for {key!r}: {e}"
+            ) from e
+
+    def settings(self) -> dict[str, str]:
+        return dict(self._settings)
+
+    def _get(self, key: str):
+        default, parse = _ENTRIES[key]
+        return parse(self._settings.get(key, default))
+
+    def default_shuffle_partitions(self) -> int:
+        return self._get(BALLISTA_DEFAULT_SHUFFLE_PARTITIONS)
+
+    def tpu_batch_rows(self) -> int:
+        return self._get(BALLISTA_TPU_BATCH_ROWS)
+
+    def agg_capacity(self) -> int:
+        return self._get(BALLISTA_AGG_CAPACITY)

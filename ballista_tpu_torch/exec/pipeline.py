@@ -1,0 +1,159 @@
+"""Row-pipeline operators: Filter, Projection, Coalesce (port of
+``ballista_tpu/exec/pipeline.py``).
+
+Filter and Projection are per-batch functions. As in the reference, the
+outermost operator of a Filter/Projection chain runs the whole chain on
+each batch of the chain's source; here that is a plain Python loop over the
+operators (eager torch has no program to fuse). The reference's adaptive
+capacity shrink (``exec/shrink.py``) does not change results and is
+ROADMAP queue 1, item 5.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator
+
+import torch
+
+from ballista_tpu_torch.columnar.batch import DeviceBatch
+from ballista_tpu_torch.datatypes import Field, Schema
+from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext
+from ballista_tpu_torch.expr import logical as L
+from ballista_tpu_torch.expr.physical import compile_expr
+
+
+def fusable_chain(plan: ExecutionPlan):
+    """(source, ops): the maximal Filter/Projection chain hanging off
+    ``plan``, ops innermost-first; source is the first other input."""
+    ops: list[ExecutionPlan] = []
+    p = plan
+    while isinstance(p, (FilterExec, ProjectionExec)):
+        ops.append(p)
+        p = p.input
+    ops.reverse()
+    return p, ops
+
+
+class _ChainPipeline:
+    """Shared execute() body for the outermost operator of a chain."""
+
+    def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        source, ops = fusable_chain(self)
+        fns = [op.batch_fn() for op in ops]
+        timer = "filter_time" if isinstance(self, FilterExec) else "project_time"
+        for b in source.execute(partition, ctx):
+            with self.metrics.time(timer):
+                for f in fns:
+                    b = f(b)
+            self.metrics.add("input_batches")
+            self.metrics.counters["fused_ops"] = len(ops)
+            yield b
+
+
+class FilterExec(_ChainPipeline, ExecutionPlan):
+    """Clears validity bits; no data movement."""
+
+    def __init__(self, input: ExecutionPlan, predicate: L.Expr) -> None:
+        super().__init__()
+        self.input = input
+        self.predicate = predicate
+        self._fn: Callable[[DeviceBatch], DeviceBatch] | None = None
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def children(self) -> list[ExecutionPlan]:
+        return [self.input]
+
+    def output_partitioning(self):
+        return self.input.output_partitioning()
+
+    def describe(self) -> str:
+        return f"FilterExec: {self.predicate.name()}"
+
+    def batch_fn(self) -> Callable[[DeviceBatch], DeviceBatch]:
+        if self._fn is None:
+            phys = compile_expr(self.predicate, self.input.schema())
+
+            def run(batch: DeviceBatch) -> DeviceBatch:
+                cv = phys.evaluate(batch)
+                keep = cv.values.to(torch.bool)
+                if cv.nulls is not None:
+                    keep = keep & ~cv.nulls  # NULL predicate = drop row
+                return batch.with_valid(batch.valid & keep)
+
+            self._fn = run
+        return self._fn
+
+
+class ProjectionExec(_ChainPipeline, ExecutionPlan):
+    def __init__(self, input: ExecutionPlan, exprs: list[L.Expr]) -> None:
+        super().__init__()
+        self.input = input
+        self.exprs = list(exprs)
+        ins = input.schema()
+        self._schema = Schema(
+            [Field(e.name(), e.data_type(ins), e.nullable(ins)) for e in self.exprs]
+        )
+        self._fn: Callable[[DeviceBatch], DeviceBatch] | None = None
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def children(self) -> list[ExecutionPlan]:
+        return [self.input]
+
+    def output_partitioning(self):
+        return self.input.output_partitioning()
+
+    def describe(self) -> str:
+        return "ProjectionExec: " + ", ".join(e.name() for e in self.exprs)
+
+    def batch_fn(self) -> Callable[[DeviceBatch], DeviceBatch]:
+        if self._fn is None:
+            ins = self.input.schema()
+            out_schema = self._schema
+            phys = [compile_expr(e, ins) for e in self.exprs]
+
+            def run(batch: DeviceBatch) -> DeviceBatch:
+                cols, nulls, dicts = [], [], {}
+                for field, p in zip(out_schema, phys):
+                    cv = p.evaluate(batch)
+                    vals = cv.values
+                    want = field.dtype.to_torch()
+                    if vals.dtype != want and not (
+                        want == torch.int64 and vals.dtype == torch.int32
+                    ):
+                        # int32 is a permitted physical form of a logical
+                        # INT64 column (arrow_interop narrowing)
+                        vals = vals.to(want)
+                    cols.append(vals)
+                    nulls.append(cv.nulls)
+                    if cv.dictionary is not None:
+                        dicts[field.name] = cv.dictionary
+                return batch.with_columns(out_schema, cols, nulls, dicts)
+
+            self._fn = run
+        return self._fn
+
+
+class CoalescePartitionsExec(ExecutionPlan):
+    """Merge all input partitions into one stream."""
+
+    def __init__(self, input: ExecutionPlan) -> None:
+        super().__init__()
+        self.input = input
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def children(self) -> list[ExecutionPlan]:
+        return [self.input]
+
+    def describe(self) -> str:
+        return "CoalescePartitionsExec"
+
+    def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        assert partition == 0, "coalesce has a single output partition"
+        for p in range(self.input.output_partitioning().n):
+            yield from self.input.execute(p, ctx)

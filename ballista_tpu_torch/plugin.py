@@ -1,0 +1,33 @@
+"""UDF plugin registry: the name-resolution surface the front end needs.
+
+The reference's plugin loader (``ballista_tpu/plugin.py``) runs UDF bodies
+written against jax; loading plugins is not ported yet (ROADMAP queue 1,
+item 10). The SQL parser and the logical expressions resolve function
+names against this registry, which stays empty, so an unknown function
+raises exactly as it does in the reference with no plugin directory.
+"""
+
+from __future__ import annotations
+
+from ballista_tpu_torch.errors import PlanError
+
+
+class UdfRegistry:
+    """An empty registry with the reference's lookup surface."""
+
+    def get(self, name: str):
+        return None
+
+    def get_udaf(self, name: str):
+        return None
+
+
+global_registry = UdfRegistry()
+
+
+def lookup_udf(name: str):
+    raise PlanError(f"unknown scalar function {name!r}")
+
+
+def lookup_udaf(name: str):
+    raise PlanError(f"unknown aggregate function {name!r}")
