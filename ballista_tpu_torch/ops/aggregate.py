@@ -11,18 +11,19 @@ The port of the dense and scalar paths of ``ballista_tpu/ops/aggregate.py``:
 The sort-based ``group_aggregate`` (for keys that are not dense) waits for
 the sort slice (ROADMAP queue 1, item 4).
 
-Routing in ``_stacked_reduce``: with at most ``onehot_agg.MAX_SLOTS`` slots
-(2048, the reference's ``_MATMUL_MAX_SLOTS`` gate), the non-null counts and
-every f64 SUM go through ``onehot_agg.onehot_sums``, one call per
-``onehot_agg.MAX_ROWS`` value rows (on the card: the CUDA kernel; on the
-CPU: its plain version).
-The reference also gates its TPU kernel on ``_PALLAS_MIN_ROWS`` (1M rows),
-because the TPU kernel accumulates in f32 and carries ~1e-8 relative
-error; the port's kernel is f64 throughout, so there is no row gate. int64
-SUMs and MIN/MAX stay scatters (``index_add_``/``scatter_reduce_``), as the
-reference keeps them on scatters. Above the slot gate the f64 sums are a
-plain ``index_add_``, which is not deterministic on the card (ROADMAP
-queue 3).
+Routing in ``_stacked_reduce``: every dense aggregate (up to
+``onehot_agg.MAX_SLOTS`` = 65,536 slots, which is also
+``DENSE_AGG_MAX_SLOTS``) sends its non-null counts and every f64 SUM through
+``onehot_agg.onehot_sums``, one call per ``onehot_agg.MAX_ROWS`` value rows
+(on the card: the CUDA kernel; on the CPU: its plain version). The kernel
+sums in a fixed order, so these results are bit-identical from run to run.
+Columns that share one live-row mask share one count row.
+The reference also gates its TPU kernel on ``_PALLAS_MIN_ROWS`` (1M rows)
+and ``_MATMUL_MAX_SLOTS`` (2048 slots), because the TPU kernel accumulates
+in f32 and contracts a one-hot (P*n*R work); the port's kernel is f64 and
+does n*R work, so there is no gate. int64 SUMs and MIN/MAX stay scatters
+(``index_add_``/``scatter_reduce_``), as the reference keeps them on
+scatters: integer adds and min/max give the same result in any order.
 """
 
 from __future__ import annotations
@@ -101,25 +102,28 @@ def _scatter_minmax(idx, capacity: int, stacked: torch.Tensor, kind: str):
 
 
 def _stacked_reduce(
-    rid: torch.Tensor, capacity: int, vals: list, lives: list, ops: tuple
+    rid: torch.Tensor, capacity: int, vals: list, lives: list, live_of: list,
+    ops: tuple,
 ) -> tuple[list, list]:
     """Every value reduction into ``capacity`` slots keyed by ``rid``
-    (int32, ``capacity`` = dropped). Per-column NULL masks are folded into
-    the contribution (SUM adds 0, MIN/MAX add their identity), so columns
-    share one pass; the non-null count matrix doubles as COUNT output and
-    the SQL all-NULL flags."""
+    (int32, ``capacity`` = dropped). Column i's live mask is
+    ``lives[live_of[i]]``; ``lives`` holds each distinct mask once, and the
+    columns that share one share its count row. Per-column NULL masks are
+    folded into the contribution (SUM adds 0, MIN/MAX add their identity),
+    so columns share one pass; the non-null count matrix doubles as COUNT
+    output and the SQL all-NULL flags."""
     m = len(vals)
     out_vals: list = [None] * m
     out_val_nulls: list = [None] * m
     if m == 0:
         return out_vals, out_val_nulls
-    use_kernel = capacity <= onehot_agg.MAX_SLOTS
     idx = rid.long()
     f64_sums: list[tuple[int, torch.Tensor]] = []
     groups: dict[tuple[str, torch.dtype], list] = {}
-    for i, (vc, live, op) in enumerate(zip(vals, lives, ops)):
+    for i, (vc, op) in enumerate(zip(vals, ops)):
         if op == AggOp.COUNT:
             continue
+        live = lives[live_of[i]]
         if op == AggOp.SUM:
             acc_t = _sum_dtype(vc.dtype)
             contrib = torch.where(live, vc, torch.zeros_like(vc)).to(acc_t)
@@ -135,29 +139,21 @@ def _stacked_reduce(
             groups.setdefault(("amax", vc.dtype), []).append((i, masked))
         else:  # pragma: no cover
             raise ExecutionError(f"unknown agg op {op}")
-    if use_kernel:
-        # one call (per MAX_ROWS rows) covers the count matrix and every f64
-        # sum: live flags as 0/1 rows (exact in f64), then the f64
-        # contributions
-        rows = [l.to(torch.float64) for l in lives] + [c for _, c in f64_sums]
-        step = onehot_agg.MAX_ROWS
-        sums = torch.cat(
-            [
-                onehot_agg.onehot_sums(rid, torch.stack(rows[k : k + step]), capacity)
-                for k in range(0, len(rows), step)
-            ],
-            dim=1,
-        )
-        nonnull = sums[:, :m].round().to(torch.int64)
-        for j, (i, _) in enumerate(f64_sums):
-            out_vals[i] = sums[:, m + j]
-    else:
-        cnt = torch.stack([l.to(torch.int64) for l in lives], dim=1)
-        nonnull = torch.zeros(
-            capacity + 1, m, dtype=torch.int64, device=rid.device
-        ).index_add_(0, idx, cnt)[:capacity]
-        if f64_sums:
-            groups[("add", torch.float64)] = f64_sums
+    # one call (per MAX_ROWS rows) covers the count matrix and every f64
+    # sum: each distinct live mask once as a 0/1 row (exact in f64), then
+    # the f64 contributions
+    rows = [l.to(torch.float64) for l in lives] + [c for _, c in f64_sums]
+    step = onehot_agg.MAX_ROWS
+    sums = torch.cat(
+        [
+            onehot_agg.onehot_sums(rid, torch.stack(rows[k : k + step]), capacity)
+            for k in range(0, len(rows), step)
+        ],
+        dim=1,
+    )
+    nonnull = sums[:, list(live_of)].round().to(torch.int64)
+    for j, (i, _) in enumerate(f64_sums):
+        out_vals[i] = sums[:, len(lives) + j]
     for i, op in enumerate(ops):
         if op == AggOp.COUNT:
             out_vals[i] = nonnull[:, i]
@@ -177,8 +173,8 @@ def _stacked_reduce(
 
 
 # Dense slots grow as prod(vocab+1); past this the reference takes its
-# sort-based path.
-DENSE_AGG_MAX_SLOTS = 1 << 16
+# sort-based path. The kernel takes every dense slot count.
+DENSE_AGG_MAX_SLOTS = onehot_agg.MAX_SLOTS
 
 
 def dense_group_aggregate(
@@ -209,9 +205,19 @@ def dense_group_aggregate(
     occupied = torch.zeros(P + 1, dtype=torch.bool, device=valid.device)
     occupied = occupied.index_fill_(0, rid_all.long(), True)[:P]
 
-    lives = [valid if vn is None else (valid & ~vn) for vn in val_nulls]
+    # one live mask per distinct null mask (None: ``valid`` itself)
+    masks: list = []
+    lives: list[torch.Tensor] = []
+    live_of: list[int] = []
+    for vn in val_nulls:
+        at = next((k for k, mk in enumerate(masks) if mk is vn), None)
+        if at is None:
+            at = len(masks)
+            masks.append(vn)
+            lives.append(valid if vn is None else (valid & ~vn))
+        live_of.append(at)
     out_vals, out_val_nulls = _stacked_reduce(
-        rid_all, P, list(val_cols), lives, tuple(ops)
+        rid_all, P, list(val_cols), lives, live_of, tuple(ops)
     )
 
     # key codes of each slot from the mixed-radix index

@@ -54,8 +54,16 @@ def resolve_sort_keys(schema, sort_exprs) -> list[SortKey]:
 
 def stable_argsort(col: torch.Tensor, descending: bool = False) -> torch.Tensor:
     c = col.to(torch.int32) if col.dtype == torch.bool else col
-    if descending:
-        c = -c if c.dtype.is_floating_point else ~c
+    if c.dtype.is_floating_point:
+        # The card's radix sort orders bit patterns, so it puts a NaN with
+        # the sign bit set (as negating a NaN gives) first; the CPU's sort
+        # and the reference's put every NaN last and keep +-0.0 in input
+        # order. One NaN and one zero make the two agree.
+        if descending:
+            c = -c
+        c = torch.where(torch.isnan(c), torch.full_like(c, float("nan")), c + 0.0)
+    elif descending:
+        c = ~c
     return torch.sort(c, stable=True).indices
 
 

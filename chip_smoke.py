@@ -11,19 +11,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. Build: compile ``ballista_tpu_torch/csrc/onehot_agg.cu`` for sm_90a with
    nvcc and print the build seconds and the ``-Xptxas -v`` report.
 3. Kernel against its plain version at q1's shapes (n = 2^21 and 2^20,
-   R = 14, P = 12), at P = 2048 and at a ragged n, with out-of-range slot
-   ids and a NaN row: counts exact, sums within rtol 1e-12, the NaN in its
-   own slot, two launches bit-identical. Times (CUDA events, after a
+   R = 14, P = 12, and q1's R = 6 once columns without nulls share a count
+   row), at P = 2048, 4096 and 65,536 and at a ragged n, with out-of-range
+   slot ids and a NaN row: counts exact, sums within rtol 1e-12, the NaN in
+   its own slot, two launches bit-identical. Times (CUDA events, after a
    warm-up): the kernel, the plain version, and one library call
    (``index_add_``) as a yardstick; the bound from the bytes and f64 adds.
-   Then a sweep over slots P and value rows R at q1's batch size, timing
-   the kernel against its plain version, which finds the P*R at which the
-   kernel's P*n*R scan starts to lose to the plain scatter.
+   Then a sweep over slots P (1 to 65,536) and value rows R at q1's batch
+   size, timing the kernel against its plain version (each point checked,
+   two launches bit-identical), which finds for each R the P*R at which
+   the kernel first loses to the plain scatter. Then the kernel's two
+   launch modes ("lanes" and "owners", see ``ops/onehot_agg.launch_plan``)
+   against each other and against ``index_add_`` from 256 slots on, on
+   uniform slot ids, on Zipf-distributed ones (s = 1, hot slots scattered)
+   and on ids of which 90% fall in one slot. Then the port's sort on the
+   card against the CPU, on keys with +-0.0, NaN, a sign-bit NaN and +-inf.
 4. Main path: TPC-H ``lineitem`` at ``--sf`` (seed 42) through
-   ``TorchContext(device="cuda").sql(q).collect()`` for q1 and q6, one cold
-   and ``--warm`` warm runs each, checked against a numpy oracle written
-   here (filter, ``np.unique``, ``np.add.at`` in f64): keys and counts
-   exact, floats within rtol 1e-9. The kernel's launch counter is zeroed
+   ``TorchContext(device="cuda").sql(q).collect()`` for q1, q6 and a dense
+   GROUP BY over four string keys (480 slots, ``WIDE_SQL``), one cold and
+   ``--warm`` warm runs each, checked against a numpy oracle written here
+   (filter, ``np.unique``, ``np.add.at`` in f64): keys and counts exact,
+   floats within rtol 1e-9. The kernel's launch counter is zeroed
    just before and read just after; q1 must launch it (at SF >= 1, at
    least 4 times in one run).
    With ``--profile``, one more warm run of each query is traced with
@@ -161,11 +169,90 @@ def kernel_case(n: int, m: int, n_sums: int, P: int, seed: int) -> dict:
     return res
 
 
+def slot_ids(n: int, P: int, dist: str, g):
+    """Slot ids in [0, P) on the card: "uniform"; "zipf" (the slot of rank
+    k drawn with weight 1/k, ranks scattered over the slots by a random
+    permutation); "hot90" (90% of the rows in slot P // 3, the rest
+    uniform)."""
+    import torch
+
+    dev = torch.device("cuda")
+    rid = torch.randint(0, P, (n,), generator=g, device=dev, dtype=torch.int32)
+    if dist == "hot90":
+        hot = torch.rand(n, generator=g, device=dev) < 0.9
+        return torch.where(hot, torch.full_like(rid, P // 3), rid)
+    if dist == "zipf":
+        cdf = torch.cumsum(1.0 / torch.arange(1, P + 1, device=dev, dtype=torch.float64), 0)
+        u = torch.rand(n, generator=g, device=dev, dtype=torch.float64) * cdf[-1]
+        rank = torch.searchsorted(cdf, u).clamp(max=P - 1)
+        perm = torch.randperm(P, generator=g, device=dev)
+        return perm[rank].to(torch.int32)
+    return rid
+
+
+def check_sums(tag: str, got, again, want, m: int) -> None:
+    """Two launches bit-identical, the m count rows exact, every sum within
+    rtol 1e-12 of the plain version."""
+    import torch
+
+    check(
+        torch.equal(got.view(torch.int64), again.view(torch.int64)),
+        f"{tag}: two launches differ",
+    )
+    check(torch.equal(got[:, :m], want[:, :m]), f"{tag}: counts differ")
+    check(torch.allclose(got, want, rtol=1e-12, atol=0.0), f"{tag}: sums differ")
+
+
+def modes(n: int, Rs: tuple, Ps: tuple, dists: tuple, seed: int) -> dict:
+    """The kernel in each launch mode ("lanes", "owners") and one
+    ``index_add_`` call, per slot-id distribution, R and P; each launch
+    checked against the plain version."""
+    import torch
+
+    from ballista_tpu_torch.ops import onehot_agg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    auto = onehot_agg.launch_plan
+    points = []
+    try:
+        for R in Rs:
+            m = max(1, R // 2)
+            vals = torch.empty(R, n, dtype=torch.float64, device=dev)
+            vals[:m] = (torch.rand(m, n, generator=g, device=dev) < 0.9).to(torch.float64)
+            vals[m:] = torch.rand(R - m, n, generator=g, device=dev, dtype=torch.float64)
+            for dist in dists:
+                for P in Ps:
+                    rid = slot_ids(n, P, dist, g)
+                    want = onehot_agg.onehot_sums_plain(rid, vals, P)
+                    buf = torch.zeros(P + 1, R, dtype=torch.float64, device=dev)
+                    idx, vt = rid.long(), vals.T
+                    point = dict(R=R, P=P, dist=dist, auto=auto(n, R, P)["mode"])
+                    for mode in ("lanes", "owners"):
+                        onehot_agg.launch_plan = (
+                            lambda n_, R_, P_, mode=mode: auto(n_, R_, P_, mode)
+                        )
+                        got = onehot_agg.onehot_sums(rid, vals, P)
+                        again = onehot_agg.onehot_sums(rid, vals, P)
+                        check_sums(f"{mode} n={n} R={R} P={P} {dist}", got, again, want, m)
+                        point[mode + "_ms"] = time_ms(
+                            lambda: onehot_agg.onehot_sums(rid, vals, P), iters=10
+                        )
+                        onehot_agg.launch_plan = auto
+                    point["library_ms"] = time_ms(lambda: buf.index_add_(0, idx, vt), iters=10)
+                    points.append(point)
+    finally:
+        onehot_agg.launch_plan = auto
+    res = dict(n=n, points=points)
+    log(f"modes: {json.dumps(res)}")
+    return res
+
+
 def crossover(n: int, Rs: tuple, Ps: tuple, seed: int) -> dict:
     """Kernel and plain-version times over a grid of (R, P) at ``n`` rows,
-    each point checked (counts exact, sums within rtol 1e-12). For each R,
-    the smallest P*R at which the kernel is slower than the plain version
-    (None if it never is on the grid)."""
+    each point checked (two launches bit-identical, counts exact, sums
+    within rtol 1e-12). For each R, the smallest P*R at which the kernel is
+    slower than the plain version (None if it never is on the grid)."""
     import torch
 
     from ballista_tpu_torch.ops import onehot_agg
@@ -182,19 +269,57 @@ def crossover(n: int, Rs: tuple, Ps: tuple, seed: int) -> dict:
         for P in Ps:
             rid = torch.randint(0, P, (n,), generator=g, device=dev, dtype=torch.int32)
             got = onehot_agg.onehot_sums(rid, vals, P)
+            again = onehot_agg.onehot_sums(rid, vals, P)
             want = onehot_agg.onehot_sums_plain(rid, vals, P)
-            tag = f"crossover n={n} R={R} P={P}"
-            check(torch.equal(got[:, :m], want[:, :m]), f"{tag}: counts differ")
-            check(
-                torch.allclose(got, want, rtol=1e-12, atol=0.0), f"{tag}: sums differ"
-            )
+            check_sums(f"crossover n={n} R={R} P={P}", got, again, want, m)
             ms = time_ms(lambda: onehot_agg.onehot_sums(rid, vals, P), iters=10)
             plain_ms = time_ms(lambda: onehot_agg.onehot_sums_plain(rid, vals, P), iters=10)
-            points.append(dict(R=R, P=P, PR=P * R, ms=ms, plain_ms=plain_ms))
+            plan = onehot_agg.launch_plan(n, R, P)
+            points.append(dict(
+                R=R, P=P, PR=P * R, ms=ms, plain_ms=plain_ms, mode=plan["mode"],
+                chunks=plan["chunks"],
+            ))
             if loses_at[R] is None and ms > plain_ms:
                 loses_at[R] = P * R
     res = dict(n=n, points=points, kernel_loses_at_PR=loses_at)
     log(f"crossover: {json.dumps(res)}")
+    return res
+
+
+def sort_check(seed: int) -> dict:
+    """``ops/sort.stable_argsort`` on the card against the CPU, in both
+    directions, on f64 and f32 keys holding +-0.0, NaN, a NaN with its sign
+    bit set, +-inf and ties: at n = 8 and at n = 2^21, so that both of
+    torch's CUDA sort paths (the in-block sort and the radix sort) run."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops.sort import stable_argsort
+
+    signed_nan = np.frombuffer(
+        np.array([0xFFF8000000000001], dtype=np.uint64).tobytes(), dtype=np.float64
+    )[0]
+    specials = np.array(
+        [0.0, -0.0, np.nan, signed_nan, np.inf, -np.inf, 1.0, -1.0, -0.0, 1.0]
+    )
+    rng = np.random.default_rng(seed)
+    checked = 0
+    for n in (8, 1 << 21):
+        x = rng.choice(specials, n)
+        x[: min(n, 8)] = specials[[3, 1, 0, 2, 4, 5, 8, 6]][:n]
+        for dt in (torch.float64, torch.float32):
+            t = torch.from_numpy(x).to(dt)
+            for desc in (False, True):
+                want = stable_argsort(t, desc)
+                got = stable_argsort(t.cuda(), desc).cpu()
+                check(
+                    torch.equal(got, want),
+                    f"sort n={n} {dt} descending={desc}: the card's permutation "
+                    "differs from the CPU's",
+                )
+                checked += 1
+    res = dict(cases=checked, ok=True)
+    log(f"sort: ok  {json.dumps(res)}")
     return res
 
 
@@ -235,6 +360,53 @@ def oracle_q1(cols: dict):
         "avg_disc": gsum(disc) / cnt,
         "count_order": cnt,
     }
+
+
+# A dense GROUP BY over four string keys of lineitem: 8 * 5 * 4 * 3 = 480
+# slots (each vocabulary plus NULL), where q1 has 12.
+WIDE_SQL = (
+    "select l_shipmode, l_shipinstruct, l_returnflag, l_linestatus, "
+    "count(*) as count_order, sum(l_quantity) as sum_qty, "
+    "sum(l_extendedprice) as sum_base_price, avg(l_discount) as avg_disc "
+    "from lineitem group by l_shipmode, l_shipinstruct, l_returnflag, "
+    "l_linestatus order by l_shipmode, l_shipinstruct, l_returnflag, l_linestatus"
+)
+
+
+def oracle_wide(cols: dict):
+    import numpy as np
+
+    names = ("l_shipmode", "l_shipinstruct", "l_returnflag", "l_linestatus")
+    # each key's sorted values and codes, mixed into one group number whose
+    # order is that of the key tuples
+    vocab, code = [], np.zeros(len(cols[names[0]]), dtype=np.int64)
+    for c in names:
+        v, inv = np.unique(cols[c], return_inverse=True)
+        vocab.append(v)
+        code = code * len(v) + inv
+    groups, inv = np.unique(code, return_inverse=True)
+    g = len(groups)
+
+    def gsum(v):
+        out = np.zeros(g, dtype=np.float64)
+        np.add.at(out, inv, v.astype(np.float64))
+        return out
+
+    cnt = np.zeros(g, dtype=np.int64)
+    np.add.at(cnt, inv, 1)
+    out = {}
+    rest = groups
+    for c, v in reversed(list(zip(names, vocab))):
+        out[c] = list(v[rest % len(v)])
+        rest = rest // len(v)
+    out = {c: out[c] for c in names}
+    out.update(
+        count_order=cnt,
+        sum_qty=gsum(cols["l_quantity"]),
+        sum_base_price=gsum(cols["l_extendedprice"]),
+        avg_disc=gsum(cols["l_discount"]) / cnt,
+    )
+    return out
 
 
 def oracle_q6(cols: dict):
@@ -319,9 +491,9 @@ def main_path(sf: float, seed: int, warm: int, profile: bool) -> dict:
     for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"):
         cols[c] = table.column(c).to_numpy()
     cols["l_shipdate"] = table.column("l_shipdate").cast("int32").to_numpy()
-    for c in ("l_returnflag", "l_linestatus"):
+    for c in ("l_returnflag", "l_linestatus", "l_shipmode", "l_shipinstruct"):
         cols[c] = np.asarray(table.column(c).to_pylist())
-    oracles = {"q1": oracle_q1(cols), "q6": oracle_q6(cols)}
+    oracles = {"q1": oracle_q1(cols), "q6": oracle_q6(cols), "wide": oracle_wide(cols)}
 
     ctx = TorchContext(device="cuda")
     ctx.register_table("lineitem", table)
@@ -329,6 +501,7 @@ def main_path(sf: float, seed: int, warm: int, profile: bool) -> dict:
         q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
         for q in ("q1", "q6")
     }
+    queries["wide"] = WIDE_SQL
     out = {}
     torch.cuda.reset_peak_memory_stats()
     onehot_agg.launches = 0  # main path starts here
@@ -357,6 +530,7 @@ def main_path(sf: float, seed: int, warm: int, profile: bool) -> dict:
         for q, sql in queries.items():
             out[q]["profile"] = profile_query(ctx, q, sql)
     check(out["q1"]["kernel_launches_cold_run"] > 0, "q1 did not launch the kernel")
+    check(out["wide"]["kernel_launches_cold_run"] > 0, "wide did not launch the kernel")
     if sf >= 1:
         check(
             out["q1"]["kernel_launches_cold_run"] >= 4,
@@ -403,22 +577,33 @@ def main() -> int:
         if "registers" in line or "smem" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # 3. kernel vs plain
+    # 3. kernel vs plain; the sort on the card vs the CPU
     cases = [
         kernel_case(1 << 21, 9, 5, 12, seed=1),   # q1 partial, full batch
         kernel_case(1 << 20, 9, 5, 12, seed=2),   # q1 partial, tail batch
-        kernel_case(1 << 20, 9, 5, 2048, seed=3),  # the slot gate
+        kernel_case(1 << 20, 9, 5, 2048, seed=3),  # the old 2048-slot gate
         kernel_case(1_000_003, 9, 5, 12, seed=4),  # ragged n
         kernel_case(300_001, 16, 48, 37, seed=5),  # R = 64, ragged
+        kernel_case(1 << 20, 9, 5, 4096, seed=7),  # several slot chunks
+        kernel_case(1 << 21, 9, 5, 65536, seed=8),  # the largest dense space
+        kernel_case(1 << 21, 1, 5, 12, seed=9),   # q1 now: one shared count row
+        kernel_case(1 << 20, 1, 5, 12, seed=11),  # q1 now, tail batch (padded)
     ]
     sweep = crossover(
-        1 << 21, Rs=(6, 14, 64), Ps=(4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256, 512),
+        1 << 21, Rs=(6, 14, 64),
+        Ps=(1, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256, 512, 1024, 2048, 8192,
+            65536),
         seed=6,
     )
+    by_mode = modes(
+        1 << 21, Rs=(6, 14), Ps=(256, 1024, 2048, 8192, 65536),
+        dists=("uniform", "zipf", "hot90"), seed=12,
+    )
+    sorted_ok = sort_check(seed=10)
 
     # 4. main path
     mp = main_path(args.sf, args.seed, args.warm, args.profile)
-    q1 = cases[0]
+    q1, q1_now = cases[0], cases[7]
 
     # 5. results
     kernels = [{
@@ -433,11 +618,18 @@ def main() -> int:
         "bound_ms": q1["bound_ms"],
         "bound_by": q1["bound_by"],
         "library_ms": q1["library_ms"],
+        "bound_share": q1["bound_ms"] / q1["ms"],
+        # q1's shape now (R = 6: columns without nulls share a count row)
+        "ms_at_q1_now": q1_now["ms"],
+        "bound_ms_at_q1_now": q1_now["bound_ms"],
+        "bound_share_at_q1_now": q1_now["bound_ms"] / q1_now["ms"],
     }]
     log(json.dumps({
         "cases": cases,
         "crossover": sweep["kernel_loses_at_PR"],
-        "queries": {q: mp[q] for q in ("q1", "q6")},
+        "modes": by_mode["points"],
+        "sort": sorted_ok,
+        "queries": {q: mp[q] for q in ("q1", "q6", "wide")},
         "peak_bytes": mp["peak_bytes"],
         "sf": args.sf,
     }))

@@ -1,9 +1,10 @@
 """The one-hot group-sum kernel's plain version against numpy and against
 the TPU kernel itself (ballista_tpu/ops/pallas_agg.py, run in Pallas
 interpret mode), its launch plan, and (on a card) the CUDA kernel against
-the plain version."""
+the plain version, up to 65,536 slots."""
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,7 @@ def numpy_sums(rid, vals, P):
     return out
 
 
-@pytest.mark.parametrize("P", [1, 12, 2048])
+@pytest.mark.parametrize("P", [1, 12, 2048, 65536])
 @pytest.mark.parametrize("n", [1, 1000, 4099])
 def test_plain_matches_numpy(n, P):
     rid, vals = make_case(n, 3, 4, P, seed=n + P)
@@ -94,35 +95,83 @@ def test_plain_matches_the_pallas_kernel(pallas_interpret, n, P):
 @pytest.mark.parametrize(
     "n,R,P",
     [(1, 1, 1), (1 << 21, 14, 12), (1 << 20, 14, 12), (1_000_003, 14, 12),
-     (1 << 20, 14, 2048), (300_001, 64, 37), (777, 64, 2048)],
+     (1 << 20, 14, 2048), (300_001, 64, 37), (777, 64, 2048),
+     (1 << 21, 6, 12), (4099, 14, 1), (1 << 20, 14, 4096), (1 << 20, 64, 4096),
+     (1 << 21, 14, 65536), (1 << 21, 64, 65536), (300_001, 1, 65536)],
 )
 def test_launch_plan_covers_every_row_once(n, R, P):
-    plan = onehot_agg.launch_plan(n, R, P)
-    # blocks own consecutive, disjoint row ranges that cover [0, n)
-    assert (plan["nb"] - 1) * plan["rows_per_block"] < n <= plan["nb"] * plan["rows_per_block"]
-    assert plan["rows_per_block"] % plan["tile"] == 0
-    assert plan["smem"] <= 48 * 1024  # no opt-in needed
-    assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
-    assert plan["k"] in (1, 4)
-    if plan["k"] == 1:
-        assert P * R <= plan["threads"]
-    assert plan["nb"] * P * R * 8 <= 64 << 20
+    auto = onehot_agg.launch_plan(n, R, P)
+    owners = P >= onehot_agg._OWNER_MIN_SLOTS and R <= onehot_agg._OWNER_MAX_ROWS
+    assert auto["mode"] == ("owners" if owners else "lanes")
+    for mode in ("lanes", "owners"):
+        plan = onehot_agg.launch_plan(n, R, P, mode)
+        assert plan["mode"] == mode
+        # slot chunks of pc slots cover [0, P) once, none of them empty
+        assert (plan["chunks"] - 1) * plan["pc"] < P <= plan["chunks"] * plan["pc"]
+        # each chunk's blocks own consecutive, disjoint row ranges covering [0, n)
+        nb, rpb = plan["nb"], plan["rows_per_block"]
+        assert (nb - 1) * rpb < n <= nb * rpb
+        assert rpb % plan["tile"] == 0 and plan["tile"] % 32 == 0
+        assert plan["threads"] == 32 * plan["warps"]
+        assert plan["warps"] == 8
+        assert plan["smem"] <= 232_448
+        assert plan["nb"] * P * R * 8 <= 64 << 20
+        if mode == "owners":
+            # one accumulator row and lane word a slot; three tiles of values,
+            # a list of rows for each warp, five tiles of slot ids
+            t = plan["tile"]
+            assert plan["tile_shift"] > 0 and t == 1 << plan["tile_shift"] <= 512
+            staged = 3 * R * (t + 1) * 8 + 8 * t * 2 + 5 * t * 4
+            assert plan["stride"] == R | 1
+            assert plan["pc"] % plan["warps"] == 0  # whole rows of 8 slots
+            assert plan["smem"] == plan["pc"] * (plan["stride"] * 8 + 4) + staged
+            continue
+        assert plan["tile_shift"] == 0
+        # the accumulator copies of one chunk and the warps' rings fit a
+        # block's shared memory
+        assert plan["stride"] in (R, R | 1) and (plan["stride"] % 2 or R % 4 == 2)
+        ring = plan["warps"] * plan["stages"] * (plan["rw"] + 1) * 32 * 8
+        acc = plan["copies"] * plan["pc"] * plan["stride"] * 8
+        assert plan["smem"] == acc + ring
+        assert plan["stages"] in (4, 8, 16) and ring <= 112 << 10
+        if plan["copies"] > 1:
+            assert acc <= 48 * 1024
+        # warps: copies groups of k, k a power of two, idle warps only
+        # where no more copies would fit
+        assert plan["copies"] * plan["k"] == plan["warps"]
+        assert plan["k"] & (plan["k"] - 1) == 0
+        assert plan["rw"] == -(-R // plan["k"])
+        assert plan["k"] <= R or plan["copies"] == 1
 
 
 def test_wrapper_refuses_what_the_kernel_cannot_take():
-    rid = torch.zeros(4, dtype=torch.int32, device="meta")
-    vals = torch.zeros(1, 4, dtype=torch.float64, device="meta")
+    def call(n, R, P):
+        rid = torch.zeros(n, dtype=torch.int32, device="meta")
+        vals = torch.zeros(R, n, dtype=torch.float64, device="meta")
+        return onehot_agg.onehot_sums(rid, vals, P)
+
     with pytest.raises(ValueError, match="CUDA"):
-        onehot_agg.onehot_sums(rid, vals, 4)
+        call(4, 1, 4)
+    for R, P in ((1, onehot_agg.MAX_SLOTS + 1), (onehot_agg.MAX_ROWS + 1, 4), (1, 0)):
+        with pytest.raises(ValueError, match="outside the kernel's range"):
+            call(4, R, P)
+    # the largest shapes pass the range check and reach the device check
+    with pytest.raises(ValueError, match="CUDA"):
+        call(1 << 28, onehot_agg.MAX_ROWS, onehot_agg.MAX_SLOTS)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,R,P", [(1 << 21, 14, 12), (100_003, 14, 2048), (5, 64, 3)])
+@pytest.mark.parametrize(
+    "n,R,P",
+    [(1 << 21, 14, 12), (100_003, 14, 2048), (5, 64, 3), (1 << 20, 14, 65536),
+     (1 << 21, 6, 12), (4099, 14, 1)],
+)
 def test_cuda_kernel_matches_plain(n, R, P):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    rid, vals = make_case(n, 9, R - 9, P, seed=n)
-    vals[9, 0] = np.nan
+    m = 9 if R > 9 else R // 2  # count rows, then sum rows
+    rid, vals = make_case(n, m, R - m, P, seed=n)
+    vals[m, 0] = np.nan
     rid_d = torch.from_numpy(rid).cuda()
     vals_d = torch.from_numpy(vals).cuda()
     before = onehot_agg.launches
@@ -132,7 +181,17 @@ def test_cuda_kernel_matches_plain(n, R, P):
     want = onehot_agg.onehot_sums_plain(rid_d, vals_d, P)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int64), again.view(torch.int64))
-    assert torch.equal(got[:, :9], want[:, :9])
+    assert torch.equal(got[:, :m], want[:, :m])
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     ok = ~torch.isnan(want)
     torch.testing.assert_close(got[ok], want[ok], rtol=1e-12, atol=0)
+
+
+def test_kernel_source_has_no_float_atomics():
+    """Determinism rests on the kernel adding floats in a fixed order: no
+    atomicAdd, and no atomic but the integer atomicOr that gathers the
+    lanes of one slot (OR gives the same word in any order)."""
+    src = onehot_agg.SOURCE.read_text()
+    assert "atomicAdd" not in src
+    assert set(re.findall(r"\batomic\w*(?=\s*\()", src)) == {"atomicOr"}
+    assert not re.search(r"\bred\.|\batom\.", src)

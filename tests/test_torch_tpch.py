@@ -89,6 +89,13 @@ def test_query_matches_reference(contexts, q):
         "group by l_returnflag",
         "select l_shipinstruct, count(*) as c from lineitem group by l_shipinstruct "
         "order by c desc, l_shipinstruct limit 2",
+        # dense grouping over four string keys: 8 * 5 * 4 * 3 = 480 slots, the
+        # kernel's "owners" launch mode on the card
+        "select l_shipmode, l_shipinstruct, l_returnflag, l_linestatus, "
+        "count(*) as c, sum(l_quantity) as q, sum(l_extendedprice) as p, "
+        "avg(l_discount) as d from lineitem group by l_shipmode, l_shipinstruct, "
+        "l_returnflag, l_linestatus order by l_shipmode, l_shipinstruct, "
+        "l_returnflag, l_linestatus",
     ],
 )
 def test_slice_queries_match_reference(sql):
