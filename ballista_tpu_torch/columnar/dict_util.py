@@ -10,6 +10,7 @@ host-built lookup table gathered on the device.
 from __future__ import annotations
 
 import bisect
+import weakref
 
 import numpy as np
 import torch
@@ -17,17 +18,38 @@ import torch
 from ballista_tpu_torch.columnar.batch import Dictionary
 
 
-def merge_dictionaries(
-    a: Dictionary, b: Dictionary
-) -> tuple[Dictionary, np.ndarray, np.ndarray]:
-    """Merged sorted dictionary + code remap tables for each input
-    (``remap_a[old_code] = new_code``). The merge stays sorted, so remapped
-    codes still compare like the strings they encode."""
-    merged = tuple(sorted(set(a.values) | set(b.values)))
+# merge_many's results by the identity of their inputs. An entry goes when
+# one of its inputs is collected (a weakref.finalize callback), so it lives
+# no longer than the tables and batches its dictionaries came from, and an
+# id is never reused while an entry holds it.
+_MERGES: dict[tuple[int, ...], tuple] = {}
+_MERGES_MAX = 256
+
+
+def merge_many(dicts: tuple[Dictionary, ...]) -> tuple[Dictionary, tuple[np.ndarray, ...]]:
+    """One merged sorted dictionary for all of ``dicts``, and each one's
+    code remap table (``remap[old_code] = new_code``). The merge stays
+    sorted, so remapped codes still compare like the strings they encode.
+    Cached by the inputs' identity: a warm query merges the same
+    dictionary objects again (a customer-sized dictionary takes a Python
+    sort each time). Callers only read the cached tables."""
+    key = tuple(map(id, dicts))
+    hit = _MERGES.get(key)
+    if hit is not None:
+        return hit
+    merged = tuple(sorted(set().union(*(d.values for d in dicts))))
     pos = {v: i for i, v in enumerate(merged)}
-    remap_a = np.asarray([pos[v] for v in a.values], dtype=np.int32)
-    remap_b = np.asarray([pos[v] for v in b.values], dtype=np.int32)
-    return Dictionary(merged), remap_a, remap_b
+    remaps = tuple(
+        np.fromiter((pos[v] for v in d.values), dtype=np.int32, count=len(d.values))
+        for d in dicts
+    )
+    out = (Dictionary(merged), remaps)
+    if len(_MERGES) >= _MERGES_MAX:
+        _MERGES.clear()
+    _MERGES[key] = out
+    for d in {id(d): d for d in dicts}.values():
+        weakref.finalize(d, _MERGES.pop, key, None)
+    return out
 
 
 def remap_codes(codes: torch.Tensor, table: np.ndarray) -> torch.Tensor:

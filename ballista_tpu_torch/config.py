@@ -13,12 +13,16 @@ from ballista_tpu_torch.errors import ConfigError
 BALLISTA_DEFAULT_SHUFFLE_PARTITIONS = "ballista.shuffle.partitions"
 BALLISTA_AGG_CAPACITY = "ballista.tpu.agg_capacity"
 BALLISTA_TPU_BATCH_ROWS = "ballista.tpu.batch_rows"
+BALLISTA_JOIN_EXPANSION = "ballista.tpu.join_expansion"
 
 # key -> (default, parser)
 _ENTRIES: dict[str, tuple[str, type]] = {
     BALLISTA_DEFAULT_SHUFFLE_PARTITIONS: ("2", int),
     BALLISTA_AGG_CAPACITY: (str(1 << 16), int),
     BALLISTA_TPU_BATCH_ROWS: (str(1 << 21), int),
+    # output rows per probe row that a join's m:n expansion allocates
+    # before it overflows and the run is retried with more
+    BALLISTA_JOIN_EXPANSION: ("4", int),
 }
 
 
@@ -58,3 +62,6 @@ class BallistaConfig:
 
     def agg_capacity(self) -> int:
         return self._get(BALLISTA_AGG_CAPACITY)
+
+    def join_expansion(self) -> int:
+        return self._get(BALLISTA_JOIN_EXPANSION)

@@ -103,11 +103,15 @@ class CapacityError(ExecutionError):
     aggregate kernel computes the true group count even on overflow), so
     callers can retry with an adequately-grown capacity instead of failing
     (adaptive sizing; the fixed-capacity failure mode is a TPU-only concern
-    with no reference counterpart)."""
+    with no reference counterpart). ``sites`` maps the key of each other
+    overflowed capacity (a join's expansion) to the rows it needed; the
+    retry grows those alone and leaves the aggregates' capacity as it
+    was."""
 
-    def __init__(self, message: str, required: int = 0):
+    def __init__(self, message: str, required: int = 0, sites: dict | None = None):
         super().__init__(message)
         self.required = int(required)
+        self.sites = dict(sites or {})
 
 
 class ShuffleFetchError(ExecutionError):

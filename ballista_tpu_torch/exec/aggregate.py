@@ -4,12 +4,22 @@
 Per input batch the partial aggregate produces a state batch (group keys
 then one column per state slot); the final aggregate concatenates the
 partial states and merges them with the merge ops (COUNT merges by SUM;
-AVG decomposes into SUM + COUNT slots). Two paths are ported: the dense
-path for dictionary-coded or boolean group keys (TPC-H q1; its reductions
-run the one-hot group-sum kernel) and the scalar path for aggregates with
-no GROUP BY (q6). Other group keys need the sort-based path, which waits for
-the sort slice (ROADMAP queue 1, item 4), as do the exact decimal sums
-(``_dec_scaled_sums``), which only that path reaches.
+AVG decomposes into SUM + COUNT slots). Three paths, as in the reference:
+the dense path for dictionary-coded or boolean group keys (TPC-H q1, q4,
+q5; its reductions run the one-hot group-sum kernel), the sort-based path
+for every other GROUP BY (q3, q10, q18, DISTINCT and the SEMI-join dedup),
+and the scalar path for aggregates with no GROUP BY (q6).
+
+On the sort path, f64 SUM inputs that are decimals (TPC-H money and
+quantities) are summed exactly as int64 at a scale learned through the
+plan cache (``_dec_scaled_sums``). Groups past the capacity
+(``ballista.tpu.agg_capacity``, or the retry's grown one) raise a
+CapacityError at the task boundary, and the run is retried.
+
+Not ported yet (ROADMAP queue 1, item 4; none changes a result): the
+clustered-input speculation that skips the sort, the disjoint-clustered
+partial path, the learned state slicing (``_slice_states``) and the grace
+merges under a device-memory budget.
 """
 
 from __future__ import annotations
@@ -29,11 +39,56 @@ from ballista_tpu_torch.ops.aggregate import (
     AggOp,
     GroupAggResult,
     dense_group_aggregate,
+    group_aggregate,
     scalar_aggregate,
 )
 from ballista_tpu_torch.ops.concat import concat_batches
 
 _SCALAR_CAP = 2048  # capacity of a one-row scalar state, as in the reference
+
+# -- exact decimal summation (see HashAggregateExec._dec_scaled_sums) --------
+# Integrality tolerance: a true decimal's f64 value deviates from integral
+# (at its scale) by about |v| * 10^k * 2^-52, ~1e-5 at TPC-H magnitudes;
+# arbitrary floats deviate up to 0.5.
+_DEC_TOL = 1e-3
+# Magnitude bound: scaled |values| must sum below f64's exact-integer range
+# (with margin) so that every reduction order gives the same integer.
+_DEC_BOUND = float(1 << 52)
+
+
+def _dec_live(valid: torch.Tensor, null: torch.Tensor | None) -> torch.Tensor:
+    return valid if null is None else valid & ~null
+
+
+def _dec_check(col: torch.Tensor, live: torch.Tensor, k: int):
+    """(rounded values at scale 10^k, device bool: every live value is
+    integral there and their magnitudes sum below the bound)."""
+    s = col * float(10 ** k)
+    r = torch.round(s)
+    zero = torch.zeros((), dtype=col.dtype, device=col.device)
+    dev = torch.where(live, (s - r).abs(), zero).max()
+    total = torch.where(live, r.abs(), zero).sum()
+    return r, (dev <= _DEC_TOL) & (total < _DEC_BOUND)
+
+
+def _dec_learn(col: torch.Tensor, valid: torch.Tensor, null: torch.Tensor | None):
+    """The smallest scale k in {2, 4, 6} at which every live value is
+    integral and the sum stays exact, as a device int32; 99 means not a
+    decimal (defer_learn's max over batches then vetoes)."""
+    live = _dec_live(valid, null)
+    code = torch.full((), 99, dtype=torch.int32, device=col.device)
+    for k in (6, 4, 2):  # big to small, so the smallest that holds wins
+        _, ok = _dec_check(col, live, k)
+        code = torch.where(ok, k, code)
+    return code
+
+
+def _dec_scale(col: torch.Tensor, valid: torch.Tensor, null: torch.Tensor | None, k: int):
+    """(the column scaled to an int64 count of 10^-k units, device bool:
+    the scale still holds). int64 sums are exact in any order."""
+    live = _dec_live(valid, null)
+    r, ok = _dec_check(col, live, k)
+    return torch.where(live, r, 0.0).to(torch.int64), ok
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,13 +457,60 @@ class HashAggregateExec(ExecutionPlan):
         return f"HashAggregateExec(mode={self.mode}): gby=[{g}], aggr=[{a}]"
 
     # -- execution -----------------------------------------------------------
+    def _agg_capacity(self, ctx: TaskContext) -> int:
+        # a retry's grown capacity wins over the configured one
+        return ctx.agg_capacity_override or ctx.config.agg_capacity()
+
+    def _dec_scaled_sums(self, val_cols, val_nulls, ops, batch, ctx, site, from_state):
+        """Exact decimal summation: f64 SUM inputs that are decimals (every
+        value integral at 10^k, k <= 6) are rounded to int64 at scale 10^k
+        before the reduction, and the sums divided back after. Integer sums
+        are exact in any order, so money sums come out bit-identical across
+        batch sizes, runs and devices.
+
+        k is learned per (site, slot) on a first run (the smallest of 2, 4,
+        6 whose integrality and 2^52 bound hold; 99 = not a decimal) through
+        the plan cache, and every scaled run re-validates it on the device
+        with a deferred speculation. Returns (value columns, the divisor of
+        each slot or None)."""
+        unscale: list = [None] * len(val_cols)
+        cache = ctx.plan_cache
+        if cache is None:
+            return val_cols, unscale
+        out = list(val_cols)
+        for j, (vc, vn, op) in enumerate(zip(val_cols, val_nulls, ops)):
+            if op != AggOp.SUM or vc.dtype != torch.float64:
+                continue
+            # merge sites replace their learned scale each run: their first
+            # run's inputs are inexact float partial sums, which become
+            # integral only once the partial pass itself runs scaled
+            key = ("dec_sum_last" if from_state else "dec_sum", "", site, j)
+            code = cache.get(key)
+            if code is None or (from_state and code not in (2, 4, 6)):
+                ctx.defer_learn(key, _dec_learn(vc, batch.valid, vn))
+                continue
+            if code not in (2, 4, 6):
+                continue
+            scaled, ok = _dec_scale(vc, batch.valid, vn, int(code))
+            ctx.defer_speculation(
+                ~ok,
+                "decimal-sum scaling went stale (values no longer integral at "
+                "the learned scale, or sum bound exceeded)",
+                [key],
+            )
+            out[j] = scaled
+            unscale[j] = float(10 ** int(code))
+        return out, unscale
+
     def _run_group_agg(
         self,
         batch: DeviceBatch,
         ops: list[AggOp],
         n_groups: int,
+        cap: int,
         from_state: bool,
         ctx: TaskContext,
+        site: str,
     ) -> DeviceBatch:
         """One grouped pass -> state-shaped DeviceBatch. ``from_state``:
         the value columns are already state slots (merge pass); otherwise
@@ -429,16 +531,24 @@ class HashAggregateExec(ExecutionPlan):
             else:
                 val_cols.append(batch.columns[s.src])
                 val_nulls.append(batch.nulls[s.src])
+        # a batch of N rows holds at most N groups: small batches stay
+        # cheap when the capacity grew for a big merge
+        cap = min(cap, max(batch.capacity, 16))
         vocab = self._dense_vocab(batch, n_groups)
-        if vocab is None:
-            raise NotImplementedError(
-                "grouped aggregate over keys that are not dictionary-coded "
-                "or boolean needs the sort-based path, which is not ported "
-                "yet (ROADMAP queue 1, item 4)"
+        dec_unscale: list = [None] * len(val_cols)
+        if vocab is not None:
+            # dictionary-coded or boolean keys with a small domain: the
+            # dense path (the one-hot kernel; it sums f64 deterministically)
+            res = dense_group_aggregate(
+                key_cols, key_nulls, vocab, batch.valid, val_cols, val_nulls, list(ops)
             )
-        res = dense_group_aggregate(
-            key_cols, key_nulls, vocab, batch.valid, val_cols, val_nulls, list(ops)
-        )
+        else:
+            val_cols, dec_unscale = self._dec_scaled_sums(
+                val_cols, val_nulls, ops, batch, ctx, site, from_state
+            )
+            res = group_aggregate(
+                key_cols, key_nulls, batch.valid, val_cols, val_nulls, list(ops), cap
+            )
         ctx.defer_check(
             res.overflow,
             "aggregate exceeded group capacity; raise ballista.tpu.agg_capacity",
@@ -446,6 +556,15 @@ class HashAggregateExec(ExecutionPlan):
         )
         state_schema = batch.schema if from_state else self._schema
         out = _state_batch(res, state_schema)
+        if any(d is not None for d in dec_unscale):
+            # back to value units by the reciprocal, as the reference's
+            # compiled divide by a constant does, so that the sums match it
+            # bit for bit (a divide can differ from it in the last bit)
+            cols = list(out.columns)
+            for j, d in enumerate(dec_unscale):
+                if d is not None:
+                    cols[n_groups + j] = cols[n_groups + j] * (1.0 / d)
+            out.columns = tuple(cols)
         dicts = {
             k: v
             for k, v in batch.dictionaries.items()
@@ -488,14 +607,15 @@ class HashAggregateExec(ExecutionPlan):
         return vocab
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        cap = self._agg_capacity(ctx)
         n_groups = len(self.spec.group_names)
         if self.mode == "partial":
-            yield from self._execute_partial(partition, ctx, n_groups)
+            yield from self._execute_partial(partition, ctx, cap, n_groups)
         else:
-            yield from self._execute_final(partition, ctx, n_groups)
+            yield from self._execute_final(partition, ctx, cap, n_groups)
 
     def _execute_partial(
-        self, partition: int, ctx: TaskContext, n_groups: int
+        self, partition: int, ctx: TaskContext, cap: int, n_groups: int
     ) -> Iterator[DeviceBatch]:
         from ballista_tpu_torch.exec.pipeline import ProjectionExec
 
@@ -514,10 +634,13 @@ class HashAggregateExec(ExecutionPlan):
             return
 
         merge_ops = [s.op.merge_op for s in self.spec.slots]
+        # the plan-cache site of this operator's learned decimal scales
+        site = self.display()
 
         def fold(states: list[DeviceBatch]) -> DeviceBatch:
             return self._run_group_agg(
-                concat_batches(states), merge_ops, n_groups, from_state=True, ctx=ctx
+                concat_batches(states), merge_ops, n_groups, cap, from_state=True,
+                ctx=ctx, site=site + "|fold",
             )
 
         # fold every few batches: bounds the live states (merge ops are
@@ -526,7 +649,9 @@ class HashAggregateExec(ExecutionPlan):
         for b in self._pre_plan.execute(partition, ctx):
             with self.metrics.time("agg_time"):
                 partials.append(
-                    self._run_group_agg(b, ops, n_groups, from_state=False, ctx=ctx)
+                    self._run_group_agg(
+                        b, ops, n_groups, cap, from_state=False, ctx=ctx, site=site
+                    )
                 )
                 if len(partials) >= self._FOLD_WIDTH:
                     partials = [fold(partials)]
@@ -542,7 +667,7 @@ class HashAggregateExec(ExecutionPlan):
         yield partials[0]
 
     def _execute_final(
-        self, partition: int, ctx: TaskContext, n_groups: int
+        self, partition: int, ctx: TaskContext, cap: int, n_groups: int
     ) -> Iterator[DeviceBatch]:
         merge_ops = [s.op.merge_op for s in self.spec.slots]
         states = list(self.input.execute(partition, ctx))
@@ -570,6 +695,7 @@ class HashAggregateExec(ExecutionPlan):
             return
         with self.metrics.time("merge_time"):
             state = self._run_group_agg(
-                concat_batches(states), merge_ops, n_groups, from_state=True, ctx=ctx
+                concat_batches(states), merge_ops, n_groups, cap, from_state=True,
+                ctx=ctx, site=self.display(),
             )
         yield finalize_state(state, self.spec, self._schema)

@@ -2,8 +2,11 @@
 
 The port of ``ballista_tpu/exec/base.py``: ``schema()``,
 ``output_partitioning()``, ``execute(partition, ctx)`` streaming
-DeviceBatches, per-operator metrics, and the task context that carries the
-device and the deferred device checks.
+DeviceBatches, per-operator metrics, the task context that carries the
+device, the deferred device checks and the plan-cache speculation
+protocol, and the retry loop ``run_with_capacity_retry``. Not ported: the
+reference's JAX profiler branch, its spill manager and its plan-cache
+eviction by age (the port clears an overfull cache).
 """
 
 from __future__ import annotations
@@ -27,48 +30,246 @@ class UnknownPartitioning:
 @dataclasses.dataclass
 class TaskContext:
     """Per-task runtime state: the session config, the device every batch
-    of the task lives on (the card unless the caller asks for the CPU), and
-    the deferred device checks."""
+    of the task lives on (the card unless the caller asks for the CPU), the
+    deferred device checks, and the plan-cache speculation protocol."""
 
     config: BallistaConfig = dataclasses.field(default_factory=BallistaConfig)
     device: torch.device | str = "cuda"
+    # After an aggregate overflowed its group capacity, the retry runs with
+    # this capacity (it wins over the configured one).
+    agg_capacity_override: int | None = None
+    # Capacities that earlier retries grew at other sites, by site key (a
+    # join's m:n expansion: ("expand_cap", the join's plan, its build key,
+    # kind, partition) -> output rows). Each site grows alone; none moves
+    # the aggregates'.
+    site_capacity: dict = dataclasses.field(default_factory=dict)
     # Deferred on-device error flags (bool scalars). Reading a scalar waits
     # for the device, so operators queue their checks here and the task
     # boundary fetches them all at once (raise_deferred), instead of one
     # sync per batch.
     deferred_checks: list = dataclasses.field(default_factory=list)
+    # Cross-run plan-shape cache (join build flags, probe-table sizes,
+    # decimal scales), owned by the context and shared across queries.
+    # Entries are speculative: every use queues a validation flag through
+    # defer_speculation; a fired flag discards the run, and the retry loop
+    # retries without the stale entries.
+    plan_cache: dict | None = None
+    # validation flags of plan_cache entries: (flag, message, cache keys)
+    speculative_checks: list = dataclasses.field(default_factory=list)
+    # (cache key, value, is_bool) written to plan_cache at a clean task
+    # boundary (see defer_learn)
+    learned_values: list = dataclasses.field(default_factory=list)
+    # callables run at a clean task boundary only (see defer_commit)
+    clean_commits: list = dataclasses.field(default_factory=list)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
 
-    def defer_check(self, flag, message: str, required=None) -> None:
+    def defer_check(self, flag, message: str, required=None, site=None) -> None:
         """Queue a device bool ``flag``; if it is set at the task boundary
         the task fails with ``message``. ``required`` (device int scalar) is
-        the capacity that would have sufficed."""
-        self.deferred_checks.append((flag, message, required))
+        the capacity that would have sufficed: a check that carries one
+        fails with a CapacityError, which the retry loop retries. ``site``
+        names the capacity the check guards when it is not the aggregates'
+        (a key of ``site_capacity``)."""
+        self.deferred_checks.append((flag, message, required, site))
+
+    def defer_speculation(self, flag, message: str, cache_keys: list) -> None:
+        """Queue a device bool validating a plan_cache speculation; if it
+        is set at the task boundary the task raises SpeculationMiss carrying
+        ``cache_keys``, so the retry loop can drop them and run again."""
+        self.speculative_checks.append((flag, message, list(cache_keys)))
+
+    def defer_learn(self, cache_key, value) -> None:
+        """Queue a value (a device scalar, or a host bool or int) to be
+        learned into the plan cache at a clean task boundary. Values for one
+        key are AND-ed (bools) or max-ed (ints) across the run's batches;
+        nothing is written if the run fails its checks."""
+        if self.plan_cache is not None:
+            is_bool = isinstance(value, bool) or (
+                isinstance(value, torch.Tensor) and value.dtype == torch.bool
+            )
+            self.learned_values.append((cache_key, value, is_bool))
+
+    def defer_commit(self, fn) -> None:
+        """Queue a host-side cache mutation to run only if this task ends
+        clean: a run that fails a deferred check may have computed from
+        truncated intermediates."""
+        self.clean_commits.append(fn)
+
+    def _clear_deferred(self) -> None:
+        self.deferred_checks = []
+        self.speculative_checks = []
+        self.learned_values = []
+        self.clean_commits = []
 
     def raise_deferred(self) -> None:
-        if not self.deferred_checks:
-            return
-        from ballista_tpu_torch.errors import CapacityError
+        """Fetch every queued flag, capacity and learned value in one
+        device-to-host copy, then: raise SpeculationMiss if a speculation
+        failed (the run's output is invalid whatever else it says), else
+        raise on a fired check, else commit the learned values and the
+        queued cache mutations."""
+        from ballista_tpu_torch.errors import (
+            CapacityError,
+            ExecutionError,
+            SpeculationMiss,
+        )
 
-        checks, self.deferred_checks = self.deferred_checks, []
-        def scalar(v) -> torch.Tensor:
-            return torch.as_tensor(v, device=self.device).reshape(()).to(torch.int64)
-
-        # one (k, 2) device->host copy for every flag and its capacity
-        got = torch.stack(
-            [
-                torch.stack([scalar(f), scalar(0 if r is None else r)])
-                for f, _, r in checks
-            ]
-        ).cpu()
-        fired = [(m, int(r)) for (_, m, _), (f, r) in zip(checks, got) if bool(f)]
-        if fired:
-            raise CapacityError(
-                "; ".join(dict.fromkeys(m for m, _ in fired)),
-                required=max(r for _, r in fired),
+        checks, specs = self.deferred_checks, self.speculative_checks
+        learned, commits = self.learned_values, self.clean_commits
+        self._clear_deferred()
+        queued = (
+            [f for f, _, _, _ in checks]
+            + [0 if r is None else r for _, _, r, _ in checks]
+            + [f for f, _, _ in specs]
+            + [v for _, v, _ in learned]
+        )
+        got: list[int] = []
+        if queued:
+            got = torch.stack(
+                [torch.as_tensor(v, device=self.device).reshape(()).to(torch.int64) for v in queued]
+            ).tolist()
+        n, ns = len(checks), len(specs)
+        flags, reqs = got[:n], got[n : 2 * n]
+        spec_flags, values = got[2 * n : 2 * n + ns], got[2 * n + ns :]
+        spec_fired = [(m, keys) for (_, m, keys), f in zip(specs, spec_flags) if f]
+        if spec_fired:
+            raise SpeculationMiss(
+                "; ".join(dict.fromkeys(m for m, _ in spec_fired)),
+                invalid_keys=[k for _, keys in spec_fired for k in keys],
             )
+        fired = [
+            (m, r, req, site)
+            for (_, m, req, site), f, r in zip(checks, flags, reqs) if f
+        ]
+        if fired:
+            msg = "; ".join(dict.fromkeys(m for m, _, _, _ in fired))
+            if any(req is not None for _, _, req, _ in fired):
+                sites: dict = {}
+                for _, r, req, site in fired:
+                    if req is not None and site is not None:
+                        sites[site] = max(sites.get(site, 0), r)
+                agg = [r for _, r, req, site in fired if req is not None and site is None]
+                raise CapacityError(msg, required=max(agg, default=0), sites=sites)
+            raise ExecutionError(msg)
+        for fn in commits:
+            fn()
+        if self.plan_cache is None:
+            return
+        for (key, _, is_bool), v in zip(learned, values):
+            prev = self.plan_cache.get(key)
+            if is_bool:
+                # one batch that says no vetoes the fast path
+                self.plan_cache[key] = bool(v) if prev is None else (prev and bool(v))
+            elif isinstance(key, tuple) and key and key[0] == "dec_sum_last":
+                # merge-site decimal scales replace rather than max: the
+                # first run's merge inputs are inexact float partials and
+                # would otherwise veto forever; each run re-learns from its
+                # own inputs until they are exact
+                self.plan_cache[key] = v
+            else:
+                # capacities and scales cover every batch
+                self.plan_cache[key] = v if prev is None else max(prev, v)
+
+
+# Ceiling of the adaptive aggregate-capacity growth (groups), as in the
+# reference. Beyond it a query needs a hash-repartitioned aggregate.
+AGG_CAPACITY_HARD_MAX = 1 << 25
+
+# Bound of a long-lived plan-strategy cache, as in the reference.
+PLAN_CACHE_MAX_ENTRIES = 4096
+
+
+def run_with_capacity_retry(
+    config: BallistaConfig,
+    fn,
+    device: torch.device | str = "cuda",
+    hint: dict | None = None,
+    plan_cache: dict | None = None,
+    stats: dict | None = None,
+):
+    """The execution loop: build a TaskContext, run ``fn(ctx)``, raise
+    the deferred device checks, and retry on two faults:
+
+    - a CapacityError: run again with the capacity that overflowed grown
+      to the reported need and snapped to the capacity ladder. An
+      aggregate's group capacity (shared by every aggregate of the run) at
+      least doubles, up to ``AGG_CAPACITY_HARD_MAX``; a keyed site's (a
+      join's expansion) grows alone, to the rows it needed;
+    - a SpeculationMiss (a plan-cache entry went stale): drop the stale
+      keys and run again.
+
+    ``hint`` is a caller-owned dict that remembers the capacities a run
+    grew to (keys ``"agg_capacity"`` and ``"site_capacity"``), so warm
+    re-runs start there instead of overflowing again. ``stats``, when
+    given, counts the retries
+    (``"capacity_retries"``, ``"speculation_misses"``)."""
+    from ballista_tpu_torch.columnar.batch import round_capacity
+    from ballista_tpu_torch.errors import CapacityError, SpeculationMiss
+
+    override: int | None = (hint or {}).get("agg_capacity")
+    if override is not None and override <= config.agg_capacity():
+        override = None
+    sites: dict = dict((hint or {}).get("site_capacity", {}))
+    if len(sites) > PLAN_CACHE_MAX_ENTRIES:
+        sites.clear()
+    if plan_cache is not None and len(plan_cache) > PLAN_CACHE_MAX_ENTRIES:
+        plan_cache.clear()
+    spec_misses = 0
+    while True:
+        ctx = TaskContext(
+            config=config, device=device, agg_capacity_override=override,
+            site_capacity=dict(sites), plan_cache=plan_cache,
+        )
+        # operators write some plan-cache entries during the run (join
+        # build flags, probe-table sizes); a failed attempt may have taken
+        # them from truncated intermediates, so it leaves the cache as it
+        # found it (the reference keeps them, and pays a speculation miss
+        # on the retry)
+        before = None if plan_cache is None else dict(plan_cache)
+        try:
+            out = fn(ctx)
+            ctx.raise_deferred()
+            if hint is not None:
+                if override is not None:
+                    hint["agg_capacity"] = max(hint.get("agg_capacity", 0), override)
+                if sites:
+                    hint["site_capacity"] = sites
+            return out
+        except (SpeculationMiss, CapacityError) as e:
+            ctx._clear_deferred()
+            if plan_cache is not None:
+                plan_cache.clear()
+                plan_cache.update(before)
+            if isinstance(e, SpeculationMiss):
+                if plan_cache is not None:
+                    for k in e.invalid_keys:
+                        plan_cache.pop(k, None)
+                spec_misses += 1
+                if stats is not None:
+                    stats["speculation_misses"] = stats.get("speculation_misses", 0) + 1
+                if spec_misses > 3:  # each retry drops its stale entries;
+                    # more means something re-poisons the cache every run
+                    raise
+                continue
+            for site, rows in e.sites.items():
+                new_cap = round_capacity(max(rows, 1))
+                if new_cap <= sites.get(site, 0):
+                    raise  # grown already, and still short
+                sites[site] = new_cap
+            if e.required > 0 or not e.sites:  # an aggregate overflowed
+                base = override or config.agg_capacity()
+                need = max(e.required + 1, base * 2)
+                new_cap = round_capacity(need)
+                if need <= AGG_CAPACITY_HARD_MAX < new_cap:
+                    new_cap = AGG_CAPACITY_HARD_MAX
+                if new_cap > AGG_CAPACITY_HARD_MAX or (
+                    override is not None and new_cap <= override
+                ):
+                    raise
+                override = new_cap
+            if stats is not None:
+                stats["capacity_retries"] = stats.get("capacity_retries", 0) + 1
 
 
 class Metrics:
@@ -157,11 +358,3 @@ class ExecutionPlan:
 
         walk(self, 0)
         return "\n".join(lines)
-
-
-def execute_to_batches(plan: ExecutionPlan, ctx: TaskContext) -> list[DeviceBatch]:
-    """Run every output partition of a plan and collect the batches."""
-    out: list[DeviceBatch] = []
-    for p in range(plan.output_partitioning().n):
-        out.extend(plan.execute(p, ctx))
-    return out

@@ -9,8 +9,14 @@ do); with no CUDA device it raises rather than fall back.
 Physical plans are cached on the optimized logical plan (a structural
 fingerprint), the settings and the registered data's version, so a repeated
 query reuses its operators, and a registered table keeps its uploaded
-device batches for warm queries. Not ported: history and system tables, the
-staleness witness, plan verification, file registration, DDL statements.
+device batches for warm queries. Every run goes through
+``run_with_capacity_retry``: an aggregate that outgrows its group capacity
+runs again with the capacity grown, and a stale plan-cache speculation runs
+again without it. The context keeps the plan cache (join build flags,
+probe-table sizes, decimal scales) and the grown capacity across runs, as
+``TpuContext`` does. Not ported: history and system tables, the staleness
+witness, plan verification, file registration, DDL statements, the
+persisted capacity hints.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from ballista_tpu_torch.columnar.batch import resolve_device
 from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.datatypes import Schema
 from ballista_tpu_torch.errors import PlanError
-from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, execute_to_batches
+from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, run_with_capacity_retry
 from ballista_tpu_torch.exec.planner import PhysicalPlanner, TableProvider
 from ballista_tpu_torch.exec.scan import MemoryScanExec
 from ballista_tpu_torch.plan.logical import LogicalPlan
@@ -69,11 +75,18 @@ class TorchContext(Catalog, TableProvider):
         self.device = resolve_device(device)
         self.tables: dict[str, tuple[Schema, pa.Table, dict]] = {}
         self._physical_cache: dict = {}
+        # cross-run plan-shape facts (see TaskContext.plan_cache)
+        self._plan_cache: dict = {}
+        # the aggregate capacity a run grew to (see run_with_capacity_retry)
+        self._capacity_hint: dict = {}
 
     # -- registration --------------------------------------------------------
     def register_table(self, name: str, table: pa.Table) -> None:
         # the dict is the table-lifetime device cache of its scans
         self.tables[name] = (schema_from_arrow(table.schema), table, {})
+        # new data: learned plan shapes may be stale (they are validated
+        # anyway; clearing avoids a certain speculation miss)
+        self._plan_cache.clear()
         self._physical_cache.clear()
 
     def schema_of(self, table: str) -> Schema:
@@ -139,6 +152,9 @@ class DataFrame:
     def __init__(self, ctx: TorchContext, logical: LogicalPlan):
         self.ctx = ctx
         self.logical = logical
+        # retries of the last collect: "capacity_retries",
+        # "speculation_misses"
+        self.stats: dict = {}
 
     def collect(self) -> pa.Table:
         return self.collect_with_plan()[0]
@@ -147,10 +163,22 @@ class DataFrame:
         """(table, executed physical plan): the plan handle carries this
         run's per-operator metrics."""
         phys = self.ctx.create_physical_plan(self.logical)
-        task = TaskContext(config=self.ctx.config, device=self.ctx.device)
-        batches = [batch_to_arrow(b) for b in execute_to_batches(phys, task)]
-        batches = [rb for rb in batches if rb.num_rows]
-        task.raise_deferred()
+
+        def run(task: TaskContext) -> list[pa.RecordBatch]:
+            out = []
+            for p in range(phys.output_partitioning().n):
+                for b in phys.execute(p, task):
+                    rb = batch_to_arrow(b)
+                    if rb.num_rows:
+                        out.append(rb)
+            return out
+
+        self.stats = {}
+        batches = run_with_capacity_retry(
+            self.ctx.config, run, device=self.ctx.device,
+            hint=self.ctx._capacity_hint, plan_cache=self.ctx._plan_cache,
+            stats=self.stats,
+        )
         if not batches:
             return schema_to_arrow(phys.schema()).empty_table(), phys
         return pa.Table.from_batches(batches), phys

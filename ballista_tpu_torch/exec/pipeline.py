@@ -1,12 +1,13 @@
-"""Row-pipeline operators: Filter, Projection, Coalesce (port of
+"""Row-pipeline operators: Filter, Projection, Coalesce, Rename (port of
 ``ballista_tpu/exec/pipeline.py``).
 
 Filter and Projection are per-batch functions. As in the reference, the
 outermost operator of a Filter/Projection chain runs the whole chain on
 each batch of the chain's source; here that is a plain Python loop over the
-operators (eager torch has no program to fuse). The reference's adaptive
-capacity shrink (``exec/shrink.py``) does not change results and is
-ROADMAP queue 1, item 5.
+operators (eager torch has no program to fuse). RenameExec relabels a
+subquery's columns. The reference's adaptive capacity shrink
+(``exec/shrink.py``) does not change results and is ROADMAP queue 1,
+item 5.
 """
 
 from __future__ import annotations
@@ -157,3 +158,40 @@ class CoalescePartitionsExec(ExecutionPlan):
         assert partition == 0, "coalesce has a single output partition"
         for p in range(self.input.output_partitioning().n):
             yield from self.input.execute(p, ctx)
+
+
+class RenameExec(ExecutionPlan):
+    """Schema rename (SubqueryAlias): the same columns under requalified
+    names; string dictionaries follow their columns."""
+
+    def __init__(self, input: ExecutionPlan, new_schema: Schema) -> None:
+        super().__init__()
+        self.input = input
+        self._schema = new_schema
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def children(self) -> list[ExecutionPlan]:
+        return [self.input]
+
+    def output_partitioning(self):
+        return self.input.output_partitioning()
+
+    def describe(self) -> str:
+        return f"RenameExec: {self._schema.names}"
+
+    def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        for b in self.input.execute(partition, ctx):
+            dicts = {}
+            for i, nf in enumerate(self._schema):
+                d = b.dictionaries.get(b.schema.fields[i].name)
+                if d is not None:
+                    dicts[nf.name] = d
+            yield DeviceBatch(
+                schema=self._schema,
+                columns=b.columns,
+                valid=b.valid,
+                nulls=b.nulls,
+                dictionaries=dicts,
+            )

@@ -2,31 +2,34 @@
 ``ballista_tpu/exec/planner.py``, single-process tier).
 
 It builds the reference's operator tree node for node, so a plan's
-``display()`` is the reference's: aggregates lower to a partial/final pair
-around a coalesce, pushed-down scan filters become FilterExecs, sorts and
-limits gather their input. Logical nodes whose operators are not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``display()`` is the reference's: aggregates and DISTINCT lower to a
+partial/final pair around a coalesce, pushed-down scan filters become
+FilterExecs, sorts and limits gather their input, joins lower to
+collect-mode hash joins (RIGHT flipped to LEFT, the build side of a SEMI or
+ANTI join deduplicated on its keys), and a subquery alias renames. Logical
+nodes whose operators are not ported yet raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 from ballista_tpu_torch.exec.aggregate import HashAggregateExec
 from ballista_tpu_torch.exec.base import ExecutionPlan
+from ballista_tpu_torch.exec.joins import HashJoinExec
 from ballista_tpu_torch.exec.pipeline import (
     CoalescePartitionsExec,
     FilterExec,
     ProjectionExec,
+    RenameExec,
 )
 from ballista_tpu_torch.exec.sort import GlobalLimitExec, SortExec
+from ballista_tpu_torch.expr import logical as L
 from ballista_tpu_torch.plan import logical as P
 
 _NOT_PORTED = {
-    "Join": "joins (ROADMAP queue 1, item 6)",
-    "CrossJoin": "joins (ROADMAP queue 1, item 6)",
-    "Union": "joins and unions (ROADMAP queue 1, item 6)",
-    "EmptyRelation": "joins and unions (ROADMAP queue 1, item 6)",
-    "Distinct": "the sort-based aggregate (ROADMAP queue 1, item 4)",
-    "SubqueryAlias": "the rename operator (ROADMAP queue 1, item 6)",
+    "CrossJoin": "CrossJoinExec (ROADMAP queue 1, item 6)",
+    "Union": "UnionExec (ROADMAP queue 1, item 6)",
+    "EmptyRelation": "EmptyExec (ROADMAP queue 1, item 6)",
     "Window": "window functions (ROADMAP queue 1, item 7)",
     "Percentile": "percentiles (ROADMAP queue 1, item 7)",
 }
@@ -67,17 +70,12 @@ class PhysicalPlanner:
         if isinstance(node, P.Filter):
             return FilterExec(self._plan(node.input), node.predicate)
         if isinstance(node, P.Aggregate):
-            child = self._plan(node.input)
-            partial = HashAggregateExec(
-                child, list(node.group_exprs), list(node.agg_exprs), mode="partial"
+            return self._two_phase(
+                self._plan(node.input), list(node.group_exprs), list(node.agg_exprs)
             )
-            return HashAggregateExec(
-                CoalescePartitionsExec(partial),
-                list(node.group_exprs),
-                list(node.agg_exprs),
-                mode="final",
-                spec=partial.spec,
-            )
+        if isinstance(node, P.Distinct):
+            groups = [L.Column(f.name) for f in node.input.schema()]
+            return self._two_phase(self._plan(node.input), groups, [])
         if isinstance(node, P.Sort):
             return SortExec(self._plan(node.input), list(node.sort_exprs))
         if isinstance(node, P.Limit):
@@ -85,9 +83,50 @@ class PhysicalPlanner:
             if child.output_partitioning().n > 1:
                 child = CoalescePartitionsExec(child)
             return GlobalLimitExec(child, node.skip, node.fetch)
+        if isinstance(node, P.Join):
+            return self._plan_join(node)
+        if isinstance(node, P.SubqueryAlias):
+            return RenameExec(self._plan(node.input), node.schema())
         what = _NOT_PORTED.get(type(node).__name__)
         if what is not None:
             raise NotImplementedError(
                 f"{type(node).__name__} needs {what}, not ported yet"
             )
         raise NotImplementedError(f"cannot lower {type(node).__name__}")
+
+    @staticmethod
+    def _two_phase(child: ExecutionPlan, groups: list, aggs: list) -> ExecutionPlan:
+        """A partial aggregate per input partition, then a final merge
+        behind a coalesce."""
+        partial = HashAggregateExec(child, groups, aggs, mode="partial")
+        return HashAggregateExec(
+            CoalescePartitionsExec(partial), groups, aggs, mode="final",
+            spec=partial.spec,
+        )
+
+    def _plan_join(self, node: P.Join) -> ExecutionPlan:
+        jt = node.join_type
+        if jt == P.JoinType.FULL:
+            raise NotImplementedError(
+                "FULL joins need UnionExec, not ported yet (ROADMAP queue 1, item 6)"
+            )
+        if jt == P.JoinType.RIGHT:
+            # flip to LEFT; a projection restores the column order
+            flipped = P.Join(
+                node.right, node.left,
+                tuple((b, a) for a, b in node.on),
+                P.JoinType.LEFT, node.filter,
+            )
+            return ProjectionExec(
+                self._plan_join(flipped), [L.Column(f.name) for f in node.schema()]
+            )
+        left = self._plan(node.left)
+        right = self._plan(node.right)
+        if jt in (P.JoinType.SEMI, P.JoinType.ANTI) and node.filter is None:
+            # the probe needs a unique build side, and existence semantics
+            # allow deduplicating it on the join keys
+            keys = [b for _, b in node.on]
+            right = self._two_phase(right, keys, [])
+            on = [(a, L.Column(k.name())) for (a, _), k in zip(node.on, keys)]
+            return HashJoinExec(left, right, on, jt, None)
+        return HashJoinExec(left, right, list(node.on), jt, node.filter)

@@ -282,7 +282,7 @@ def _compile_string_cmp(op: L.Operator, lf, rf, lt: DataType, rt: DataType):
         if ld.values == rd.values:
             lcodes, rcodes = lv.values, rv.values
         else:
-            _, ra, rb = dict_util.merge_dictionaries(ld, rd)
+            _, (ra, rb) = dict_util.merge_many((ld, rd))
             lcodes = dict_util.remap_codes(lv.values, ra)
             rcodes = dict_util.remap_codes(rv.values, rb)
         return ColumnValue(_CMP[op](lcodes, rcodes), nulls, DataType.BOOL)

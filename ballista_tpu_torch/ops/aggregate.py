@@ -1,15 +1,21 @@
-"""Grouped and scalar aggregation on torch tensors.
+"""Grouped and scalar aggregation on torch tensors (port of
+``ballista_tpu/ops/aggregate.py``).
 
-The port of the dense and scalar paths of ``ballista_tpu/ops/aggregate.py``:
-
+- ``group_aggregate``: sort-based grouping for any keys. The keys sort by
+  stable LSD passes (``ops/perm.py``), every column rides one stacked
+  gather, and a segment finisher reduces the now-adjacent groups: SUM and
+  COUNT by differences of prefix sums at the segment starts, MIN/MAX by a
+  scatter, keys gathered at each segment's first row. Output has a fixed
+  group capacity; more groups than that set the ``overflow`` flag, which
+  the operator defers to the task boundary.
 - ``dense_group_aggregate``: grouping over dictionary-coded or boolean
   keys, where the group slot is the mixed-radix index over (vocab + 1)
   values per key (the +1 is NULL). No sort; every reduction is one pass over
   the rows. This is TPC-H q1's shape (12 slots).
 - ``scalar_aggregate``: ungrouped SUM/COUNT/MIN/MAX (q6).
 
-The sort-based ``group_aggregate`` (for keys that are not dense) waits for
-the sort slice (ROADMAP queue 1, item 4).
+SQL grouping semantics are the reference's: NULL is its own group, NaN
+equals NaN, -0.0 equals +0.0, and groups come out in the keys' sort order.
 
 Routing in ``_stacked_reduce``: every dense aggregate (up to
 ``onehot_agg.MAX_SLOTS`` = 65,536 slots, which is also
@@ -35,6 +41,7 @@ import torch
 
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.ops import onehot_agg
+from ballista_tpu_torch.ops.perm import multi_key_perm, take_batch, take_many_split
 
 
 class AggOp(Enum):
@@ -170,6 +177,260 @@ def _stacked_reduce(
         for j, (i, _) in enumerate(entries):
             out_vals[i] = res[:, j]
     return out_vals, out_val_nulls
+
+
+# -- the sort-based path -------------------------------------------------------
+#
+# After the group sort, rows of one group are adjacent, so no reduction
+# needs a hash table:
+#
+#   sum[g]   = prefix(contrib)[end_g] - prefix(contrib)[start_g - 1]
+#   count[g] = the same over the live flag
+#   keys[g]  = key columns gathered at start_g
+#
+# Segment starts come from one scatter-min of the row index. Dead rows
+# (all at the tail after the sort) add nothing to any prefix, so the prefix
+# just before one segment's start is the prefix at the previous segment's
+# end, and no end positions are needed. MIN/MAX keep a scatter. The
+# reference builds its f64 prefix on the TPU from blocked triangular
+# matmuls (``_mm_prefix``), a compile-time workaround; here it is one
+# ``torch.cumsum`` in f64 (int64 and counts: exact integer cumsums). An f64
+# prefix difference rounds like another summation order: its error is
+# relative to the running prefix, not to the group's sum, as in the
+# reference. Sums that must be exact go through the operator's decimal
+# scaling (``exec/aggregate._dec_scaled_sums``), which makes them int64.
+
+
+def _same_val(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SQL group equality: NaN == NaN is one group; -0.0 == +0.0."""
+    same = a == b
+    if a.dtype.is_floating_point:
+        same = same | (torch.isnan(a) & torch.isnan(b))
+    return same
+
+
+# ``_gt_val`` and ``_ffill_tuple`` are the pieces of the reference's
+# clustered-input path (rows speculated to arrive grouped, no sort), which
+# is not ported yet (ROADMAP queue 1, item 4); they are held against the
+# reference's in the tests.
+
+
+def _gt_val(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sort-order 'greater': NaN sorts after every number."""
+    if a.dtype.is_floating_point:
+        return (a > b) | (torch.isnan(a) & ~torch.isnan(b))
+    return a > b
+
+
+def _ffill_tuple(vals: tuple, flag: torch.Tensor) -> tuple[tuple, torch.Tensor]:
+    """Forward-fill ``vals`` from the last flagged row at or before each
+    row: (filled values, filled flag). The reference doubles
+    Hillis-Steele style; here the source row is a running max of the
+    flagged row indices, which picks the same row."""
+    n = flag.shape[0]
+    iota = torch.arange(n, device=flag.device)
+    src = torch.cummax(torch.where(flag, iota, -1), dim=0).values
+    filled = src >= 0
+    at = src.clamp(min=0)
+    return tuple(torch.where(filled, v[at], v) for v in vals), filled
+
+
+def _seg_layouts(val_dtypes: tuple, null_sig: tuple, ops: tuple):
+    """Which live-count prefix serves each column (columns without nulls
+    share one), how SUM columns stack per accumulator dtype, and which
+    columns reduce by scatter-min/max."""
+    live_keys: list[int] = []
+    live_index: dict[int, int] = {}
+    for i, has_null in enumerate(null_sig):
+        k = i if has_null else -1
+        if k not in live_index:
+            live_index[k] = len(live_keys)
+            live_keys.append(k)
+    sum_groups: dict[torch.dtype, list[int]] = {}
+    mm_idx: list[int] = []
+    for i, (dt, op) in enumerate(zip(val_dtypes, ops)):
+        if op == AggOp.SUM:
+            sum_groups.setdefault(_sum_dtype(dt), []).append(i)
+        elif op in (AggOp.MIN, AggOp.MAX):
+            mm_idx.append(i)
+    sum_layout = tuple((dt, tuple(idxs)) for dt, idxs in sum_groups.items())
+    return sum_layout, tuple(live_keys), tuple(mm_idx)
+
+
+def _seg_part1(
+    valid, key_cols, key_nulls, val_cols, val_nulls, ops, capacity,
+    sum_layout, live_layout, mm_idx,
+):
+    """Segment starts, running sums and MIN/MAX over SORTED operands (live
+    rows first, groups adjacent)."""
+    n = valid.shape[0]
+    dev = valid.device
+    iota = torch.arange(n, device=dev)
+    head = torch.ones(1, dtype=torch.bool, device=dev)
+    changed = torch.zeros(n, dtype=torch.bool, device=dev)
+    changed[0] = True
+    for kc, kn in zip(key_cols, key_nulls):
+        z = kc
+        if kn is not None:
+            # the group identity of a null key is (null flag, zeroed value)
+            z = torch.where(kn, torch.zeros_like(kc), kc)
+            changed = changed | torch.cat([head, kn[1:] != kn[:-1]])
+        changed = changed | torch.cat([head, ~_same_val(z[1:], z[:-1])])
+    changed = changed & valid
+
+    seg = torch.cumsum(changed.to(torch.int32), 0) - 1
+    n_groups = changed.sum(dtype=torch.int32)
+    overflow = n_groups > capacity
+    # dead rows and segments past the capacity land in a spare slot, cut
+    sid = torch.where(valid & (seg < capacity), seg, capacity)
+    # segment starts: each segment's first row is the one row that changed
+    # into it, so a plain scatter of those rows gives the reference's
+    # scatter-min without a contended atomic per row
+    ps = torch.full((capacity + 1,), n, dtype=torch.int64, device=dev)
+    ps = ps.scatter_(0, torch.where(changed, sid, capacity), iota)[:capacity]
+
+    lives = [valid if vn is None else (valid & ~vn) for vn in val_nulls]
+    # one live-count prefix per distinct live mask; a key-only aggregate
+    # (DISTINCT, the SEMI-join dedup) has no value column: one dummy row
+    cnt_stack = torch.stack(
+        [(valid if k == -1 else lives[k]).to(torch.int32) for k in live_layout]
+        or [torch.zeros(n, dtype=torch.int32, device=dev)],
+        dim=1,
+    )
+    cnt_cs = torch.cumsum(cnt_stack, 0)
+
+    sum_cs = []
+    for dt, idxs in sum_layout:
+        contribs = [
+            torch.where(lives[i], val_cols[i], torch.zeros_like(val_cols[i])).to(dt)
+            for i in idxs
+        ]
+        sum_cs.append(torch.cumsum(torch.stack(contribs, dim=1), 0))
+    mm_vals = []
+    for i in mm_idx:
+        vc, live = val_cols[i], lives[i]
+        kind = "amin" if ops[i] == AggOp.MIN else "amax"
+        ident = (_max_ident if kind == "amin" else _min_ident)(vc.dtype)
+        masked = torch.where(live, vc, ident).unsqueeze(1)
+        mm_vals.append(_scatter_minmax(sid, capacity, masked, kind)[:, 0])
+    return n_groups, overflow, ps, cnt_cs, sum_cs, mm_vals
+
+
+def _seg_part2(
+    n_groups, ps, cnt_cs, sum_cs, mm_vals, key_cols, key_nulls, ops, capacity,
+    sum_layout, live_layout, mm_idx,
+) -> GroupAggResult:
+    """Per-group totals from one gather of each prefix at the segment
+    starts: ``pre[g] = cs[ps_g - 1]`` (0 when ``ps_g == 0``), and since
+    dead rows add nothing, ``pre[g + 1]`` is the prefix at segment g's end;
+    the last live group closes with the grand total ``cs[n - 1]``."""
+    n = cnt_cs.shape[0]
+    dev = ps.device
+    slot = torch.arange(capacity, dtype=torch.int32, device=dev)
+    out_valid = slot < n_groups
+    ps_c = ps.clamp(0, n - 1)
+    ps_prev = (ps_c - 1).clamp(0, n - 1)
+    is_last = (slot == n_groups - 1).unsqueeze(1)
+    has_pre = (ps > 0).unsqueeze(1)
+
+    def seg_totals(cs2d):
+        pre = torch.where(has_pre, cs2d[ps_prev], torch.zeros_like(cs2d[:1]))
+        nxt = torch.cat([pre[1:], pre[-1:]])
+        nxt = torch.where(is_last, cs2d[n - 1].unsqueeze(0), nxt)
+        return nxt - pre
+
+    cnt_tot = seg_totals(cnt_cs)
+    live_slot = {k: j for j, k in enumerate(live_layout)}
+    sum_tots = [seg_totals(cs2d) for cs2d in sum_cs]
+    sum_slot: dict[int, tuple[int, int]] = {}
+    for gi, (_, idxs) in enumerate(sum_layout):
+        for j, i in enumerate(idxs):
+            sum_slot[i] = (gi, j)
+    mm_map = dict(zip(mm_idx, mm_vals))
+
+    m = len(ops)
+    out_vals: list = [None] * m
+    out_val_nulls: list = [None] * m
+    for i, op in enumerate(ops):
+        nonnull = cnt_tot[:, live_slot[i if i in live_slot else -1]].to(torch.int64)
+        if op == AggOp.COUNT:
+            out_vals[i] = torch.where(out_valid, nonnull, 0)
+            continue
+        out_val_nulls[i] = nonnull == 0
+        if op == AggOp.SUM:
+            gi, j = sum_slot[i]
+            out_vals[i] = sum_tots[gi][:, j]
+        else:
+            out_vals[i] = mm_map[i]
+
+    # group keys: the first row of each segment is live and carries them
+    gathered, gathered_nulls = take_many_split(list(key_cols), list(key_nulls), ps_c)
+    out_keys = [torch.where(out_valid, k, torch.zeros_like(k)) for k in gathered]
+    out_key_nulls = [None if kn is None else kn & out_valid for kn in gathered_nulls]
+    return GroupAggResult(
+        keys=out_keys,
+        key_nulls=out_key_nulls,
+        values=out_vals,
+        value_nulls=out_val_nulls,
+        valid=out_valid,
+        n_groups=n_groups,
+        overflow=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+
+
+def _segment_aggregate(
+    valid, key_cols, key_nulls, val_cols, val_nulls, ops, capacity
+) -> GroupAggResult:
+    """The two-part segment reduction over sorted operands."""
+    layouts = _seg_layouts(
+        tuple(v.dtype for v in val_cols),
+        tuple(vn is not None for vn in val_nulls),
+        tuple(ops),
+    )
+    n_groups, overflow, ps, cnt_cs, sum_cs, mm_vals = _seg_part1(
+        valid, key_cols, key_nulls, val_cols, val_nulls, ops, capacity, *layouts
+    )
+    res = _seg_part2(
+        n_groups, ps, cnt_cs, sum_cs, mm_vals, key_cols, key_nulls, ops,
+        capacity, *layouts,
+    )
+    res.overflow = overflow
+    return res
+
+
+def group_aggregate(
+    key_cols: list[torch.Tensor],
+    key_nulls: list[torch.Tensor | None],
+    valid: torch.Tensor,
+    val_cols: list[torch.Tensor],
+    val_nulls: list[torch.Tensor | None],
+    ops: list[AggOp],
+    capacity: int,
+) -> GroupAggResult:
+    """Aggregate ``val_cols[i]`` with ``ops[i]`` grouped by ``key_cols``.
+
+    All inputs share one row axis; ``valid`` masks live rows. Outputs have
+    length ``capacity``, live groups first in key order; ``overflow`` is
+    set when there are more groups than ``capacity`` (the groups past it
+    are dropped, so the caller must not use the result then)."""
+    # valid rows first; a null key sorts by its flag, then a zeroed value,
+    # so all of a key's nulls compare equal
+    passes: list[tuple[torch.Tensor, bool]] = [(~valid, False)]
+    for kc, kn in zip(key_cols, key_nulls):
+        if kn is not None:
+            passes.append((kn, False))
+            passes.append((torch.where(kn, torch.zeros_like(kc), kc), False))
+        else:
+            passes.append((kc, False))
+    perm = multi_key_perm(passes)
+    s_cols, s_nulls, s_valid = take_batch(
+        list(key_cols) + list(val_cols), list(key_nulls) + list(val_nulls), valid, perm
+    )
+    nk = len(key_cols)
+    return _segment_aggregate(
+        s_valid, s_cols[:nk], s_nulls[:nk], s_cols[nk:], s_nulls[nk:], tuple(ops),
+        capacity,
+    )
 
 
 # Dense slots grow as prod(vocab+1); past this the reference takes its

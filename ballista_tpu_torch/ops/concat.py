@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ballista_tpu_torch.columnar.batch import DeviceBatch, round_capacity
-from ballista_tpu_torch.columnar.dict_util import merge_dictionaries, remap_codes
+from ballista_tpu_torch.columnar.dict_util import merge_many, remap_codes
 from ballista_tpu_torch.datatypes import DataType, Schema
 from ballista_tpu_torch.errors import InternalError
 
@@ -33,12 +33,9 @@ def unify_dictionaries(
             )
         if all(d.values == dicts[0].values for d in dicts):
             continue
-        merged = dicts[0]
-        for d in dicts[1:]:
-            merged, _, _ = merge_dictionaries(merged, d)
+        merged, remaps = merge_many(tuple(dicts))
         new_batches = []
-        for b, n, d in zip(out, names, dicts):
-            _, remap, _ = merge_dictionaries(d, merged)
+        for b, n, remap in zip(out, names, remaps):
             cols = list(b.columns)
             cols[i] = remap_codes(b.columns[i], remap)
             dd = dict(b.dictionaries)

@@ -1,5 +1,5 @@
-"""Multi-key sort of a batch (port of ``ballista_tpu/ops/sort.py`` and the
-LSD pass chain of ``ballista_tpu/ops/perm.py``).
+"""Multi-key sort of a batch (port of ``ballista_tpu/ops/sort.py``), on the
+LSD pass chain of ``ops/perm.py``.
 
 A multi-key sort runs as stable single-key argsort passes, least
 significant key first; all columns then ride one gather. Invalid rows
@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from ballista_tpu_torch.columnar.batch import DeviceBatch
+from ballista_tpu_torch.ops.perm import multi_key_perm, take_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,30 +53,6 @@ def resolve_sort_keys(schema, sort_exprs) -> list[SortKey]:
     return keys
 
 
-def stable_argsort(col: torch.Tensor, descending: bool = False) -> torch.Tensor:
-    c = col.to(torch.int32) if col.dtype == torch.bool else col
-    if c.dtype.is_floating_point:
-        # The card's radix sort orders bit patterns, so it puts a NaN with
-        # the sign bit set (as negating a NaN gives) first; the CPU's sort
-        # and the reference's put every NaN last and keep +-0.0 in input
-        # order. One NaN and one zero make the two agree.
-        if descending:
-            c = -c
-        c = torch.where(torch.isnan(c), torch.full_like(c, float("nan")), c + 0.0)
-    elif descending:
-        c = ~c
-    return torch.sort(c, stable=True).indices
-
-
-def multi_key_perm(passes: list[tuple[torch.Tensor, bool]]) -> torch.Tensor:
-    """Permutation sorting by ``passes`` (column, descending), given most
-    significant first and run least significant first."""
-    perm = torch.arange(passes[0][0].shape[0], device=passes[0][0].device)
-    for col, desc in reversed(passes):
-        perm = perm[stable_argsort(col[perm], desc)]
-    return perm
-
-
 def sort_perm(batch: DeviceBatch, keys: list[SortKey]) -> torch.Tensor:
     """The sorting permutation for ``keys`` (invalid rows last)."""
     passes = [(~batch.valid, False)]
@@ -90,11 +67,12 @@ def sort_perm(batch: DeviceBatch, keys: list[SortKey]) -> torch.Tensor:
 
 def gather_batch(batch: DeviceBatch, perm: torch.Tensor) -> DeviceBatch:
     """Reorder a whole batch by a permutation."""
+    cols, nulls, valid = take_batch(list(batch.columns), list(batch.nulls), batch.valid, perm)
     return DeviceBatch(
         schema=batch.schema,
-        columns=tuple(c[perm] for c in batch.columns),
-        valid=batch.valid[perm],
-        nulls=tuple(None if m is None else m[perm] for m in batch.nulls),
+        columns=tuple(cols),
+        valid=valid,
+        nulls=tuple(nulls),
         dictionaries=dict(batch.dictionaries),
     )
 

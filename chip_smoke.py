@@ -17,8 +17,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its own slot, two launches bit-identical. Times (CUDA events, after a
    warm-up): the kernel, the plain version, and one library call
    (``index_add_``) as a yardstick; the bound from the bytes and f64 adds.
-   Then a sweep over slots P (1 to 65,536) and value rows R at q1's batch
-   size, timing the kernel against its plain version (each point checked,
+   Then a sweep over slots P (1 to 65,536) and value rows R (1, 2, 6, 14,
+   64) at q1's batch size, timing the kernel against its plain version (each point checked,
    two launches bit-identical), which finds for each R the P*R at which
    the kernel first loses to the plain scatter. Then the kernel's two
    launch modes ("lanes" and "owners", see ``ops/onehot_agg.launch_plan``)
@@ -33,10 +33,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (filter, ``np.unique``, ``np.add.at`` in f64): keys and counts exact,
    floats within rtol 1e-9. The kernel's launch counter is zeroed
    just before and read just after; q1 must launch it (at SF >= 1, at
-   least 4 times in one run).
-   With ``--profile``, one more warm run of each query is traced with
-   ``torch.profiler`` (device time by kernel, device idle share).
-5. One JSON line of kernel results, then the last line
+   least 4 times in one run). Every launch's (n, R, P) is recorded; after
+   the counts and the peak memory are read, one more run of each query
+   keeps the inputs of its first launch at each shape, and the kernel is
+   held against its plain version on them (see phase 5).
+   With ``--profile``, one more warm run of each query (here and in phase
+   5) is traced with ``torch.profiler`` (device time by kernel, device idle
+   share).
+5. Joins: all eight TPC-H tables at ``--sf`` (seed 42) in one
+   ``TorchContext(device="cuda")``; q18, q3, q4, q5 and q10 from
+   ``benchmarks/queries/`` unchanged (q18 with its threshold of 300), one
+   cold and ``--warm`` warm runs each, every run checked against a numpy
+   oracle written here (keys, counts and row order exact, floats within
+   rtol 1e-9), two warm runs bit-identical (money sums included). q18's
+   first run must retry after its aggregate outgrows the default group
+   capacity; q4 and q5 must launch the one-hot kernel (counter zeroed
+   before each query, read after). ``ops/hashing.hash_columns`` on the
+   card must equal a numpy uint64 splitmix64 bit for bit, on int64, f64
+   and f32 columns with -0.0, NaNs and extreme values. The exact decimal
+   sums (``tests/test_decimal_exact.py``'s money table) on the card must
+   equal the CPU's: the first run within rtol 1e-9, the third bit for bit.
+   Prints per query the cold and warm seconds, rows, kernel launches and
+   their (n, R, P), capacity retries and the host-device synchronizations
+   of each run (torch's sync debug mode), then the phase's peak device
+   memory. Then, as in phase 4, the kernel against its plain version on
+   the inputs the queries gave it, one launch per distinct (n, R, P) (q4
+   and q5 launch it at R = 1 and 2): two launches bit-identical, counts exact,
+   sums within rtol 1e-12 of the correctly rounded sum (``math.fsum``) and
+   of the plain version's sum give or take that version's own worst-case
+   rounding error, with times and bound as in phase 3.
+6. One JSON line of kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -169,6 +195,155 @@ def kernel_case(n: int, m: int, n_sums: int, P: int, seed: int) -> dict:
     return res
 
 
+class LaunchRecorder:
+    """While active, stands in for ``onehot_agg.onehot_sums`` (the dense
+    route calls it through the module): each call on the card made while
+    ``tag`` is set adds its (n, R, P) to ``shapes[tag]``; with ``keep`` set
+    instead, the first call at each shape keeps a copy of its inputs for
+    ``replay_launches`` (see ``capture_launch_inputs``). The call itself
+    goes to the wrapper as before and counts its launch there."""
+
+    def __init__(self) -> None:
+        self.tag: str | None = None
+        self.keep = False
+        self.shapes: dict = {}  # tag -> [(n, R, P), ...], one per launch
+        self.inputs: dict = {}  # (n, R, P) -> (tag, rid, vals)
+
+    def __enter__(self) -> "LaunchRecorder":
+        from ballista_tpu_torch.ops import onehot_agg
+
+        self._mod, self._real = onehot_agg, onehot_agg.onehot_sums
+
+        def recorded(rid, vals, P):
+            out = self._real(rid, vals, P)
+            if self.tag is not None and rid.is_cuda:
+                shape = (int(rid.shape[0]), int(vals.shape[0]), int(P))
+                if not self.keep:
+                    self.shapes.setdefault(self.tag, []).append(shape)
+                elif shape not in self.inputs:
+                    self.inputs[shape] = (self.tag, rid.clone(), vals.clone())
+            return out
+
+        onehot_agg.onehot_sums = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.onehot_sums = self._real
+
+
+def capture_launch_inputs(rec: LaunchRecorder, ctx, sqls: dict) -> None:
+    """One more run of each query in ``sqls`` that launched the kernel,
+    keeping the inputs of its first launch at each (n, R, P). It comes
+    after the path's counts and peak memory were read, so that neither
+    includes it or the copies."""
+    rec.keep = True
+    try:
+        for q, sql in sqls.items():
+            if rec.shapes.get(q):
+                rec.tag = q
+                ctx.sql(sql).collect()
+                missing = set(rec.shapes[q]) - set(rec.inputs)
+                check(not missing, f"{q}: the capture run missed launch shapes {sorted(missing)}")
+    finally:
+        rec.keep, rec.tag = False, None
+
+
+def exact_group_sums(rid, vals, P: int):
+    """On the host: (the correctly rounded f64 sum of each slot's values in
+    each row, by ``math.fsum``; the worst-case rounding error of a plain
+    one-by-one f64 sum of the same values, gamma_k * sum|v| with k the
+    slot's rows and gamma_k = k u / (1 - k u), u = 2^-53)."""
+    import math
+
+    import numpy as np
+
+    r, v = rid.cpu().numpy(), vals.cpu().numpy()
+    keep = (r >= 0) & (r < P)
+    order = np.argsort(r[keep], kind="stable")
+    rs, vs = r[keep][order], v[:, keep][:, order]
+    ends = np.searchsorted(rs, np.arange(P + 1))
+    R = v.shape[0]
+    exact = np.zeros((P, R))
+    abs_sum = np.zeros((P, R))
+    for p in range(P):
+        seg = vs[:, ends[p] : ends[p + 1]]
+        for j in range(R):
+            exact[p, j] = math.fsum(seg[j].tolist())
+        abs_sum[p] = np.abs(seg).sum(axis=1)
+    ku = np.diff(ends).astype(np.float64) * 2.0**-53
+    return exact, (ku / (1 - ku))[:, None] * abs_sum
+
+
+def replay_launches(rec: LaunchRecorder) -> list:
+    """The kernel against its plain version on the very inputs the query
+    paths gave it, one launch per distinct (n, R, P): two launches
+    bit-identical; the 0/1 rows (the counts) exact and equal to the plain
+    version's; every sum within rtol 1e-12 of the correctly rounded sum
+    (``exact_group_sums``) and within rtol 1e-12 plus the plain version's
+    own worst-case rounding error of the plain version's sum. (The plain
+    version's one-by-one atomic adds miss the exact sum of q1's 2^20
+    discounts in a slot by up to 3e-12 relative on an H100.) Times as in
+    ``kernel_case``. These launches come after the paths' counts were
+    read. The kept inputs are released."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops import onehot_agg
+
+    out = []
+    for (n, R, P), (tag, rid, vals) in sorted(rec.inputs.items()):
+        got = onehot_agg.onehot_sums(rid, vals, P)
+        again = onehot_agg.onehot_sums(rid, vals, P)
+        want = onehot_agg.onehot_sums_plain(rid, vals, P)
+        torch.cuda.synchronize()
+        what = f"{tag} launch n={n} R={R} P={P}"
+        check(got.shape == (P, R), f"{what}: shape {tuple(got.shape)}")
+        check(
+            torch.equal(got.view(torch.int64), again.view(torch.int64)),
+            f"{what}: two launches differ",
+        )
+        exact, plain_err = exact_group_sums(rid, vals, P)
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        counts = ((vals == 0) | (vals == 1)).all(dim=1).cpu().numpy()
+        check(
+            np.array_equal(g[:, counts], w[:, counts])
+            and np.array_equal(g[:, counts], exact[:, counts]),
+            f"{what}: counts differ",
+        )
+        rel_exact = np.abs(g - exact) / np.maximum(np.abs(exact), 1e-300)
+        check(
+            (np.abs(g - exact) <= 1e-12 * np.abs(exact)).all(),
+            f"{what}: sums off the exact sum, max rel err {rel_exact.max():.3e}",
+        )
+        check(
+            (np.abs(g - w) <= 1e-12 * np.abs(w) + plain_err).all(),
+            f"{what}: sums differ from the plain version beyond its rounding",
+        )
+        idx = torch.where((rid >= 0) & (rid < P), rid, P).long()
+        vt = vals.T
+        buf = torch.zeros(P + 1, R, dtype=torch.float64, device=rid.device)
+        ms_bytes = (4 * n + 8 * R * n + 8 * P * R) / HBM_BYTES_PER_S * 1e3
+        ms_ops = n * R / FP64_FLOPS * 1e3
+        res = dict(
+            query=tag, n=n, R=R, P=P, count_rows=int(counts.sum()),
+            ms=time_ms(lambda: onehot_agg.onehot_sums(rid, vals, P)),
+            plain_ms=time_ms(lambda: onehot_agg.onehot_sums_plain(rid, vals, P)),
+            library_ms=time_ms(lambda: buf.index_add_(0, idx, vt)),
+            bound_ms=max(ms_bytes, ms_ops),
+            bound_by="bytes" if ms_bytes >= ms_ops else "operations",
+            max_abs_err=float(np.abs(g - w).max()),
+            max_rel_err_vs_exact=float(rel_exact.max()),
+            max_rel_err_plain_vs_exact=float(
+                (np.abs(w - exact) / np.maximum(np.abs(exact), 1e-300)).max()
+            ),
+            plan=onehot_agg.launch_plan(n, R, P),
+        )
+        log(f"replay {what}: ok  {json.dumps(res)}")
+        out.append(res)
+    rec.inputs.clear()
+    return out
+
+
 def slot_ids(n: int, P: int, dist: str, g):
     """Slot ids in [0, P) on the card: "uniform"; "zipf" (the slot of rank
     k drawn with weight 1/k, ranks scattered over the slots by a random
@@ -287,14 +462,14 @@ def crossover(n: int, Rs: tuple, Ps: tuple, seed: int) -> dict:
 
 
 def sort_check(seed: int) -> dict:
-    """``ops/sort.stable_argsort`` on the card against the CPU, in both
+    """``ops/perm.stable_argsort`` on the card against the CPU, in both
     directions, on f64 and f32 keys holding +-0.0, NaN, a NaN with its sign
     bit set, +-inf and ties: at n = 8 and at n = 2^21, so that both of
     torch's CUDA sort paths (the in-block sort and the radix sort) run."""
     import numpy as np
     import torch
 
-    from ballista_tpu_torch.ops.sort import stable_argsort
+    from ballista_tpu_torch.ops.perm import stable_argsort
 
     signed_nan = np.frombuffer(
         np.array([0xFFF8000000000001], dtype=np.uint64).tobytes(), dtype=np.float64
@@ -437,6 +612,31 @@ def compare(name: str, got, want: dict) -> None:
             check(list(a) == list(w), f"{name}.{c}: {a} vs oracle {list(w)}")
 
 
+# Device programs by kind, matched on the profiler's kernel names: the
+# one-hot kernel, then the torch ops that stand in for the reference's
+# jitted XLA programs (sort passes, gathers, searchsorted, prefix sums,
+# scatters), then the rest.
+DEVICE_KINDS = (
+    ("onehot kernel", ("partial_sums", "reduce_partials", "owner_sums")),
+    ("sort", ("sort", "radix")),
+    ("searchsorted", ("searchsorted",)),
+    ("cumsum", ("scan", "cumsum")),
+    ("scatter", ("scatter", "index_put", "indexfunc", "index_add", "index_fill")),
+    ("gather", ("index_elementwise", "gather", "index_select", "indexselect")),
+    ("reduce", ("reduce",)),
+    ("copy, cat, fill", ("memcpy", "memset", "copy", "cat", "fill")),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def device_kind(name: str) -> str:
+    low = name.lower()
+    for kind, needles in DEVICE_KINDS:
+        if any(n in low for n in needles):
+            return kind
+    return "other"
+
+
 def profile_query(ctx, q: str, sql: str) -> dict:
     """One warm run under torch.profiler: wall time, device time summed over
     kernels (one stream, so kernels do not overlap), the device's idle share
@@ -465,28 +665,30 @@ def profile_query(ctx, q: str, sql: str) -> dict:
     ]
     busy_s = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:12]
+    by_kind: dict = {}
+    for e in events:
+        k = device_kind(e.key)
+        launches, ms = by_kind.get(k, (0, 0.0))
+        by_kind[k] = (launches + e.count, ms + dev_us(e) / 1e3)
     res = {
         "wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": (1.0 - busy_s / wall) if busy_s else None,
         "top": [[e.key[:80], e.count, dev_us(e) / 1e3] for e in top],
+        # [launches, device ms] of each kind of device program
+        "by_kind": {k: list(v) for k, v in sorted(by_kind.items())},
     }
     log(f"{q} profile: {json.dumps(res)}")
     return res
 
 
-def main_path(sf: float, seed: int, warm: int, profile: bool) -> dict:
+def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -> dict:
     import numpy as np
     import torch
 
     from ballista_tpu_torch.exec.context import TorchContext
     from ballista_tpu_torch.ops import onehot_agg
-    from ballista_tpu_torch.tpch import gen_table
 
-    t0 = time.perf_counter()
-    table = gen_table("lineitem", sf, seed)
-    log(f"lineitem sf={sf} seed={seed}: {table.num_rows} rows, "
-        f"{table.num_columns} columns, generated in {time.perf_counter() - t0:.1f}s")
     cols = {}
     for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"):
         cols[c] = table.column(c).to_numpy()
@@ -506,6 +708,7 @@ def main_path(sf: float, seed: int, warm: int, profile: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     onehot_agg.launches = 0  # main path starts here
     for q, sql in queries.items():
+        rec.tag = q
         before = onehot_agg.launches
         t = time.perf_counter()
         res = ctx.sql(sql).collect()
@@ -525,7 +728,9 @@ def main_path(sf: float, seed: int, warm: int, profile: bool) -> dict:
         )
         log(f"{q}: ok  {json.dumps(out[q])}")
     launches = onehot_agg.launches  # main path ends here
+    rec.tag = None
     peak = torch.cuda.max_memory_allocated()
+    capture_launch_inputs(rec, ctx, queries)
     if profile:
         for q, sql in queries.items():
             out[q]["profile"] = profile_query(ctx, q, sql)
@@ -539,6 +744,366 @@ def main_path(sf: float, seed: int, warm: int, profile: bool) -> dict:
         )
     log(f"main path: kernel launches {launches}, peak device memory "
         f"{peak} bytes ({peak / 2**30:.3f} GiB)")
+    out["launches"] = launches
+    out["peak_bytes"] = peak
+    return out
+
+
+# -- phase 5: joins and the sort-based aggregate ------------------------------
+
+# q18 first: its subquery's 1.5M order keys (at SF=1) must overflow the
+# default group capacity on its first run, before another query's retry has
+# grown the context's capacity hint
+JOIN_QUERIES = ("q18", "q3", "q4", "q5", "q10")
+
+
+def host_columns(data: dict) -> dict:
+    """Every column of every table as numpy: dates as int32 days, strings
+    as numpy unicode arrays."""
+    import numpy as np
+    import pyarrow as pa
+
+    out = {}
+    for name, t in data.items():
+        for c in t.column_names:
+            col = t.column(c)
+            if pa.types.is_date32(col.type):
+                out[c] = col.cast(pa.int32()).to_numpy()
+            elif pa.types.is_string(col.type) or pa.types.is_large_string(col.type):
+                out[c] = np.asarray(col.to_pylist())
+            else:
+                out[c] = col.to_numpy()
+    return out
+
+
+def _day(y: int, m: int, d: int) -> int:
+    import datetime
+
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+def _dates(days):
+    import datetime
+
+    return [datetime.date(1970, 1, 1) + datetime.timedelta(days=int(d)) for d in days]
+
+
+def _lookup(pk, fk):
+    """Row of each foreign key ``fk`` in the table whose unique key column
+    is ``pk``, and whether it is there."""
+    import numpy as np
+
+    order = np.argsort(pk, kind="stable")
+    pos = np.searchsorted(pk[order], fk).clip(0, len(pk) - 1)
+    row = order[pos]
+    return row, pk[row] == fk
+
+
+def _group_sum(keys, vals):
+    """Sorted unique keys, the f64 sum of ``vals`` per key, and the first
+    row of each key."""
+    import numpy as np
+
+    uniq, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    out = np.zeros(len(uniq), dtype=np.float64)
+    np.add.at(out, inv, vals.astype(np.float64))
+    return uniq, out, first
+
+
+def oracle_q3(h: dict) -> dict:
+    import numpy as np
+
+    cut = _day(1995, 3, 15)
+    crow, cok = _lookup(h["c_custkey"], h["o_custkey"])
+    o_ok = cok & (h["c_mktsegment"][crow] == "BUILDING") & (h["o_orderdate"] < cut)
+    orow, lok = _lookup(h["o_orderkey"], h["l_orderkey"])
+    keep = lok & o_ok[orow] & (h["l_shipdate"] > cut)
+    rev = h["l_extendedprice"][keep] * (1 - h["l_discount"][keep])
+    keys, sums, first = _group_sum(h["l_orderkey"][keep], rev)
+    odate = h["o_orderdate"][orow[keep]][first]
+    prio = h["o_shippriority"][orow[keep]][first]
+    top = np.lexsort((odate, -sums))[:10]
+    return {
+        "l_orderkey": keys[top].tolist(),
+        "revenue": sums[top],
+        "o_orderdate": _dates(odate[top]),
+        "o_shippriority": prio[top].tolist(),
+    }
+
+
+def oracle_q4(h: dict) -> dict:
+    import numpy as np
+
+    late = np.unique(h["l_orderkey"][h["l_commitdate"] < h["l_receiptdate"]])
+    d = h["o_orderdate"]
+    keep = (d >= _day(1993, 7, 1)) & (d < _day(1993, 10, 1)) & np.isin(h["o_orderkey"], late)
+    prios, counts = np.unique(h["o_orderpriority"][keep], return_counts=True)
+    return {"o_orderpriority": prios.tolist(), "order_count": counts.astype(np.int64)}
+
+
+def oracle_q5(h: dict) -> dict:
+    import numpy as np
+
+    asia = h["r_regionkey"][h["r_name"] == "ASIA"]
+    orow, lok = _lookup(h["o_orderkey"], h["l_orderkey"])
+    d = h["o_orderdate"][orow]
+    crow, cok = _lookup(h["c_custkey"], h["o_custkey"][orow])
+    srow, sok = _lookup(h["s_suppkey"], h["l_suppkey"])
+    snat = h["s_nationkey"][srow]
+    nrow, nok = _lookup(h["n_nationkey"], snat)
+    keep = (
+        lok & cok & sok & nok
+        & (d >= _day(1994, 1, 1)) & (d < _day(1995, 1, 1))
+        & (h["c_nationkey"][crow] == snat)
+        & np.isin(h["n_regionkey"][nrow], asia)
+    )
+    rev = h["l_extendedprice"][keep] * (1 - h["l_discount"][keep])
+    names, sums, _ = _group_sum(h["n_name"][nrow[keep]], rev)
+    order = np.argsort(-sums, kind="stable")
+    return {"n_name": names[order].tolist(), "revenue": sums[order]}
+
+
+def oracle_q10(h: dict) -> dict:
+    import numpy as np
+
+    orow, lok = _lookup(h["o_orderkey"], h["l_orderkey"])
+    d = h["o_orderdate"][orow]
+    keep = (
+        lok & (d >= _day(1993, 10, 1)) & (d < _day(1994, 1, 1))
+        & (h["l_returnflag"] == "R")
+    )
+    cust = h["o_custkey"][orow[keep]]
+    rev = h["l_extendedprice"][keep] * (1 - h["l_discount"][keep])
+    keys, sums, _ = _group_sum(cust, rev)
+    top = np.lexsort((keys, -sums))[:20]
+    crow, _ = _lookup(h["c_custkey"], keys[top])
+    nrow, _ = _lookup(h["n_nationkey"], h["c_nationkey"][crow])
+    return {
+        "c_custkey": keys[top].tolist(),
+        "c_name": h["c_name"][crow].tolist(),
+        "revenue": sums[top],
+        "c_acctbal": h["c_acctbal"][crow],
+        "n_name": h["n_name"][nrow].tolist(),
+        "c_address": h["c_address"][crow].tolist(),
+        "c_phone": h["c_phone"][crow].tolist(),
+        "c_comment": h["c_comment"][crow].tolist(),
+    }
+
+
+def oracle_q18(h: dict, threshold: int = 300) -> dict:
+    import numpy as np
+
+    keys, qty, _ = _group_sum(h["l_orderkey"], h["l_quantity"])
+    big, big_qty = keys[qty > threshold], qty[qty > threshold]
+    orow, ok = _lookup(h["o_orderkey"], big)
+    crow, cok = _lookup(h["c_custkey"], h["o_custkey"][orow])
+    sel = ok & cok
+    big, big_qty, orow, crow = big[sel], big_qty[sel], orow[sel], crow[sel]
+    price, odate = h["o_totalprice"][orow], h["o_orderdate"][orow]
+    top = np.lexsort((odate, -price))[:100]
+    return {
+        "c_name": h["c_name"][crow[top]].tolist(),
+        "c_custkey": h["c_custkey"][crow[top]].tolist(),
+        "o_orderkey": big[top].tolist(),
+        "o_orderdate": _dates(odate[top]),
+        "o_totalprice": price[top],
+        "SUM(l_quantity)": big_qty[top],
+    }
+
+
+def splitmix64_numpy(cols) -> "np.ndarray":
+    """``ops/hashing.hash_columns`` in numpy uint64 (wrapping arithmetic):
+    the independent oracle of the port's int64-emulated hash. Every NaN
+    hashes as the positive quiet NaN."""
+    import numpy as np
+
+    c1, c2, c3 = (np.uint64(v) for v in (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
+
+    def mix(x):
+        x = x + c1
+        x = (x ^ (x >> np.uint64(30))) * c2
+        x = (x ^ (x >> np.uint64(27))) * c3
+        return x ^ (x >> np.uint64(31))
+
+    with np.errstate(over="ignore", invalid="ignore"):
+        h = np.zeros(len(cols[0]), dtype=np.uint64)
+        for c in cols:
+            if c.dtype.kind == "f":
+                u = (c.astype(np.float32) + np.float32(0.0)).view(np.uint32).astype(np.uint64)
+                u[np.isnan(c)] = 0x7FC00000
+            else:
+                u = c.astype(np.int64).view(np.uint64)
+            h = mix(h ^ mix(u))
+    return h
+
+
+def hash_check(seed: int) -> dict:
+    """``hash_columns`` on the card against the numpy uint64 oracle, on
+    int64, f64 and f32 columns (alone and together) holding -0.0, NaNs with
+    a sign bit or a payload (all of which must hash alike), +-inf and the
+    int64 extremes, at n = 2^20."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops.hashing import hash_columns
+
+    rng = np.random.default_rng(seed)
+    n = 1 << 20
+    i64 = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, dtype=np.int64)
+    i64[:4] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1]
+    f64 = rng.normal(0, 1e6, n)
+    f64[:6] = [-0.0, 0.0, np.nan, np.inf, -np.inf, 1e300]
+    # NaNs with the sign bit, a payload, and a signaling one
+    f64[6:9] = np.array(
+        [0xFFF8000000000000, 0x7FF8DEADBEEF0001, 0x7FF0000000000123], dtype=np.uint64
+    ).view(np.float64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        f32 = f64.astype(np.float32)
+    cases = {"i64": [i64], "f64": [f64], "f32": [f32], "i64+f64": [i64, f64]}
+    for tag, cols in cases.items():
+        got = hash_columns([torch.from_numpy(c).cuda() for c in cols]).cpu().numpy()
+        want = splitmix64_numpy(cols).view(np.int64)
+        check(np.array_equal(got, want), f"hash {tag}: the card differs from the numpy uint64 oracle")
+    check(
+        len(set(hash_columns([torch.tensor([0.0, -0.0], device="cuda")]).tolist())) == 1,
+        "hash: -0.0 and +0.0 hash differently",
+    )
+    nans = torch.from_numpy(f64[[2, 6, 7, 8]].copy()).cuda()
+    check(len(set(hash_columns([nans]).tolist())) == 1, "hash: NaNs hash differently")
+    res = dict(n=n, cases=list(cases), ok=True)
+    log(f"hash: ok  {json.dumps(res)}")
+    return res
+
+
+def count_syncs(fn) -> tuple:
+    """(``fn()``, the host-device synchronizations during it, as torch's
+    sync debug mode reports them: one warning each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def decimal_check() -> dict:
+    """The exact decimal sums on the card against the CPU, on
+    ``tests/test_decimal_exact.py``'s money table: the first run (f64
+    prefix sums, another association on the card) within rtol 1e-9, the
+    third (int64 at the learned scales) bit for bit."""
+    import numpy as np
+    import pyarrow as pa
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.context import TorchContext
+
+    rng = np.random.default_rng(5)
+    n = 50_000
+    table = pa.table({
+        "g": pa.array(rng.integers(0, 7, n).astype(np.int64)),
+        "price": pa.array(np.round(rng.uniform(1, 10_000, n), 2)),
+        "disc": pa.array(np.round(rng.uniform(0, 0.1, n), 2)),
+        "qty": pa.array(np.round(rng.integers(1, 51, n).astype(np.float64), 2)),
+    })
+    sql = (
+        "SELECT g, SUM(price) AS sp, SUM(price * (1 - disc)) AS srev, "
+        "SUM(qty) AS sq, AVG(price) AS ap, COUNT(*) AS c FROM t GROUP BY g ORDER BY g"
+    )
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ctx = TorchContext(
+            BallistaConfig({"ballista.shuffle.partitions": "1", "ballista.tpu.batch_rows": "4096"}),
+            device=dev,
+        )
+        ctx.register_table("t", table)
+        runs[dev] = [ctx.sql(sql).collect() for _ in range(3)]
+    for c in ("sp", "srev", "sq", "ap"):
+        first = [r[0].column(c).to_numpy() for r in (runs["cpu"], runs["cuda"])]
+        check(np.allclose(first[1], first[0], rtol=1e-9, atol=0.0), f"decimal {c}: first run off")
+    check(runs["cuda"][2].equals(runs["cpu"][2]), "decimal: the card's third run differs from the CPU's")
+    first_equal = runs["cuda"][0].equals(runs["cpu"][0])
+    res = dict(rows=n, first_run_bit_identical=first_equal, third_run_bit_identical=True)
+    log(f"decimal: ok  {json.dumps(res)}")
+    return res
+
+
+def joins_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> dict:
+    """q3, q4, q5, q10 and q18 through the port on the card against the
+    numpy oracles; ``rec`` keeps the kernel's launch shapes and inputs."""
+    import torch
+
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.ops import onehot_agg
+
+    t0 = time.perf_counter()
+    h = host_columns(data)
+    oracles = {
+        "q3": oracle_q3(h), "q4": oracle_q4(h), "q5": oracle_q5(h),
+        "q10": oracle_q10(h), "q18": oracle_q18(h),
+    }
+    log(f"joins: oracles in {time.perf_counter() - t0:.1f}s; q18 selects "
+        f"{len(oracles['q18']['o_orderkey'])} orders")
+
+    ctx = TorchContext(device="cuda")
+    for name, t in data.items():
+        ctx.register_table(name, t)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches = 0
+    for q in JOIN_QUERIES:
+        sql = (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
+        runs = []
+        rec.tag = q
+        for i in range(1 + warm):
+            onehot_agg.launches = 0  # this query's run starts here
+            t = time.perf_counter()
+            df = ctx.sql(sql)
+            res, syncs = count_syncs(df.collect)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches += onehot_agg.launches
+            runs.append(dict(
+                s=secs, launches=onehot_agg.launches,
+                capacity_retries=df.stats.get("capacity_retries", 0),
+                speculation_misses=df.stats.get("speculation_misses", 0),
+                syncs=syncs, table=res,
+            ))
+            compare(f"{q} run {i}", res, oracles[q])
+        if warm >= 2:
+            check(
+                runs[-1]["table"].equals(runs[-2]["table"]),
+                f"{q}: two warm runs differ",
+            )
+        out[q] = dict(
+            cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]],
+            rows=runs[0]["table"].num_rows,
+            kernel_launches=[r["launches"] for r in runs],
+            capacity_retries=[r["capacity_retries"] for r in runs],
+            speculation_misses=[r["speculation_misses"] for r in runs],
+            host_syncs=[r["syncs"] for r in runs],
+            kernel_shapes=sorted(set(rec.shapes.get(q, []))),
+        )
+        log(f"{q}: ok  {json.dumps(out[q])}")
+    rec.tag = None
+    peak = torch.cuda.max_memory_allocated()
+    capture_launch_inputs(rec, ctx, {
+        q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in JOIN_QUERIES
+    })
+    check(out["q18"]["capacity_retries"][0] >= 1, "q18's first run did not retry after a capacity overflow")
+    for q in ("q4", "q5"):
+        check(min(out[q]["kernel_launches"]) > 0, f"{q} did not launch the one-hot kernel")
+    log(f"joins: kernel launches {launches}, peak device memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    if profile:
+        for q in JOIN_QUERIES:
+            sql = (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
+            out[q]["profile"] = profile_query(ctx, q, sql)
     out["launches"] = launches
     out["peak_bytes"] = peak
     return out
@@ -578,6 +1143,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     # 3. kernel vs plain; the sort on the card vs the CPU
+    t0 = time.perf_counter()
     cases = [
         kernel_case(1 << 21, 9, 5, 12, seed=1),   # q1 partial, full batch
         kernel_case(1 << 20, 9, 5, 12, seed=2),   # q1 partial, tail batch
@@ -590,7 +1156,7 @@ def main() -> int:
         kernel_case(1 << 20, 1, 5, 12, seed=11),  # q1 now, tail batch (padded)
     ]
     sweep = crossover(
-        1 << 21, Rs=(6, 14, 64),
+        1 << 21, Rs=(1, 2, 6, 14, 64),
         Ps=(1, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256, 512, 1024, 2048, 8192,
             65536),
         seed=6,
@@ -600,19 +1166,42 @@ def main() -> int:
         dists=("uniform", "zipf", "hot90"), seed=12,
     )
     sorted_ok = sort_check(seed=10)
+    log(f"phase 3 took {time.perf_counter() - t0:.1f}s")
 
-    # 4. main path
-    mp = main_path(args.sf, args.seed, args.warm, args.profile)
+    # 4. main path (q1, q6, the wide GROUP BY)
+    from ballista_tpu_torch.tpch import gen_all
+
+    t0 = time.perf_counter()
+    data = gen_all(args.sf, args.seed)
+    log(f"tpch sf={args.sf} seed={args.seed}: "
+        + ", ".join(f"{k} {t.num_rows}" for k, t in data.items())
+        + f" rows, generated in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    with LaunchRecorder() as rec:
+        mp = main_path(data["lineitem"], args.sf, args.warm, args.profile, rec)
+        replays = replay_launches(rec)
+        log(f"phase 4 took {time.perf_counter() - t0:.1f}s")
+
+        # 5. joins and the sort-based aggregate
+        t0 = time.perf_counter()
+        hashed = hash_check(seed=13)
+        decimal = decimal_check()
+        jp = joins_path(data, args.warm, args.profile, rec)
+        replays += replay_launches(rec)
+    for q in ("q1", "wide", "q4", "q5"):
+        check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
+    log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
     q1, q1_now = cases[0], cases[7]
 
-    # 5. results
+    # 6. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
         "source": "ballista_tpu_torch/csrc/onehot_agg.cu",
         "replaces": "ballista_tpu/ops/pallas_agg.py:66",
-        "launches": mp["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        # both paths' runs: q1, q6 and wide; then q3-q18 (q4, q5 launch it)
+        "launches": mp["launches"] + jp["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
         "plain_ms": q1["plain_ms"],
         "bound_ms": q1["bound_ms"],
@@ -627,10 +1216,15 @@ def main() -> int:
     log(json.dumps({
         "cases": cases,
         "crossover": sweep["kernel_loses_at_PR"],
+        "path_launches": replays,
         "modes": by_mode["points"],
         "sort": sorted_ok,
         "queries": {q: mp[q] for q in ("q1", "q6", "wide")},
         "peak_bytes": mp["peak_bytes"],
+        "hash": hashed,
+        "decimal": decimal,
+        "join_queries": {q: jp[q] for q in JOIN_QUERIES},
+        "join_peak_bytes": jp["peak_bytes"],
         "sf": args.sf,
     }))
     log(smi)

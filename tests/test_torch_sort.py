@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from ballista_tpu.ops import perm as ref_perm
-from ballista_tpu_torch.ops import sort as port_sort
+from ballista_tpu_torch.ops import perm as port_perm
 
 SIGNED_NAN = np.frombuffer(
     np.array([0xFFF8000000000001], dtype=np.uint64).tobytes(), dtype=np.float64
@@ -48,7 +48,7 @@ def columns(n: int, seed: int):
 def test_stable_argsort_matches_reference(n, kind, descending):
     x = columns(n, n)[kind]
     want = np.asarray(ref_perm.stable_argsort(jnp.asarray(x), descending))
-    got = port_sort.stable_argsort(torch.from_numpy(x), descending).numpy()
+    got = port_perm.stable_argsort(torch.from_numpy(x), descending).numpy()
     assert np.array_equal(got, want)
 
 
@@ -59,5 +59,5 @@ def test_multi_key_perm_matches_reference(n):
     want = np.asarray(
         ref_perm.multi_key_perm([(jnp.asarray(cols[k]), d) for k, d in passes])
     )
-    got = port_sort.multi_key_perm([(torch.from_numpy(cols[k]), d) for k, d in passes])
+    got = port_perm.multi_key_perm([(torch.from_numpy(cols[k]), d) for k, d in passes])
     assert np.array_equal(got.numpy(), want)
