@@ -18,38 +18,49 @@ import torch
 from ballista_tpu_torch.columnar.batch import Dictionary
 
 
-# merge_many's results by the identity of their inputs. An entry goes when
-# one of its inputs is collected (a weakref.finalize callback), so it lives
-# no longer than the tables and batches its dictionaries came from, and an
-# id is never reused while an entry holds it.
-_MERGES: dict[tuple[int, ...], tuple] = {}
-_MERGES_MAX = 256
+# Results computed from dictionaries, by a tag and the identity of the
+# dictionaries (see memo). An entry goes when one of its dictionaries is
+# collected (a weakref.finalize callback), so it lives no longer than the
+# tables and batches its dictionaries came from, and an id is never reused
+# while an entry holds it.
+_MEMO: dict[tuple, object] = {}
+_MEMO_MAX = 1024
+
+
+def memo(tag: tuple, dicts: tuple[Dictionary, ...], compute):
+    """``compute()``, cached by ``tag`` and the identity of ``dicts``. A warm
+    query meets the same dictionary objects again, and a customer-sized
+    dictionary costs a Python pass over its strings each time. Callers only
+    read the cached values."""
+    key = (tag, *map(id, dicts))
+    hit = _MEMO.get(key)
+    if hit is not None:
+        return hit
+    out = compute()
+    if len(_MEMO) >= _MEMO_MAX:
+        _MEMO.clear()
+    _MEMO[key] = out
+    for d in {id(d): d for d in dicts}.values():
+        weakref.finalize(d, _MEMO.pop, key, None)
+    return out
 
 
 def merge_many(dicts: tuple[Dictionary, ...]) -> tuple[Dictionary, tuple[np.ndarray, ...]]:
     """One merged sorted dictionary for all of ``dicts``, and each one's
     code remap table (``remap[old_code] = new_code``). The merge stays
     sorted, so remapped codes still compare like the strings they encode.
-    Cached by the inputs' identity: a warm query merges the same
-    dictionary objects again (a customer-sized dictionary takes a Python
-    sort each time). Callers only read the cached tables."""
-    key = tuple(map(id, dicts))
-    hit = _MERGES.get(key)
-    if hit is not None:
-        return hit
-    merged = tuple(sorted(set().union(*(d.values for d in dicts))))
-    pos = {v: i for i, v in enumerate(merged)}
-    remaps = tuple(
-        np.fromiter((pos[v] for v in d.values), dtype=np.int32, count=len(d.values))
-        for d in dicts
-    )
-    out = (Dictionary(merged), remaps)
-    if len(_MERGES) >= _MERGES_MAX:
-        _MERGES.clear()
-    _MERGES[key] = out
-    for d in {id(d): d for d in dicts}.values():
-        weakref.finalize(d, _MERGES.pop, key, None)
-    return out
+    Cached by the inputs' identity (``memo``)."""
+
+    def compute():
+        merged = tuple(sorted(set().union(*(d.values for d in dicts))))
+        pos = {v: i for i, v in enumerate(merged)}
+        remaps = tuple(
+            np.fromiter((pos[v] for v in d.values), dtype=np.int32, count=len(d.values))
+            for d in dicts
+        )
+        return Dictionary(merged), remaps
+
+    return memo(("merge",), dicts, compute)
 
 
 def remap_codes(codes: torch.Tensor, table: np.ndarray) -> torch.Tensor:

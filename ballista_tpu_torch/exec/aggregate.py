@@ -91,6 +91,24 @@ def _dec_scale(col: torch.Tensor, valid: torch.Tensor, null: torch.Tensor | None
     return torch.where(live, r, 0.0).to(torch.int64), ok
 
 
+def _dec_pick(col: torch.Tensor, valid: torch.Tensor, null: torch.Tensor | None):
+    """For a run that does not know a slot's scale yet: (its learned code,
+    as ``_dec_learn``; the column scaled to int64 at that scale, zero where
+    it is not a decimal; the reciprocal that takes the int64 sums back).
+    The scale is chosen on the device, so the run sums exactly without
+    waiting for the host."""
+    live = _dec_live(valid, null)
+    code = _dec_learn(col, valid, null)
+    scale = torch.full((), 10.0**6, dtype=torch.float64, device=col.device)
+    recip = torch.full((), 1.0 / 10**6, dtype=torch.float64, device=col.device)
+    for k in (4, 2):
+        scale = torch.where(code == k, 10.0**k, scale)
+        recip = torch.where(code == k, 1.0 / 10**k, recip)
+    r = torch.round(col * scale)
+    scaled = torch.where(live & (code != 99), r, 0.0).to(torch.int64)
+    return code, scaled, recip
+
+
 @dataclasses.dataclass(frozen=True)
 class StateSlot:
     """One partial-state column: its AggOp and source column index in the
@@ -468,26 +486,34 @@ class HashAggregateExec(ExecutionPlan):
         are exact in any order, so money sums come out bit-identical across
         batch sizes, runs and devices.
 
-        k is learned per (site, slot) on a first run (the smallest of 2, 4,
-        6 whose integrality and 2^52 bound hold; 99 = not a decimal) through
-        the plan cache, and every scaled run re-validates it on the device
-        with a deferred speculation. Returns (value columns, the divisor of
-        each slot or None)."""
+        k is learned per (site, slot) through the plan cache (the smallest
+        of 2, 4, 6 whose integrality and 2^52 bound hold; 99 = not a
+        decimal), and every scaled run re-validates it on the device with a
+        deferred speculation. A run that learns a slot's scale also sums it
+        at the scale its device check picks (``_dec_pick``), so the sums
+        are exact from the first run on, and a merge (fold or final) is
+        exact in the same run as the partial sums it merges, however many
+        merge levels the plan has. Returns (value columns, the divisor of
+        each slot or None, the picked slots as (slot, code, int64 column,
+        reciprocal))."""
         unscale: list = [None] * len(val_cols)
+        picks: list = []
         cache = ctx.plan_cache
         if cache is None:
-            return val_cols, unscale
+            return val_cols, unscale, picks
         out = list(val_cols)
         for j, (vc, vn, op) in enumerate(zip(val_cols, val_nulls, ops)):
             if op != AggOp.SUM or vc.dtype != torch.float64:
                 continue
-            # merge sites replace their learned scale each run: their first
-            # run's inputs are inexact float partial sums, which become
-            # integral only once the partial pass itself runs scaled
+            # merge sites replace their learned scale each run: an earlier
+            # run's inputs may have been inexact float partial sums, which
+            # are integral only once the partial pass runs scaled
             key = ("dec_sum_last" if from_state else "dec_sum", "", site, j)
             code = cache.get(key)
             if code is None or (from_state and code not in (2, 4, 6)):
-                ctx.defer_learn(key, _dec_learn(vc, batch.valid, vn))
+                learned, scaled, recip = _dec_pick(vc, batch.valid, vn)
+                ctx.defer_learn(key, learned)
+                picks.append((j, learned, scaled, recip))
                 continue
             if code not in (2, 4, 6):
                 continue
@@ -500,7 +526,7 @@ class HashAggregateExec(ExecutionPlan):
             )
             out[j] = scaled
             unscale[j] = float(10 ** int(code))
-        return out, unscale
+        return out, unscale, picks
 
     def _run_group_agg(
         self,
@@ -543,12 +569,26 @@ class HashAggregateExec(ExecutionPlan):
                 key_cols, key_nulls, vocab, batch.valid, val_cols, val_nulls, list(ops)
             )
         else:
-            val_cols, dec_unscale = self._dec_scaled_sums(
+            val_cols, dec_unscale, picks = self._dec_scaled_sums(
                 val_cols, val_nulls, ops, batch, ctx, site, from_state
             )
+            # a picked slot is summed twice, in f64 and at its picked scale
             res = group_aggregate(
-                key_cols, key_nulls, batch.valid, val_cols, val_nulls, list(ops), cap
+                key_cols, key_nulls, batch.valid,
+                val_cols + [p[2] for p in picks],
+                val_nulls + [val_nulls[p[0]] for p in picks],
+                list(ops) + [AggOp.SUM] * len(picks), cap,
             )
+            if picks:
+                n = len(val_cols)
+                values = list(res.values[:n])
+                for (j, code, _, recip), exact in zip(picks, res.values[n:]):
+                    values[j] = torch.where(
+                        code != 99, exact.to(torch.float64) * recip, values[j]
+                    )
+                res = dataclasses.replace(
+                    res, values=values, value_nulls=list(res.value_nulls[:n])
+                )
         ctx.defer_check(
             res.overflow,
             "aggregate exceeded group capacity; raise ballista.tpu.agg_capacity",

@@ -1,4 +1,5 @@
-"""Hash-join operator, collect mode (port of ``HashJoinExec`` in
+"""Hash join, union, cross join and the empty relation, collect mode (port
+of ``HashJoinExec``, ``UnionExec``, ``CrossJoinExec`` and ``EmptyExec`` in
 ``ballista_tpu/exec/joins.py``).
 
 The build side is collected whole (broadcast within the process), sorted
@@ -12,16 +13,20 @@ more raises a CapacityError at the task boundary and the run is retried
 with that join's capacity grown to what it needed (kept per join and
 partition, apart from the aggregates' capacity), so no row is ever dropped.
 
+A residual join filter sees probe ++ build columns. On a unique build it is
+evaluated on the LEFT-probed batch; on a duplicated build, on every
+expanded pair, and SEMI and ANTI then keep a probe row when any pair
+passes. LEFT nulls the build side of a row whose pairs all fail.
+
 Build strategies (duplicate and contiguity flags) and probe-table sizes
 are learned into the plan cache: a warm run takes them without a host
 sync and validates them with deferred speculation flags.
 
 Not ported yet, each raising ``NotImplementedError`` where a plan needs it:
-residual join filters and ``UnionExec``, ``CrossJoinExec``, ``EmptyExec``
-(ROADMAP queue 1, item 6); partitioned mode and the grace build under a
-device-memory budget (item 8). Also waiting, with no effect on results:
-the cross-run build-table cache and the learned flip that skips collecting
-the right side (item 6).
+partitioned mode and the grace build under a device-memory budget (ROADMAP
+queue 1, item 8). Also waiting, with no effect on results: the cross-run
+build-table cache and the learned flip that skips collecting the right side
+(item 6).
 """
 
 from __future__ import annotations
@@ -35,8 +40,10 @@ from ballista_tpu_torch.columnar.batch import DeviceBatch, round_capacity
 from ballista_tpu_torch.columnar.dict_util import merge_many, remap_codes
 from ballista_tpu_torch.datatypes import DataType, Field, Schema
 from ballista_tpu_torch.errors import ExecutionError, PlanError
-from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext
+from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, UnknownPartitioning
 from ballista_tpu_torch.expr import logical as L
+from ballista_tpu_torch.expr.physical import compile_expr
+from ballista_tpu_torch.ops.compact import compact
 from ballista_tpu_torch.ops.concat import concat_batches
 from ballista_tpu_torch.ops.join import (
     LUT_MAX_DOMAIN,
@@ -87,11 +94,6 @@ class HashJoinExec(ExecutionPlan):
                 "partitioned hash joins need hash repartition, not ported yet "
                 "(ROADMAP queue 1, item 8)"
             )
-        if filter is not None:
-            raise NotImplementedError(
-                "joins with a residual filter are not ported yet "
-                "(ROADMAP queue 1, item 6)"
-            )
         self.left = left
         self.right = right
         self.on = list(on)
@@ -127,7 +129,8 @@ class HashJoinExec(ExecutionPlan):
 
     def describe(self) -> str:
         on = ", ".join(f"{a.name()} = {b.name()}" for a, b in self.on)
-        return f"HashJoinExec({self.join_type.value}, {self.partition_mode}): on=[{on}]"
+        f = f", filter={self.filter.name()}" if self.filter is not None else ""
+        return f"HashJoinExec({self.join_type.value}, {self.partition_mode}): on=[{on}]{f}"
 
     # -- dictionaries ---------------------------------------------------------
     def _unify_key_dicts(
@@ -473,12 +476,12 @@ class HashJoinExec(ExecutionPlan):
         alone and runs again. SEMI and ANTI need only the match count."""
         with self.metrics.time("probe_time"):
             first, count, _ = probe_counts(bt, probe, probe_keys)
-        if kind in (JoinSide.SEMI, JoinSide.ANTI):
+        if kind in (JoinSide.SEMI, JoinSide.ANTI) and self.filter is None:
             m = count > 0
             return probe.with_valid(probe.valid & (m if kind == JoinSide.SEMI else ~m))
         if kind == JoinSide.LEFT:  # unmatched live probe rows emit one row
             eff = torch.where(probe.valid, count.clamp(min=1), 0)
-        else:
+        else:  # INNER, or SEMI/ANTI with a residual filter: pairs only
             eff = count
         if self._plan_text is None:
             self._plan_text = self.display()
@@ -494,9 +497,53 @@ class HashJoinExec(ExecutionPlan):
             "ballista.tpu.join_expansion",
             required=total, site=site,
         )
+        ekind = JoinSide.LEFT if kind == JoinSide.LEFT else JoinSide.INNER
         with self.metrics.time("probe_time"):
-            out, _, _, _ = expand_join(bt, probe, first, count, eff, out_cap, kind)
-        return out
+            out, i, k, real = expand_join(bt, probe, first, count, eff, out_cap, ekind)
+            if self.filter is None:
+                return out
+            passes = self._passes(out) & real
+            if kind == JoinSide.INNER:
+                return out.with_valid(out.valid & passes)
+            # whether any pair of each probe row passes: its pairs are the
+            # output rows [end - eff, end), so a prefix count of the passing
+            # rows answers without atomics (the unused tail of the output
+            # all points at the last probe row)
+            end = torch.cumsum(eff, 0).clamp(max=out_cap)
+            before = torch.cat([
+                torch.zeros(1, dtype=torch.int64, device=probe.device),
+                torch.cumsum(passes.to(torch.int64), 0),
+            ])
+            ap = before[end] > before[(end - eff).clamp(min=0)]
+            if kind == JoinSide.SEMI:
+                return probe.with_valid(probe.valid & ap)
+            if kind == JoinSide.ANTI:
+                return probe.with_valid(probe.valid & ~ap)
+            # LEFT: keep the passing pairs; a probe row with none keeps its
+            # first row, the build side nulled (q13's LEFT JOIN ... ON key
+            # AND residual)
+            null_row = (k == 0) & ~ap[i] & out.valid
+            return self._null_build_side(
+                out, len(probe.schema), ~passes, out.valid & (passes | null_row)
+            )
+
+    def _passes(self, joined: DeviceBatch) -> torch.Tensor:
+        """The residual filter over probe ++ build rows (NULL fails)."""
+        cv = compile_expr(self.filter, joined.schema).evaluate(joined)
+        passes = cv.values.to(torch.bool)
+        return passes if cv.nulls is None else passes & ~cv.nulls
+
+    @staticmethod
+    def _null_build_side(
+        joined: DeviceBatch, n_probe: int, miss: torch.Tensor, valid: torch.Tensor
+    ) -> DeviceBatch:
+        nulls = list(joined.nulls)
+        for c in range(n_probe, len(joined.schema)):
+            nulls[c] = miss if nulls[c] is None else (nulls[c] | miss)
+        return DeviceBatch(
+            schema=joined.schema, columns=joined.columns, valid=valid,
+            nulls=tuple(nulls), dictionaries=dict(joined.dictionaries),
+        )
 
     def _contig_probe(self, bt: BuildTable, flags: tuple, from_cache: bool, ctx: TaskContext, fp) -> bool:
         """Whether to take the contiguous-key probe. Fresh flags are
@@ -515,8 +562,23 @@ class HashJoinExec(ExecutionPlan):
         self, bt: BuildTable, probe: DeviceBatch, probe_keys: list[int],
         kind: JoinSide, contiguous: bool,
     ) -> DeviceBatch:
+        """The fixed-capacity probe of a unique build, with the residual
+        filter applied to the match semantics of ``kind``."""
         with self.metrics.time("probe_time"):
-            return probe_side(bt, probe, probe_keys, kind, contiguous=contiguous)
+            if self.filter is None:
+                return probe_side(bt, probe, probe_keys, kind, contiguous=contiguous)
+            # join LEFT-like first so the filter sees both sides
+            joined = probe_side(bt, probe, probe_keys, JoinSide.LEFT, contiguous=contiguous)
+            matched = probe_side(bt, probe, probe_keys, JoinSide.INNER, contiguous=contiguous).valid
+            full_match = matched & self._passes(joined)
+            if kind == JoinSide.SEMI:
+                return probe.with_valid(probe.valid & full_match)
+            if kind == JoinSide.ANTI:
+                return probe.with_valid(probe.valid & ~full_match)
+            if kind == JoinSide.INNER:
+                return joined.with_valid(full_match)
+            # LEFT: every probe row stays; no full match nulls the build side
+            return self._null_build_side(joined, len(probe.schema), ~full_match, probe.valid)
 
     def _restore_column_order(
         self, joined: DeviceBatch, probe: DeviceBatch, build_is_right: bool
@@ -540,3 +602,127 @@ class HashJoinExec(ExecutionPlan):
     def _rename_dicts(joined: DeviceBatch) -> dict:
         # dictionaries are keyed by name; reordering columns leaves them
         return dict(joined.dictionaries)
+
+
+class UnionExec(ExecutionPlan):
+    """UNION ALL: the inputs' partitions one after another, positionally;
+    every batch takes the first input's column names (and its dictionaries
+    follow the renamed columns)."""
+
+    def __init__(self, inputs: list[ExecutionPlan]) -> None:
+        super().__init__()
+        self.inputs = list(inputs)
+        self._schema = inputs[0].schema()
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def children(self) -> list[ExecutionPlan]:
+        return list(self.inputs)
+
+    def output_partitioning(self):
+        return UnknownPartitioning(sum(i.output_partitioning().n for i in self.inputs))
+
+    def describe(self) -> str:
+        return f"UnionExec: {len(self.inputs)} inputs"
+
+    def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        p = partition
+        for child in self.inputs:
+            n = child.output_partitioning().n
+            if p < n:
+                for b in child.execute(p, ctx):
+                    if b.schema.names != self._schema.names:
+                        b = DeviceBatch(
+                            schema=self._schema,
+                            columns=b.columns,
+                            valid=b.valid,
+                            nulls=b.nulls,
+                            dictionaries={
+                                self._schema.fields[b.schema.index_of(k)].name: v
+                                for k, v in b.dictionaries.items()
+                            },
+                        )
+                    yield b
+                return
+            p -= n
+        raise ExecutionError(f"union partition {partition} out of range")
+
+
+class EmptyExec(ExecutionPlan):
+    """No rows, or one row of zeros (``SELECT`` of literals alone)."""
+
+    def __init__(self, produce_one_row: bool, schema: Schema) -> None:
+        super().__init__()
+        self.produce_one_row = produce_one_row
+        self._schema = schema
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def describe(self) -> str:
+        return f"EmptyExec: rows={1 if self.produce_one_row else 0}"
+
+    def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        import numpy as np
+
+        if not self.produce_one_row:
+            yield DeviceBatch.empty(self._schema, device=ctx.device)
+            return
+        arrays = [np.zeros(1, f.dtype.to_np()) for f in self._schema]
+        yield DeviceBatch.from_host(self._schema, arrays, num_rows=1, device=ctx.device)
+
+
+class CrossJoinExec(ExecutionPlan):
+    """Cross join with a one-row right side (what the optimizer leaves of an
+    uncorrelated scalar subquery, q11 and q22): the row's columns are
+    broadcast onto every row of the left side. Any other row count fails
+    the run at the task boundary (general cross joins are not supported on
+    the device)."""
+
+    def __init__(self, left: ExecutionPlan, right: ExecutionPlan) -> None:
+        super().__init__()
+        self.left = left
+        self.right = right
+        self._schema = left.schema().join(right.schema())
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def children(self) -> list[ExecutionPlan]:
+        return [self.left, self.right]
+
+    def output_partitioning(self):
+        return self.left.output_partitioning()
+
+    def describe(self) -> str:
+        return "CrossJoinExec(broadcast-1-row)"
+
+    def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        one = compact(_collect(self.right, ctx))
+        # checked with the run's other deferred flags: no host sync here
+        ctx.defer_check(
+            one.count_valid() != 1,
+            "CrossJoinExec supports a 1-row broadcast side; general cross "
+            "joins are not supported on device",
+        )
+        r_schema = self.right.schema()
+        for b in self.left.execute(partition, ctx):
+            cols, nulls = list(b.columns), list(b.nulls)
+            dicts = dict(b.dictionaries)
+            for i, f in enumerate(r_schema):
+                # materialized: an expanded view has stride 0, which neither
+                # a kernel's raw pointer nor an in-place op may see
+                cols.append(one.columns[i][:1].expand(b.capacity).contiguous())
+                m = one.nulls[i]
+                nulls.append(None if m is None else m[:1].expand(b.capacity).contiguous())
+                d = one.dictionaries.get(f.name)
+                if d is not None:
+                    dicts[f.name] = d
+            yield DeviceBatch(
+                schema=self._schema,
+                columns=tuple(cols),
+                valid=b.valid,
+                nulls=tuple(nulls),
+                dictionaries=dicts,
+            )

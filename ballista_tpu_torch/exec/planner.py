@@ -5,17 +5,21 @@ It builds the reference's operator tree node for node, so a plan's
 ``display()`` is the reference's: aggregates and DISTINCT lower to a
 partial/final pair around a coalesce, pushed-down scan filters become
 FilterExecs, sorts and limits gather their input, joins lower to
-collect-mode hash joins (RIGHT flipped to LEFT, the build side of a SEMI or
-ANTI join deduplicated on its keys), and a subquery alias renames. Logical
-nodes whose operators are not ported yet raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+collect-mode hash joins (RIGHT flipped to LEFT, FULL as LEFT UNION ALL a
+padded ANTI, the build side of a SEMI or ANTI join without a residual
+filter deduplicated on its keys), cross joins broadcast a one-row side, a
+subquery alias renames, and windows and percentiles gather their input.
+File scans raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
 
+from ballista_tpu_torch.errors import PlanError
 from ballista_tpu_torch.exec.aggregate import HashAggregateExec
 from ballista_tpu_torch.exec.base import ExecutionPlan
-from ballista_tpu_torch.exec.joins import HashJoinExec
+from ballista_tpu_torch.exec.joins import CrossJoinExec, EmptyExec, HashJoinExec, UnionExec
+from ballista_tpu_torch.exec.percentile import PercentileExec
 from ballista_tpu_torch.exec.pipeline import (
     CoalescePartitionsExec,
     FilterExec,
@@ -23,16 +27,9 @@ from ballista_tpu_torch.exec.pipeline import (
     RenameExec,
 )
 from ballista_tpu_torch.exec.sort import GlobalLimitExec, SortExec
+from ballista_tpu_torch.exec.window import WindowExec
 from ballista_tpu_torch.expr import logical as L
 from ballista_tpu_torch.plan import logical as P
-
-_NOT_PORTED = {
-    "CrossJoin": "CrossJoinExec (ROADMAP queue 1, item 6)",
-    "Union": "UnionExec (ROADMAP queue 1, item 6)",
-    "EmptyRelation": "EmptyExec (ROADMAP queue 1, item 6)",
-    "Window": "window functions (ROADMAP queue 1, item 7)",
-    "Percentile": "percentiles (ROADMAP queue 1, item 7)",
-}
 
 
 class TableProvider:
@@ -69,6 +66,15 @@ class PhysicalPlanner:
             return ProjectionExec(self._plan(node.input), list(node.exprs))
         if isinstance(node, P.Filter):
             return FilterExec(self._plan(node.input), node.predicate)
+        if isinstance(node, P.Percentile):
+            return PercentileExec(
+                self._plan(node.input), node.group_exprs, node.group_names, node.requests
+            )
+        if isinstance(node, P.Window):
+            # the window operator gathers every input partition itself
+            return WindowExec(
+                self._plan(node.input), list(node.window_exprs), list(node.names)
+            )
         if isinstance(node, P.Aggregate):
             return self._two_phase(
                 self._plan(node.input), list(node.group_exprs), list(node.agg_exprs)
@@ -85,14 +91,15 @@ class PhysicalPlanner:
             return GlobalLimitExec(child, node.skip, node.fetch)
         if isinstance(node, P.Join):
             return self._plan_join(node)
+        if isinstance(node, P.CrossJoin):
+            return CrossJoinExec(self._plan(node.left), self._plan(node.right))
+        if isinstance(node, P.Union):
+            return UnionExec([self._plan(c) for c in node.inputs])
         if isinstance(node, P.SubqueryAlias):
             return RenameExec(self._plan(node.input), node.schema())
-        what = _NOT_PORTED.get(type(node).__name__)
-        if what is not None:
-            raise NotImplementedError(
-                f"{type(node).__name__} needs {what}, not ported yet"
-            )
-        raise NotImplementedError(f"cannot lower {type(node).__name__}")
+        if isinstance(node, P.EmptyRelation):
+            return EmptyExec(node.produce_one_row, node.out_schema)
+        raise PlanError(f"cannot lower {type(node).__name__} to physical plan")
 
     @staticmethod
     def _two_phase(child: ExecutionPlan, groups: list, aggs: list) -> ExecutionPlan:
@@ -107,8 +114,19 @@ class PhysicalPlanner:
     def _plan_join(self, node: P.Join) -> ExecutionPlan:
         jt = node.join_type
         if jt == P.JoinType.FULL:
-            raise NotImplementedError(
-                "FULL joins need UnionExec, not ported yet (ROADMAP queue 1, item 6)"
+            # LEFT(l, r) UNION ALL (r ANTI l, the left columns padded with
+            # typed NULLs); the ANTI side carries the residual filter: a
+            # right row is unmatched when no pair passed keys and filter
+            left_part = P.Join(node.left, node.right, node.on, P.JoinType.LEFT, node.filter)
+            anti_part = P.Join(
+                node.right, node.left,
+                tuple((b, a) for a, b in node.on),
+                P.JoinType.ANTI, node.filter,
+            )
+            pad = [L.Alias(L.Literal(None, f.dtype), f.name) for f in node.left.schema()]
+            pad += [L.Column(f.name) for f in node.right.schema()]
+            return UnionExec(
+                [self._plan_join(left_part), ProjectionExec(self._plan_join(anti_part), pad)]
             )
         if jt == P.JoinType.RIGHT:
             # flip to LEFT; a projection restores the column order

@@ -257,6 +257,15 @@ def _seg_layouts(val_dtypes: tuple, null_sig: tuple, ops: tuple):
     return sum_layout, tuple(live_keys), tuple(mm_idx)
 
 
+def _column_cumsums(cols: list) -> torch.Tensor:
+    """Prefix sums of equal-length columns, as the columns of one (n, k)
+    tensor. Each column is scanned on its own: the card scans a contiguous
+    1-D tensor in parallel, but a cumsum down dim 0 of an (n, k>1) tensor
+    was so slow on an H100 that q8 (two sums) took 1.7 s a warm run at
+    SF=1, and 0.035-0.050 s with this."""
+    return torch.stack([torch.cumsum(c, 0) for c in cols], dim=1)
+
+
 def _seg_part1(
     valid, key_cols, key_nulls, val_cols, val_nulls, ops, capacity,
     sum_layout, live_layout, mm_idx,
@@ -292,12 +301,10 @@ def _seg_part1(
     lives = [valid if vn is None else (valid & ~vn) for vn in val_nulls]
     # one live-count prefix per distinct live mask; a key-only aggregate
     # (DISTINCT, the SEMI-join dedup) has no value column: one dummy row
-    cnt_stack = torch.stack(
+    cnt_cs = _column_cumsums(
         [(valid if k == -1 else lives[k]).to(torch.int32) for k in live_layout]
-        or [torch.zeros(n, dtype=torch.int32, device=dev)],
-        dim=1,
+        or [torch.zeros(n, dtype=torch.int32, device=dev)]
     )
-    cnt_cs = torch.cumsum(cnt_stack, 0)
 
     sum_cs = []
     for dt, idxs in sum_layout:
@@ -305,7 +312,7 @@ def _seg_part1(
             torch.where(lives[i], val_cols[i], torch.zeros_like(val_cols[i])).to(dt)
             for i in idxs
         ]
-        sum_cs.append(torch.cumsum(torch.stack(contribs, dim=1), 0))
+        sum_cs.append(_column_cumsums(contribs))
     mm_vals = []
     for i in mm_idx:
         vc, live = val_cols[i], lives[i]

@@ -25,9 +25,12 @@ class UdfRegistry:
 global_registry = UdfRegistry()
 
 
+_NOT_PORTED = "UDF plugins are not ported yet (ROADMAP queue 1, item 10)"
+
+
 def lookup_udf(name: str):
-    raise PlanError(f"unknown scalar function {name!r}")
+    raise PlanError(f"unknown scalar function {name!r}; {_NOT_PORTED}")
 
 
 def lookup_udaf(name: str):
-    raise PlanError(f"unknown aggregate function {name!r}")
+    raise PlanError(f"unknown aggregate function {name!r}; {_NOT_PORTED}")

@@ -423,3 +423,114 @@ def gen_table(table: str, scale: float = 0.01, seed: int = 42) -> pa.Table:
 
 def gen_all(scale: float = 0.01, seed: int = 42) -> dict[str, pa.Table]:
     return {t: gen_table(t, scale, seed) for t in TPCH_TABLES}
+
+
+def spec_substitutions(query: str, tables: dict[str, pa.Table]) -> dict[str, str]:
+    """Spec constants of TPC-H ``query`` ("q7", ...) replaced by values
+    chosen from ``tables``, as ``tests/test_tpch_oracle.py`` chooses them:
+    at a small scale a spec constant (q11's GERMANY, q18's 300, q20's
+    CANADA and 'forest%', q22's country codes, ...) may select nothing, and
+    the path under test would be trivially empty. Returns {spec text:
+    replacement}; empty for a query without such constants."""
+    import pandas as pd
+
+    def f(name: str, *cols: str) -> pd.DataFrame:
+        return tables[name].select(list(cols)).to_pandas()
+
+    lo, hi = datetime.date(1995, 1, 1), datetime.date(1996, 12, 31)
+
+    def top_nation(left: pd.DataFrame, key: str) -> str:
+        n = f("nation", "n_nationkey", "n_name")
+        return left.merge(n, left_on=key, right_on="n_nationkey").n_name.value_counts().index[0]
+
+    if query == "q7":
+        nation = f("nation", "n_nationkey", "n_name")
+        j = (
+            f("supplier", "s_suppkey", "s_nationkey")
+            .merge(f("lineitem", "l_suppkey", "l_orderkey", "l_shipdate"),
+                   left_on="s_suppkey", right_on="l_suppkey")
+            .merge(f("orders", "o_orderkey", "o_custkey"), left_on="l_orderkey", right_on="o_orderkey")
+            .merge(f("customer", "c_custkey", "c_nationkey"), left_on="o_custkey", right_on="c_custkey")
+            .merge(nation.add_prefix("s_n_"), left_on="s_nationkey", right_on="s_n_n_nationkey")
+            .merge(nation.add_prefix("c_n_"), left_on="c_nationkey", right_on="c_n_n_nationkey")
+        )
+        j = j[(j.l_shipdate >= lo) & (j.l_shipdate <= hi)]
+        pairs = (
+            j[j.s_n_n_name != j.c_n_n_name]
+            .groupby(["s_n_n_name", "c_n_n_name"]).size().sort_values(ascending=False)
+        )
+        a, b = pairs.index[0]
+        return {"FRANCE": a, "GERMANY": b}
+    if query == "q8":
+        nation = f("nation", "n_nationkey", "n_name", "n_regionkey")
+        j = (
+            f("part", "p_partkey", "p_type")
+            .merge(f("lineitem", "l_partkey", "l_suppkey", "l_orderkey"),
+                   left_on="p_partkey", right_on="l_partkey")
+            .merge(f("supplier", "s_suppkey", "s_nationkey"), left_on="l_suppkey", right_on="s_suppkey")
+            .merge(f("orders", "o_orderkey", "o_custkey", "o_orderdate"),
+                   left_on="l_orderkey", right_on="o_orderkey")
+            .merge(f("customer", "c_custkey", "c_nationkey"), left_on="o_custkey", right_on="c_custkey")
+            .merge(nation.add_prefix("c_n_"), left_on="c_nationkey", right_on="c_n_n_nationkey")
+            .merge(nation.add_prefix("s_n_"), left_on="s_nationkey", right_on="s_n_n_nationkey")
+            .merge(f("region", "r_regionkey", "r_name"),
+                   left_on="c_n_n_regionkey", right_on="r_regionkey")
+        )
+        j = j[(j.r_name == "AMERICA") & (j.o_orderdate >= lo) & (j.o_orderdate <= hi)]
+        ptype = j.p_type.value_counts().index[0]
+        nat = j[j.p_type == ptype].s_n_n_name.value_counts().index[0]
+        return {"BRAZIL": nat, "ECONOMY ANODIZED STEEL": ptype}
+    if query == "q11":
+        j = f("partsupp", "ps_suppkey").merge(
+            f("supplier", "s_suppkey", "s_nationkey"), left_on="ps_suppkey", right_on="s_suppkey"
+        )
+        return {"GERMANY": top_nation(j, "s_nationkey")}
+    if query == "q17":
+        j = f("lineitem", "l_partkey").merge(
+            f("part", "p_partkey", "p_brand", "p_container"), left_on="l_partkey", right_on="p_partkey"
+        )
+        brand, cont = (
+            j.groupby(["p_brand", "p_container"]).size().sort_values(ascending=False).index[0]
+        )
+        return {"Brand#23": brand, "MED BOX": cont}
+    if query == "q18":
+        per_order = f("lineitem", "l_orderkey", "l_quantity").groupby("l_orderkey").l_quantity.sum()
+        return {"> 300": f"> {int(np.floor(per_order.quantile(0.95)))}"}
+    if query == "q19":
+        j = f("lineitem", "l_partkey", "l_shipmode", "l_shipinstruct", "l_quantity").merge(
+            f("part", "p_partkey", "p_brand", "p_container", "p_size"),
+            left_on="l_partkey", right_on="p_partkey",
+        )
+        base = j.l_shipmode.isin(["AIR", "AIR REG"]) & (j.l_shipinstruct == "DELIVER IN PERSON")
+        out = {}
+        for containers, qlo, qhi, shi, spec in (
+            (["SM CASE", "SM BOX", "SM PACK", "SM PKG"], 1, 11, 5, "Brand#12"),
+            (["MED BAG", "MED BOX", "MED PKG", "MED PACK"], 10, 20, 10, "Brand#23"),
+            (["LG CASE", "LG BOX", "LG PACK", "LG PKG"], 20, 30, 15, "Brand#34"),
+        ):
+            m = (
+                base & j.p_container.isin(containers)
+                & (j.l_quantity >= qlo) & (j.l_quantity <= qhi)
+                & (j.p_size >= 1) & (j.p_size <= shi)
+            )
+            brands = j.p_brand[m].value_counts()
+            out[spec] = brands.index[0] if len(brands) else spec
+        return out
+    if query in ("q20", "q21"):
+        nat = top_nation(f("supplier", "s_nationkey"), "s_nationkey")
+        if query == "q21":
+            return {"SAUDI ARABIA": nat}
+        prefix = f("part", "p_name").p_name.str[:3].value_counts().index[0]
+        return {"CANADA": nat, "'forest%'": f"'{prefix}%'"}
+    if query == "q22":
+        c = f("customer", "c_custkey", "c_acctbal", "c_phone")
+        o = f("orders", "o_custkey")
+        # prefer codes of customers without orders, so NOT EXISTS keeps rows
+        no_orders = c[~c.c_custkey.isin(o.o_custkey) & (c.c_acctbal > 0)]
+        base = no_orders if len(no_orders) else c
+        codes = list(base.c_phone.str[:2].value_counts().index[:7])
+        return {
+            "('13', '31', '23', '29', '30', '18', '17')":
+                "(" + ", ".join(f"'{x}'" for x in codes) + ")"
+        }
+    return {}

@@ -62,7 +62,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sums within rtol 1e-12 of the correctly rounded sum (``math.fsum``) and
    of the plain version's sum give or take that version's own worst-case
    rounding error, with times and bound as in phase 3.
-6. One JSON line of kernel results, then the last line
+6. The rest: the same tables in new contexts; the TPC-H queries not run
+   above (q2, q7-q9, q11-q17, q19-q22), a window query over ``orders``
+   (``WINDOW_SQL``: ranking and running frame aggregates partitioned by
+   customer) and a percentile query over ``lineitem`` (``PERCENTILE_SQL``:
+   median and approx_percentile_cont by return flag). Each runs once
+   through ``TorchContext(device="cpu")``, the port's plain path (its
+   seconds printed); a query whose spec constants select nothing there runs
+   with constants chosen from the data (``tpch.spec_substitutions``, the
+   choice of ``tests/test_tpch_oracle.py``) and must then select rows. Then
+   one cold and ``--warm`` warm runs on the card, each held against the
+   CPU's result: schema, keys, counts and row order exact, floats within
+   rtol 1e-9; two warm runs bit-identical and no warm run retrying; the
+   money sums of the sort-based aggregate (``MONEY_SUMS``, exact decimals
+   in every run) of the card's third run equal to the CPU's bit for bit.
+   q12 and q22 must
+   launch the kernel. Prints per query what phase 5 prints and the CPU
+   seconds, then the phase's peak device memory; then the kernel against
+   its plain version on the inputs these queries gave it, as in phase 5.
+7. One JSON line of kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -994,9 +1012,9 @@ def count_syncs(fn) -> tuple:
 
 def decimal_check() -> dict:
     """The exact decimal sums on the card against the CPU, on
-    ``tests/test_decimal_exact.py``'s money table: the first run (f64
-    prefix sums, another association on the card) within rtol 1e-9, the
-    third (int64 at the learned scales) bit for bit."""
+    ``tests/test_decimal_exact.py``'s money table: the first run (at the
+    scales its device check picks) within rtol 1e-9, the third (int64 at
+    the learned scales) bit for bit."""
     import numpy as np
     import pyarrow as pa
 
@@ -1109,6 +1127,180 @@ def joins_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> d
     return out
 
 
+# -- phase 6: the rest of TPC-H, a window and a percentile query ------------
+
+# every TPC-H query the phases above do not run
+REST_QUERIES = (
+    "q2", "q7", "q8", "q9", "q11", "q12", "q13", "q14", "q15", "q16", "q17",
+    "q19", "q20", "q21", "q22",
+)
+# a ranking function and running frame aggregates partitioned by customer,
+# in the forms of tests/test_window_functions.py and test_window_aggregates.py
+WINDOW_SQL = (
+    "select o_orderkey, o_custkey, "
+    "row_number() over (partition by o_custkey order by o_orderdate, o_orderkey) as rn, "
+    "rank() over (partition by o_custkey order by o_orderpriority) as rk, "
+    "sum(o_totalprice) over (partition by o_custkey order by o_orderdate "
+    "rows unbounded preceding) as running_total, "
+    "max(o_totalprice) over (partition by o_custkey order by o_orderdate "
+    "rows unbounded preceding) as running_max from orders"
+)
+# over lineitem with its spec's NOT NULL columns: a nullable string group
+# key would need a string-valued CASE in the percentile split, which neither
+# the reference nor the port has on the device
+PERCENTILE_SQL = (
+    "select l_returnflag, median(l_extendedprice) as med_price, "
+    "approx_percentile_cont(l_discount, 0.9) as p90_discount, count(*) as c "
+    "from lineitem group by l_returnflag order by l_returnflag"
+)
+# money sums of the sort-based aggregate: exact decimals in every run, so the
+# card's third run equals the CPU's run bit for bit
+MONEY_SUMS = {
+    "q7": ("revenue",), "q8": ("mkt_share",), "q9": ("sum_profit",),
+    "q11": ("value",), "q15": ("total_revenue",),
+}
+
+
+def compare_tables(name: str, got, want) -> None:
+    """Schema, keys, counts and row order exactly; floats within rtol 1e-9,
+    with their nulls in the same rows."""
+    import numpy as np
+    import pyarrow as pa
+
+    check(got.schema.equals(want.schema), f"{name}: schema {got.schema} vs {want.schema}")
+    check(got.num_rows == want.num_rows, f"{name}: {got.num_rows} rows, the CPU {want.num_rows}")
+    for c in want.column_names:
+        g, w = got.column(c), want.column(c)
+        if not pa.types.is_floating(w.type):
+            check(g.equals(w), f"{name}.{c} differs from the CPU's")
+            continue
+        check(
+            np.array_equal(g.is_null().to_numpy(), w.is_null().to_numpy()),
+            f"{name}.{c}: nulls in other rows than the CPU's",
+        )
+        a, b = g.fill_null(0.0).to_numpy(), w.fill_null(0.0).to_numpy()
+        ok = np.isclose(a, b, rtol=1e-9, atol=0.0, equal_nan=True)
+        if not ok.all():
+            rel = np.abs(a - b)[~ok] / np.maximum(np.abs(b[~ok]), 1e-300)
+            raise SmokeFailure(f"{name}.{c}: off the CPU's by up to {rel.max():.3e} relative")
+
+
+def selects_rows(t) -> bool:
+    """Rows, and not only the NULL row of an aggregate over nothing."""
+    return t.num_rows > 0 and t.column(t.num_columns - 1).null_count < t.num_rows
+
+
+def rest_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> dict:
+    """The TPC-H queries not yet on the card, the window query and the
+    percentile query: each once on the CPU (the port's plain path), then
+    cold and ``warm`` times on the card, every card run held against the
+    CPU's result."""
+    import pyarrow as pa
+    import torch
+
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.ops import onehot_agg
+    from ballista_tpu_torch.tpch import spec_substitutions
+
+    card, cpu = TorchContext(device="cuda"), TorchContext(device="cpu")
+    for name, t in data.items():
+        card.register_table(name, t)
+        cpu.register_table(name, t)
+    li = data["lineitem"]
+    li_nn = li.cast(pa.schema([f.with_nullable(False) for f in li.schema]))
+    card_nn, cpu_nn = TorchContext(device="cuda"), TorchContext(device="cpu")
+    card_nn.register_table("lineitem", li_nn)
+    cpu_nn.register_table("lineitem", li_nn)
+    jobs = [
+        (q, (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text(), card, cpu)
+        for q in REST_QUERIES
+    ]
+    jobs += [("window", WINDOW_SQL, card, cpu), ("percentile", PERCENTILE_SQL, card_nn, cpu_nn)]
+    out: dict = {}
+    sqls: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches = 0
+    for q, sql, on_card, on_cpu in jobs:
+        t = time.perf_counter()
+        want = on_cpu.sql(sql).collect()
+        cpu_s = time.perf_counter() - t
+        subst = {}
+        if not selects_rows(want):
+            # a spec constant selects nothing in this data: choose one from
+            # the data, as tests/test_tpch_oracle.py does at SF=0.002
+            subst = spec_substitutions(q, data) if q in REST_QUERIES else {}
+            check(bool(subst), f"{q}: selects no rows")
+            for old, new in subst.items():
+                sql = sql.replace(old, new)
+            t = time.perf_counter()
+            want = on_cpu.sql(sql).collect()
+            cpu_s = time.perf_counter() - t
+            check(selects_rows(want), f"{q}: selects no rows, even with {subst}")
+        sqls[q] = (sql, on_card)
+        runs = []
+        rec.tag = q
+        for i in range(1 + warm):
+            onehot_agg.launches = 0  # this query's run starts here
+            t = time.perf_counter()
+            df = on_card.sql(sql)
+            res, syncs = count_syncs(df.collect)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches += onehot_agg.launches
+            runs.append(dict(
+                s=secs, launches=onehot_agg.launches,
+                capacity_retries=df.stats.get("capacity_retries", 0),
+                speculation_misses=df.stats.get("speculation_misses", 0),
+                syncs=syncs, table=res,
+            ))
+            compare_tables(f"{q} run {i}", res, want)
+        a, b = runs[-1]["table"], runs[-2]["table"]
+        check(
+            a.equals(b),
+            f"{q}: two warm runs differ in "
+            f"{[c for c in a.column_names if not a.column(c).equals(b.column(c))]}",
+        )
+        check(
+            all(r["capacity_retries"] == r["speculation_misses"] == 0 for r in runs[1:]),
+            f"{q}: a warm run retried",
+        )
+        third = runs[2]["table"]
+        for c in MONEY_SUMS.get(q, ()):
+            check(
+                third.column(c).equals(want.column(c)),
+                f"{q}.{c}: the card's third run differs from the CPU's",
+            )
+        out[q] = dict(
+            cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]], cpu_s=cpu_s,
+            rows=want.num_rows, substituted=subst,
+            kernel_launches=[r["launches"] for r in runs],
+            capacity_retries=[r["capacity_retries"] for r in runs],
+            speculation_misses=[r["speculation_misses"] for r in runs],
+            host_syncs=[r["syncs"] for r in runs],
+            kernel_shapes=sorted(set(rec.shapes.get(q, []))),
+            # float columns of the third run equal to the CPU's bit for bit
+            float_bit_identical={
+                c: third.column(c).equals(want.column(c))
+                for c in want.column_names if pa.types.is_floating(want.schema.field(c).type)
+            },
+        )
+        log(f"{q}: ok  {json.dumps(out[q])}")
+    rec.tag = None
+    peak = torch.cuda.max_memory_allocated()
+    for q in ("q12", "q22"):
+        check(min(out[q]["kernel_launches"]) > 0, f"{q} did not launch the one-hot kernel")
+    log(f"rest: kernel launches {launches}, peak device memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    for ctx in (card, card_nn):
+        capture_launch_inputs(rec, ctx, {q: s for q, (s, c) in sqls.items() if c is ctx})
+    if profile:
+        for q, (sql, on_card) in sqls.items():
+            out[q]["profile"] = profile_query(on_card, q, sql)
+    out["launches"] = launches
+    out["peak_bytes"] = peak
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -1120,6 +1312,7 @@ def main() -> int:
         "torch.profiler and print the device time by kernel",
     )
     args = ap.parse_args()
+    check(args.warm >= 2, "--warm must be at least 2: two warm runs are compared")
 
     check((ROOT / "ballista_tpu_torch").is_dir(), f"no ballista_tpu_torch beside {__file__}")
     import torch
@@ -1188,19 +1381,26 @@ def main() -> int:
         decimal = decimal_check()
         jp = joins_path(data, args.warm, args.profile, rec)
         replays += replay_launches(rec)
-    for q in ("q1", "wide", "q4", "q5"):
+        log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
+
+        # 6. the rest of TPC-H, windows and percentiles
+        t0 = time.perf_counter()
+        rp = rest_path(data, args.warm, args.profile, rec)
+        replays += replay_launches(rec)
+        log(f"phase 6 took {time.perf_counter() - t0:.1f}s")
+    for q in ("q1", "wide", "q4", "q5", "q12", "q22"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
-    log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
     q1, q1_now = cases[0], cases[7]
 
-    # 6. results
+    # 7. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
         "source": "ballista_tpu_torch/csrc/onehot_agg.cu",
         "replaces": "ballista_tpu/ops/pallas_agg.py:66",
-        # both paths' runs: q1, q6 and wide; then q3-q18 (q4, q5 launch it)
-        "launches": mp["launches"] + jp["launches"],
+        # the paths' runs: q1, q6 and wide; q3-q18 (q4, q5 launch it); the
+        # rest of TPC-H (q12, q22 and others), the window and the percentile
+        "launches": mp["launches"] + jp["launches"] + rp["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
         "plain_ms": q1["plain_ms"],
@@ -1225,6 +1425,8 @@ def main() -> int:
         "decimal": decimal,
         "join_queries": {q: jp[q] for q in JOIN_QUERIES},
         "join_peak_bytes": jp["peak_bytes"],
+        "rest_queries": {q: rp[q] for q in REST_QUERIES + ("window", "percentile")},
+        "rest_peak_bytes": rp["peak_bytes"],
         "sf": args.sf,
     }))
     log(smi)

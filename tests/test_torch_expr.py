@@ -32,7 +32,33 @@ EXPRS = [
     "s = 'bravo'", "s <> 'bravo'", "s < 'charlie'", "s <= 'charlie'",
     "s > 'bravo'", "s >= 'delta'", "s = 'nope'", "'charlie' > s",
     "s = s2", "s < s2",
+    # CASE: NULL conditions are no match; no ELSE (or ELSE NULL) is NULL
+    "case when a > 0 then b else c end",
+    "case when p then 1 when q then 2 else 3 end",
+    "case when a > 10 then i when a < -10 then -i end",
+    "case when p then b else null end",
+    "case when s = 'alpha' then a * 2 when s = 'nope' then 0 else a end",
+    "case a when 1 then 10 when 2 then 20 else -1 end",
+    # IN / NOT IN: literals missing from the dictionary drop out; the
+    # input's nulls stay
+    "a in (1, 2, -3)", "a not in (0, 5)", "i in (7)", "b in (0.5, 1.5)",
+    "s in ('alpha', 'zulu')", "s not in ('bravo', 'nope')", "s in ('nope', 'none')",
+    "d in (date '1995-01-01', date '1996-02-29')",
+    # LIKE / NOT LIKE against the dictionary
+    "s like 'a%'", "s like '%a'", "s not like '%r%'", "s like '_ravo'",
+    "s like 'nope%'", "num like '-%'", "s2 like '%'",
+    # dates: days before 1970 and leap days
+    "extract(year from e)", "extract(month from e)", "extract(day from e)",
+    "extract(year from d)", "extract(month from cast(e as timestamp))",
+    "extract(day from cast(e as timestamp))",
+    "coalesce(a, 0)", "coalesce(b, c)", "coalesce(a, i, 7)", "coalesce(c, b)",
+    "substr(s, 1, 2)", "substring(s from 2)", "substr(num, 1, 1)", "substr(s, 3, 1) = 'a'",
+    "abs(a)", "abs(b)", "floor(b)", "ceil(b)", "floor(a)", "ceil(i)",
+    "sqrt(c)", "sqrt(a)", "round(b)", "round(b, 2)", "round(c * 10, -1)", "round(a)",
 ]
+
+# days since the epoch at and around leap days, before 1970 and far out
+LEAP_DAYS = [-719468, -141459, -25508, -306, -1, 0, 59, 789, 11016, 11017, 47541, 2932896]
 
 
 def make_table(n: int, seed: int) -> pa.Table:
@@ -50,6 +76,11 @@ def make_table(n: int, seed: int) -> pa.Table:
         "s": pa.array(words[rng.integers(0, 5, n)].tolist(), mask=mask(0.2)),
         "s2": pa.array(words[rng.integers(1, 5, n)].tolist()),
         "num": pa.array([str(x) for x in rng.integers(-9, 99, n)]),
+        "e": pa.array(
+            np.concatenate([LEAP_DAYS, rng.integers(-800_000, 800_000, max(n - len(LEAP_DAYS), 0))])
+            .astype(np.int32)[:n],
+            mask=mask(0.1),
+        ).cast(pa.date32()),
     })
 
 
@@ -98,13 +129,44 @@ def test_compile_expr_matches_reference(sql_expr, seed):
         assert np.array_equal(pv.nulls.numpy(), np.asarray(rv.nulls))
 
 
-@pytest.mark.parametrize(
-    "sql_expr", ["case when a > 0 then 1 else 0 end", "a in (1, 2)", "s like 'a%'", "abs(a)"]
-)
+@pytest.mark.parametrize("sql_expr", ["my_udf(a)", "sum(my_udaf(a))"])
 def test_unported_kinds_name_their_roadmap_item(sql_expr):
     from ballista_tpu_torch.columnar.arrow_interop import schema_from_arrow
+    from ballista_tpu_torch.errors import PlanError
 
     schema = schema_from_arrow(make_table(10, 0).schema)
-    expr = planned(sql_expr, port_parse, PortPlanner, PortCatalog, port_optimize, schema)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-        port_compile(expr, schema)
+    # UDF plugins do not resolve: the name fails in the planner
+    with pytest.raises(PlanError, match="ROADMAP queue 1, item 10"):
+        planned(sql_expr, port_parse, PortPlanner, PortCatalog, port_optimize, schema)
+
+
+def test_civil_from_days_matches_the_calendar():
+    import datetime
+
+    import torch
+
+    from ballista_tpu_torch.expr.physical import civil_from_days
+
+    days = list(range(-800_000, 800_000, 997)) + LEAP_DAYS
+    y, m, d = civil_from_days(torch.tensor(days, dtype=torch.int32))
+    epoch = datetime.date(1970, 1, 1)
+    for z, yy, mm, dd in zip(days, y.tolist(), m.tolist(), d.tolist()):
+        if -719162 <= z <= 2932896:  # datetime's years 1..9999
+            want = epoch + datetime.timedelta(days=z)
+            assert (yy, mm, dd) == (want.year, want.month, want.day), z
+    assert (y.dtype, m.dtype, d.dtype) == (torch.int32,) * 3
+
+
+def test_like_table_is_built_once_per_dictionary():
+    from ballista_tpu_torch.columnar import dict_util
+    from ballista_tpu_torch.columnar.arrow_interop import table_from_arrow
+
+    t = make_table(100, 3)
+    batch = table_from_arrow(t, 128, device="cpu")[0]
+    expr = planned("s like 'a%'", port_parse, PortPlanner, PortCatalog, port_optimize, batch.schema)
+    ev = port_compile(expr, batch.schema)
+    first = ev.evaluate(batch).values
+    key = (("like", "a%", False, "cpu"), id(batch.dictionaries["s"]))
+    table = dict_util._MEMO[key]
+    assert ev.evaluate(batch).values.equal(first)
+    assert dict_util._MEMO[key] is table  # the warm evaluation reused it

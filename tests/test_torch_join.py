@@ -265,6 +265,44 @@ JOIN_SQL = {
         "group by a_k2 order by a_k2"
     ),
     "distinct": "select distinct a_k2, a_s from a order by a_k2, a_s",
+    # residual filters, on the probe path (unique build) and on the
+    # expansion path (duplicated build; SEMI and ANTI with a filter are not
+    # deduplicated)
+    "inner_filter_probe": "select a_k, a_v, b_u, b_v from a join b on a_u = b_u and a_v < b_v",
+    "inner_filter_flip": "select a_u, a_v, b_k, b_v from a join b on a_u = b_k and a_v < b_v",
+    "inner_filter_expand": (
+        "select a_k, a_v, b_k, b_v from a join b on a_k = b_k and a_v > b_v"
+    ),
+    "left_filter_probe": "select a_k, a_v, b_v from a left join b on a_u = b_u and b_v > 0",
+    "left_filter_expand": (
+        "select a_k, a_v, b_k, b_v from a left join b on a_k = b_k and a_v < b_v"
+    ),
+    "semi_filter_probe": (
+        "select a_u, a_v from a where exists "
+        "(select * from b where b_u = a_u and b_v > a_v)"
+    ),
+    "semi_filter_expand": (
+        "select a_k, a_v from a where exists "
+        "(select * from b where b_k = a_k and b_v > a_v)"
+    ),
+    "anti_filter_probe": (
+        "select a_u, a_v from a where not exists "
+        "(select * from b where b_u = a_u and b_v < a_v)"
+    ),
+    "anti_filter_expand": (
+        "select a_k, a_v from a where not exists "
+        "(select * from b where b_k = a_k and b_v > a_v)"
+    ),
+    # a scalar subquery: a cross join with its one-row result
+    "cross_one_row": "select a_k, a_v from a where a_v > (select avg(b_v) from b)",
+    # positional union: b's columns take a's names, dictionaries follow
+    "union_all": "select a_k, a_s from a union all select b_k, b_s from b",
+    # FULL: LEFT union the padded ANTI, with and without a residual filter
+    "full": "select a_u, a_v, b_u, b_v from a full join b on a_u = b_u",
+    "full_filter": (
+        "select a_k, a_v, b_k, b_v from a full outer join b on a_k = b_k and a_v < b_v"
+    ),
+    "literals_only": "select 1 + 2 as x",
 }
 
 
@@ -357,3 +395,39 @@ def test_join_expansion_capacity_is_its_own(monkeypatch):
     assert caps[-1] == round_capacity(20 * 5000)
     assert "agg_capacity" not in port._capacity_hint
     assert list(port._capacity_hint["site_capacity"].values()) == [caps[-1]]
+
+
+def test_cross_join_needs_a_one_row_side():
+    from ballista_tpu.errors import ExecutionError as RefExecutionError
+    from ballista_tpu_torch.errors import ExecutionError
+
+    a, b = tables()
+    ref, port = TpuContext(), TorchContext(device="cpu")
+    for ctx in (ref, port):
+        ctx.register_table("a", a)
+        ctx.register_table("b", b)
+    sql = "select a_k, b_k from a cross join b"
+    with pytest.raises(RefExecutionError):
+        ref.sql(sql).collect()
+    with pytest.raises(ExecutionError, match="1-row broadcast side"):
+        port.sql(sql).collect()
+
+
+def test_cross_join_columns_are_contiguous():
+    # the broadcast row must not reach the kernels as a stride-0 view
+    from ballista_tpu_torch.exec.joins import CrossJoinExec
+    from ballista_tpu_torch.exec.base import TaskContext
+
+    a, b = tables()
+    port = TorchContext(device="cpu")
+    port.register_table("a", a)
+    port.register_table("b", b)
+    plan = port.create_physical_plan(
+        port.sql_to_logical("select a_k from a where a_v > (select avg(b_v) from b)")
+    )
+    cross = plan
+    while not isinstance(cross, CrossJoinExec):
+        cross = cross.children()[0]
+    ctx = TaskContext(device="cpu")
+    out = next(iter(cross.execute(0, ctx)))
+    assert all(c.is_contiguous() and c.stride() == (1,) for c in out.columns)

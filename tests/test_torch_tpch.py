@@ -121,16 +121,27 @@ def test_slice_queries_match_reference(sql):
 
 
 def test_unported_plans_raise_with_their_roadmap_item(contexts):
+    from ballista_tpu_torch.errors import PlanError
+    from ballista_tpu_torch.exec.joins import HashJoinExec
+    from ballista_tpu_torch.expr import logical as L
+    from ballista_tpu_torch.plan.logical import JoinType
+
     _, port = contexts
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+    # a UDAF: plugins are not ported, so the name does not resolve
+    with pytest.raises(PlanError, match="ROADMAP queue 1, item 10"):
+        port.sql("select my_udaf(l_quantity) from lineitem").collect()
+    # a file scan (DDL registers one)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
         port.sql(
-            "select l_orderkey from lineitem union all select l_orderkey from lineitem"
+            "create external table f (x int) stored as csv location 'f.csv'"
         ).collect()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        port.sql(
-            "select count(*) from lineitem a join lineitem b "
-            "on a.l_orderkey = b.l_orderkey and a.l_quantity < b.l_quantity"
-        ).collect()
+    # a partitioned join needs hash repartition
+    scan = port.scan("lineitem", ["l_orderkey"], 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        HashJoinExec(
+            scan, scan, [(L.Column("l_orderkey"), L.Column("l_orderkey"))],
+            JoinType.INNER, partition_mode="partitioned",
+        )
 
 
 # -- joins and the sort-based aggregate: q3, q4, q5, q10, q18 ---------------
@@ -268,6 +279,20 @@ def test_money_sums_independent_of_batch_size():
     np.testing.assert_allclose(a["sp"], w.sp.values, rtol=1e-12)
     np.testing.assert_allclose(a["srev"], w.srev.values, rtol=1e-9)
     np.testing.assert_allclose(a["sq"], w.sq.values, rtol=1e-12)
+
+
+def test_money_sums_exact_from_the_first_run():
+    # a run that learns a scale also sums at the scale its device check
+    # picks, so every run, however many merge levels (folds of 4096-row
+    # batches, then the final merge), gives the reference's exact sums
+    ctx = TorchContext(BallistaConfig({"ballista.tpu.batch_rows": "4096"}), device="cpu")
+    ctx.register_table("t", _money_table())
+    runs = [ctx.sql(MONEY_SQL).collect().to_pandas().to_dict("list") for _ in range(3)]
+    assert runs[0] == runs[1] == runs[2]
+    want = _third_run(
+        TpuContext(RefConfig().with_setting("ballista.tpu.batch_rows", "4096"))
+    )
+    assert runs[0] == want
 
 
 @pytest.mark.gpu
