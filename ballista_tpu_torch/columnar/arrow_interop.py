@@ -81,8 +81,13 @@ def _column_to_np(
     col: pa.ChunkedArray | pa.Array,
     dtype: DataType,
     narrow: bool | None = None,
+    fixed_dict: Dictionary | None = None,
 ) -> tuple[np.ndarray, np.ndarray | None, Dictionary | None]:
-    """One Arrow column -> (device-repr np array, null mask or None, dict or None)."""
+    """One Arrow column -> (device-repr np array, null mask or None, dict or None).
+
+    ``fixed_dict``: encode a STRING column against this dictionary instead
+    of one derived from the data, so that every chunk encoded against it
+    shares codes. A value missing from it raises."""
     if isinstance(col, pa.ChunkedArray):
         col = col.combine_chunks()
     null_mask = None
@@ -104,6 +109,14 @@ def _column_to_np(
         # device (ORDER BY and range predicates need no host round-trip).
         if pa.types.is_dictionary(col.type):
             col = col.cast(col.type.value_type)
+        if fixed_dict is not None:
+            codes_arr = pc.index_in(col, pa.array(fixed_dict.values, type=pa.string()))
+            if codes_arr.null_count > (0 if null_mask is None else int(null_mask.sum())):
+                raise SchemaError(
+                    "fixed dictionary is missing values present in the column"
+                )
+            codes = np.asarray(codes_arr.fill_null(0)).astype(np.int32)
+            return codes, null_mask, fixed_dict
         uniq = pc.unique(col).drop_null()
         sorted_uniq = uniq.take(pc.array_sort_indices(uniq))
         values = tuple(sorted_uniq.to_pylist())
@@ -197,18 +210,22 @@ def table_from_arrow(
     batch_rows: int,
     narrow_cols: frozenset | None = None,
     device: torch.device | str = "cuda",
+    fixed_dicts: dict | None = None,
 ) -> list[DeviceBatch]:
     """Slice an Arrow table into DeviceBatches of <= batch_rows rows each,
     sharing one dictionary per STRING column (encoded table-wide first).
     ``narrow_cols``: INT64 columns to store as int32 (None = decide from
-    this table; an empty set disables narrowing)."""
+    this table; an empty set disables narrowing). ``fixed_dicts``: {column
+    name: Dictionary} to encode STRING columns against, so that chunks of
+    several tables share codes (the grace join's probe passes)."""
     schema = schema_from_arrow(table.schema)
     if narrow_cols is None:
         narrow_cols = narrowable_int64_cols(table)
     cols_np, nulls_np, dicts = [], [], {}
     for field, name in zip(schema, table.schema.names):
         arr, nm, d = _column_to_np(
-            table.column(name), field.dtype, narrow=name in narrow_cols
+            table.column(name), field.dtype, narrow=name in narrow_cols,
+            fixed_dict=(fixed_dicts or {}).get(name),
         )
         cols_np.append(arr)
         nulls_np.append(nm)

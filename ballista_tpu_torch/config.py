@@ -14,15 +14,40 @@ BALLISTA_DEFAULT_SHUFFLE_PARTITIONS = "ballista.shuffle.partitions"
 BALLISTA_AGG_CAPACITY = "ballista.tpu.agg_capacity"
 BALLISTA_TPU_BATCH_ROWS = "ballista.tpu.batch_rows"
 BALLISTA_JOIN_EXPANSION = "ballista.tpu.join_expansion"
+BALLISTA_REPARTITION_JOINS = "ballista.repartition.joins"
+BALLISTA_REPARTITION_AGGREGATIONS = "ballista.repartition.aggregations"
+BALLISTA_HBM_BUDGET_MB = "ballista.tpu.hbm_budget_mb"  # grace-hash trigger
+BALLISTA_SPILL_BUDGET_MB = "ballista.tpu.spill_budget_mb"  # host spill ceiling
+BALLISTA_SPILL_DIR = "ballista.tpu.spill_dir"  # grace-hash spill location
+
+
+def _parse_bool(s: str) -> bool:
+    if s.lower() in ("true", "1", "yes"):
+        return True
+    if s.lower() in ("false", "0", "no"):
+        return False
+    raise ValueError(f"not a boolean: {s!r}")
+
 
 # key -> (default, parser)
-_ENTRIES: dict[str, tuple[str, type]] = {
+_ENTRIES: dict[str, tuple[str, object]] = {
     BALLISTA_DEFAULT_SHUFFLE_PARTITIONS: ("2", int),
     BALLISTA_AGG_CAPACITY: (str(1 << 16), int),
     BALLISTA_TPU_BATCH_ROWS: (str(1 << 21), int),
     # output rows per probe row that a join's m:n expansion allocates
     # before it overflows and the run is retried with more
     BALLISTA_JOIN_EXPANSION: ("4", int),
+    # hash-exchange the inputs of joins and aggregations in a distributed
+    # plan (PhysicalPlanner(distributed=True))
+    BALLISTA_REPARTITION_JOINS: ("true", _parse_bool),
+    BALLISTA_REPARTITION_AGGREGATIONS: ("true", _parse_bool),
+    # device bytes (MB) a join build side or a final aggregate's states may
+    # hold before they go grace-hash through host Arrow IPC buckets; 0 = off
+    BALLISTA_HBM_BUDGET_MB: ("0", int),
+    # host bytes (MB) of spill files a task attempt may write; 0 = no limit
+    BALLISTA_SPILL_BUDGET_MB: (str(1 << 16), int),
+    # where spill files go; empty = the system temp directory
+    BALLISTA_SPILL_DIR: ("", str),
 }
 
 
@@ -65,3 +90,18 @@ class BallistaConfig:
 
     def join_expansion(self) -> int:
         return self._get(BALLISTA_JOIN_EXPANSION)
+
+    def repartition_joins(self) -> bool:
+        return self._get(BALLISTA_REPARTITION_JOINS)
+
+    def repartition_aggregations(self) -> bool:
+        return self._get(BALLISTA_REPARTITION_AGGREGATIONS)
+
+    def hbm_budget_mb(self) -> int:
+        return self._get(BALLISTA_HBM_BUDGET_MB)
+
+    def spill_budget_mb(self) -> int:
+        return self._get(BALLISTA_SPILL_BUDGET_MB)
+
+    def spill_dir(self) -> str:
+        return self._get(BALLISTA_SPILL_DIR)

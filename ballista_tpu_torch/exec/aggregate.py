@@ -18,8 +18,12 @@ CapacityError at the task boundary, and the run is retried.
 
 Not ported yet (ROADMAP queue 1, item 4; none changes a result): the
 clustered-input speculation that skips the sort, the disjoint-clustered
-partial path, the learned state slicing (``_slice_states``) and the grace
-merges under a device-memory budget.
+partial path and the learned state slicing (``_slice_states``).
+
+Under a device-memory budget (``ballista.tpu.hbm_budget_mb``) the final
+aggregate collects its partial states incrementally and, once they cross
+the budget, hash-spills them by group key to host Arrow IPC buckets and
+merges them bucket range by bucket range (``_grace_merge``).
 """
 
 from __future__ import annotations
@@ -709,8 +713,21 @@ class HashAggregateExec(ExecutionPlan):
     def _execute_final(
         self, partition: int, ctx: TaskContext, cap: int, n_groups: int
     ) -> Iterator[DeviceBatch]:
+        # merges only this output partition's input partition: the input is
+        # a one-partition coalesce (the funnel) or a hash repartition on the
+        # group keys (K parallel merges, each owning its bucket's groups)
         merge_ops = [s.op.merge_op for s in self.spec.slots]
-        states = list(self.input.execute(partition, ctx))
+        budget = ctx.config.hbm_budget_mb() << 20
+        if budget and n_groups > 0:
+            # the states are collected under the budget: the moment their
+            # total crosses it, the resident ones drain to host buckets and
+            # the rest of the stream follows
+            states, grace = self._collect_states_grace(partition, ctx, budget, n_groups)
+            if grace is not None:
+                yield from self._grace_merge(grace, ctx, cap, n_groups, merge_ops, budget)
+                return
+        else:
+            states = list(self.input.execute(partition, ctx))
         if not states:
             return
         if n_groups == 0:
@@ -739,3 +756,85 @@ class HashAggregateExec(ExecutionPlan):
                 ctx=ctx, site=self.display(),
             )
         yield finalize_state(state, self.spec, self._schema)
+
+    # Bucket fan-out of the spill files. K passes (a power of two dividing
+    # it, chosen once the states' total is known) take consecutive bucket
+    # ranges: every bucket holds whole groups, so any grouping of buckets
+    # into passes is exact.
+    _GRACE_BUCKETS = 64
+
+    def _collect_states_grace(
+        self, partition: int, ctx: TaskContext, budget: int, n_groups: int
+    ) -> tuple:
+        """This partition's partial states, collected under the device
+        budget: (states, None) when they all fit, else (None, (spill set,
+        total bytes)) with every state hash-spilled by group key to host
+        bucket files. The switch fires the moment the running total crosses
+        the budget, so the full set is never resident. A lone state over
+        the budget does not spill: the child has materialized it already."""
+        from ballista_tpu_torch.exec.spill import device_nbytes, spill_batch_by_keys
+
+        key_idxs = tuple(range(n_groups))
+        states: list[DeviceBatch] = []
+        total = 0
+        sset = None
+        spilled = 0
+        for st in self.input.execute(partition, ctx):
+            total += device_nbytes(st)
+            if sset is None and states and total > budget:
+                sset = ctx.spill_manager().new_set(
+                    f"agg-{id(self):x}-{partition}", self._GRACE_BUCKETS
+                )
+                with self.metrics.time("spill_time"):
+                    for prev in states:
+                        spilled += spill_batch_by_keys(sset, prev, key_idxs)
+                states.clear()
+            if sset is None:
+                states.append(st)
+            else:
+                with self.metrics.time("spill_time"):
+                    spilled += spill_batch_by_keys(sset, st, key_idxs)
+        if sset is None:
+            return states, None
+        sset.finish_writes()
+        self.metrics.add("spill_bytes", spilled)
+        return None, (sset, total)
+
+    def _grace_merge(
+        self, grace: tuple, ctx: TaskContext, cap: int, n_groups: int,
+        merge_ops: list, budget_bytes: int,
+    ) -> Iterator[DeviceBatch]:
+        """The out-of-core final merge: the partial states were spilled by
+        group key (the shuffle's routing: strings by value, NULL keys in one
+        bucket); each pass reloads one bucket range and merges it through
+        the ordinary merge. Group keys are unique across buckets, so each
+        pass's merged state finalizes on its own and the passes' outputs
+        together are the in-memory result."""
+        from ballista_tpu_torch.columnar.arrow_interop import table_from_arrow
+        from ballista_tpu_torch.exec.spill import choose_passes
+
+        sset, total_bytes = grace
+        k = choose_passes(total_bytes, budget_bytes, self._GRACE_BUCKETS)
+        self.metrics.add("spill_passes", k)
+        group = self._GRACE_BUCKETS // k
+        batch_rows = ctx.config.tpu_batch_rows()
+        site = self.display() + "|grace"
+        for pass_i in range(k):
+            tabs = [
+                t
+                for b in range(pass_i * group, (pass_i + 1) * group)
+                if (t := sset.read(b)) is not None and t.num_rows
+            ]
+            if not tabs:
+                continue
+            # narrowing off: every bucket reloads with one layout
+            bucket: list[DeviceBatch] = []
+            for t in tabs:
+                bucket.extend(table_from_arrow(t, batch_rows, frozenset(), device=ctx.device))
+            with self.metrics.time("merge_time"):
+                state = self._run_group_agg(
+                    concat_batches(bucket), merge_ops, n_groups, cap, from_state=True,
+                    ctx=ctx, site=site,
+                )
+            yield finalize_state(state, self.spec, self._schema)
+        sset.close()

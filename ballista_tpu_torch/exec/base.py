@@ -3,9 +3,11 @@
 The port of ``ballista_tpu/exec/base.py``: ``schema()``,
 ``output_partitioning()``, ``execute(partition, ctx)`` streaming
 DeviceBatches, per-operator metrics, the task context that carries the
-device, the deferred device checks and the plan-cache speculation
-protocol, and the retry loop ``run_with_capacity_retry``. Not ported: the
-reference's JAX profiler branch, its spill manager and its plan-cache
+device, the deferred device checks, the plan-cache speculation protocol
+and the attempt's grace-hash spill files, the retry loop
+``run_with_capacity_retry``, ``plan_counters`` and ``execute_to_batches``.
+Not ported: the reference's JAX profiler branch, the executor's work
+directory for spills (with the distributed tier) and its plan-cache
 eviction by age (the port clears an overfull cache).
 """
 
@@ -20,11 +22,21 @@ import torch
 from ballista_tpu_torch.columnar.batch import DeviceBatch, resolve_device
 from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.datatypes import Schema
+from ballista_tpu_torch.expr import logical as L
 
 
 @dataclasses.dataclass(frozen=True)
 class UnknownPartitioning:
     n: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HashPartitioning:
+    exprs: tuple[L.Expr, ...]
+    n: int
+
+
+Partitioning = UnknownPartitioning | HashPartitioning
 
 
 @dataclasses.dataclass
@@ -61,9 +73,29 @@ class TaskContext:
     learned_values: list = dataclasses.field(default_factory=list)
     # callables run at a clean task boundary only (see defer_commit)
     clean_commits: list = dataclasses.field(default_factory=list)
+    # The attempt's grace-hash SpillManager (exec/spill.py), made on the
+    # first spill; run_with_capacity_retry closes it (deleting its files)
+    # at every attempt boundary, so a retry never reads stale buckets.
+    spill: object | None = None
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
+
+    def spill_manager(self):
+        """The attempt's SpillManager, made on the first spill, under
+        ``ballista.tpu.spill_dir`` or else the shared temp spill root."""
+        if self.spill is None:
+            from ballista_tpu_torch.exec.spill import SpillManager
+
+            self.spill = SpillManager(
+                self.config.spill_dir() or None, self.config.spill_budget_mb() << 20
+            )
+        return self.spill
+
+    def close_spills(self) -> None:
+        if self.spill is not None:
+            self.spill.close()
+            self.spill = None
 
     def defer_check(self, flag, message: str, required=None, site=None) -> None:
         """Queue a device bool ``flag``; if it is set at the task boundary
@@ -199,6 +231,9 @@ def run_with_capacity_retry(
     - a SpeculationMiss (a plan-cache entry went stale): drop the stale
       keys and run again.
 
+    Every attempt, whether it succeeds, retries or fails, closes its spill
+    manager, deleting its grace-hash bucket files.
+
     ``hint`` is a caller-owned dict that remembers the capacities a run
     grew to (keys ``"agg_capacity"`` and ``"site_capacity"``), so warm
     re-runs start there instead of overflowing again. ``stats``, when
@@ -270,6 +305,8 @@ def run_with_capacity_retry(
                 override = new_cap
             if stats is not None:
                 stats["capacity_retries"] = stats.get("capacity_retries", 0) + 1
+        finally:
+            ctx.close_spills()
 
 
 class Metrics:
@@ -307,6 +344,23 @@ class Metrics:
         return "[" + ", ".join(parts) + "]"
 
 
+def plan_counters(plan, names) -> dict[str, int]:
+    """The named metric counters summed over a plan tree: the values of
+    its most recent run (collect resets the metrics per query)."""
+    out = {n: 0 for n in names}
+
+    def walk(p) -> None:
+        for n in names:
+            v = p.metrics.counters.get(n)
+            if v is not None:
+                out[n] += int(v)
+        for c in p.children():
+            walk(c)
+
+    walk(plan)
+    return out
+
+
 class _Timer:
     def __init__(self, m: Metrics, name: str):
         self.m = m
@@ -336,7 +390,7 @@ class ExecutionPlan:
     def children(self) -> list["ExecutionPlan"]:
         return []
 
-    def output_partitioning(self) -> UnknownPartitioning:
+    def output_partitioning(self) -> Partitioning:
         return UnknownPartitioning(1)
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
@@ -358,3 +412,12 @@ class ExecutionPlan:
 
         walk(self, 0)
         return "\n".join(lines)
+
+
+def execute_to_batches(plan: ExecutionPlan, ctx: TaskContext) -> list[DeviceBatch]:
+    """Every output partition of a plan, run in turn, its batches
+    collected."""
+    out: list[DeviceBatch] = []
+    for p in range(plan.output_partitioning().n):
+        out.extend(plan.execute(p, ctx))
+    return out

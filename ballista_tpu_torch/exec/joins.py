@@ -22,11 +22,19 @@ Build strategies (duplicate and contiguity flags) and probe-table sizes
 are learned into the plan cache: a warm run takes them without a host
 sync and validates them with deferred speculation flags.
 
-Not ported yet, each raising ``NotImplementedError`` where a plan needs it:
-partitioned mode and the grace build under a device-memory budget (ROADMAP
-queue 1, item 8). Also waiting, with no effect on results: the cross-run
-build-table cache and the learned flip that skips collecting the right side
-(item 6).
+Partitioned mode (``partition_mode="partitioned"``, planned by the
+distributed planner over a hash repartition of both sides) joins each
+partition's bucket on its own, duplicate build keys through the m:n
+expansion. Under a device-memory budget (``ballista.tpu.hbm_budget_mb``) a
+collect-mode join collects its build side incrementally; once it crosses
+the budget, both sides are hash-spilled to host Arrow IPC buckets and the
+join runs bucket range by bucket range (``_grace_build``,
+``_execute_grace``) for INNER, LEFT, SEMI and ANTI.
+
+Not ported yet, with no effect on results: the cross-run build-table cache
+and the learned flip that skips collecting the right side (ROADMAP queue
+1, item 6), and the adaptive capacity shrink of the grace passes' outputs
+(item 5).
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from typing import Callable, Iterator
 
 import torch
 
-from ballista_tpu_torch.columnar.batch import DeviceBatch, round_capacity
+from ballista_tpu_torch.columnar.batch import DeviceBatch, Dictionary, round_capacity
 from ballista_tpu_torch.columnar.dict_util import merge_many, remap_codes
 from ballista_tpu_torch.datatypes import DataType, Field, Schema
 from ballista_tpu_torch.errors import ExecutionError, PlanError
@@ -69,6 +77,14 @@ def _collect(plan: ExecutionPlan, ctx: TaskContext) -> DeviceBatch:
     return concat_batches(batches)
 
 
+def _collect_partition(plan: ExecutionPlan, ctx: TaskContext, partition: int) -> DeviceBatch:
+    """Partitioned mode's build side: only this partition's hash bucket."""
+    batches = list(plan.execute(partition, ctx))
+    if not batches:
+        return DeviceBatch.empty(plan.schema(), device=ctx.device)
+    return concat_batches(batches)
+
+
 class HashJoinExec(ExecutionPlan):
     _KIND = {
         JoinType.INNER: JoinSide.INNER,
@@ -88,12 +104,13 @@ class HashJoinExec(ExecutionPlan):
         filter: L.Expr | None = None,
         partition_mode: str = "collect",
     ) -> None:
+        """``partition_mode``: "collect" broadcasts the whole build side to
+        every probe partition; "partitioned" assumes both inputs are
+        hash-partitioned on the join keys, and each partition joins its own
+        bucket."""
         super().__init__()
-        if partition_mode != "collect":
-            raise NotImplementedError(
-                "partitioned hash joins need hash repartition, not ported yet "
-                "(ROADMAP queue 1, item 8)"
-            )
+        if partition_mode not in ("collect", "partitioned"):
+            raise PlanError(f"bad join partition mode {partition_mode!r}")
         self.left = left
         self.right = right
         self.on = list(on)
@@ -171,13 +188,199 @@ class HashJoinExec(ExecutionPlan):
         ls, rs = self.left.schema(), self.right.schema()
         left_keys = [L.resolve_field_index(ls, a.cname) for a, _ in self.on]
         right_keys = [L.resolve_field_index(rs, b.cname) for _, b in self.on]
-        if self.join_type == JoinType.INNER:
-            yield from self._execute_inner(partition, ctx, left_keys, right_keys)
+        if self.partition_mode == "partitioned":
+            # both inputs are hash-partitioned on the keys: this partition's
+            # bucket joins on its own, duplicate build keys by expansion
+            yield from self._probe_loop(
+                partition, ctx, lambda: _collect_partition(self.right, ctx, partition),
+                left_keys, right_keys, self._KIND[self.join_type],
+            )
             return
-        # LEFT/SEMI/ANTI: the left side is preserved, so it probes
-        yield from self._probe_loop(
-            partition, ctx, lambda: _collect(self.right, ctx),
-            left_keys, right_keys, self._KIND[self.join_type],
+        budget = ctx.config.hbm_budget_mb() << 20
+        if budget:
+            grace = self._grace_build(ctx, right_keys, budget)
+            if grace is not None:
+                yield from self._execute_grace(partition, ctx, grace, left_keys, right_keys)
+                return
+        try:
+            if self.join_type == JoinType.INNER:
+                yield from self._execute_inner(partition, ctx, left_keys, right_keys)
+                return
+            # LEFT/SEMI/ANTI: the left side is preserved, so it probes
+            yield from self._probe_loop(
+                partition, ctx, lambda: self._collect_right(ctx),
+                left_keys, right_keys, self._KIND[self.join_type],
+            )
+        finally:
+            # drop an unconsumed stash of the budget check on every exit (an
+            # empty probe side, an error, a LIMIT that stops early), or the
+            # collected build side stays pinned on this plan instance, which
+            # outlives the run in the context's plan cache
+            c = getattr(self, "_grace_under", None)
+            if c is not None and c[0] is ctx:
+                self._grace_under = None
+
+    # -- grace-hash out-of-core path ------------------------------------------
+    # Bucket fan-out of the spill files. K passes (a power of two dividing
+    # it, chosen once the build side's size is known) take consecutive
+    # bucket ranges of both sides; equal keys share a bucket on both.
+    _GRACE_BUCKETS = 64
+
+    def _collect_right(self, ctx: TaskContext) -> DeviceBatch:
+        """The collected build side: the batch the budget check collected
+        when it found the side fits (one-shot: the stash is dropped when
+        taken), else a fresh collection."""
+        c = getattr(self, "_grace_under", None)
+        if c is not None and c[0] is ctx:
+            self._grace_under = None
+            return c[1]
+        return _collect(self.right, ctx)
+
+    def _grace_build(self, ctx: TaskContext, right_keys: list[int], budget: int):
+        """Collect the build side under the device budget. Returns None
+        when it fits (stashing the collected batch for the in-memory
+        paths), else (spill set, K passes): the batches collected so far and
+        the rest of the stream are hash-routed to host bucket files. Decided
+        once per task context: every probe partition shares the spilled
+        build side."""
+        cached = getattr(self, "_grace_cache", None)
+        if cached is not None and cached[0] is ctx:
+            return cached[1]
+        from ballista_tpu_torch.exec.spill import (
+            choose_passes,
+            device_nbytes,
+            spill_batch_by_keys,
+        )
+
+        keys = tuple(right_keys)
+        batches: list[DeviceBatch] = []
+        nbytes = 0
+        sset = None
+        spilled = 0
+        with self.metrics.time("build_time"):
+            for p in range(self.right.output_partitioning().n):
+                for b in self.right.execute(p, ctx):
+                    nbytes += device_nbytes(b)
+                    if sset is None and nbytes * 2 > budget:
+                        # crossed the budget (a build table costs about twice
+                        # the side: the sorted copy and the key arrays):
+                        # drain what is resident and spill from here on
+                        sset = ctx.spill_manager().new_set(
+                            f"join-build-{id(self):x}", self._GRACE_BUCKETS
+                        )
+                        for prev in batches:
+                            spilled += spill_batch_by_keys(sset, prev, keys)
+                        batches.clear()
+                    if sset is None:
+                        batches.append(b)
+                    else:
+                        spilled += spill_batch_by_keys(sset, b, keys)
+        if sset is None:
+            build = (
+                concat_batches(batches) if batches
+                else DeviceBatch.empty(self.right.schema(), device=ctx.device)
+            )
+            self._grace_under = (ctx, build)
+            self._grace_cache = (ctx, None)
+            return None
+        sset.finish_writes()
+        self.metrics.add("spill_bytes", spilled)
+        k = choose_passes(nbytes, budget, self._GRACE_BUCKETS)
+        # once per decision, not per probe partition: plan_counters sums
+        # the operators' counters
+        self.metrics.add("spill_passes", k)
+        self._grace_cache = (ctx, (sset, k))
+        return (sset, k)
+
+    def _execute_grace(
+        self, partition: int, ctx: TaskContext, grace: tuple,
+        left_keys: list[int], right_keys: list[int],
+    ) -> Iterator[DeviceBatch]:
+        """The grace-hash join: this partition's probe rows are hash-routed
+        to bucket files aligned with the build side's; each pass loads one
+        bucket range of the build side, builds it with the ordinary kernels
+        and streams that range's probe rows through the ordinary probe or
+        expansion. Equal keys share a bucket, so the passes' outputs
+        together are the one-shot join for INNER, LEFT, SEMI and ANTI (a
+        preserved probe row lies in exactly one bucket)."""
+        from ballista_tpu_torch.columnar.arrow_interop import table_from_arrow
+        from ballista_tpu_torch.exec.spill import spill_batch_by_keys, tables_string_dicts
+
+        sset, k = grace
+        kind = self._KIND[self.join_type]
+        pset = ctx.spill_manager().new_set(
+            f"join-probe-{id(self):x}-{partition}", self._GRACE_BUCKETS
+        )
+        spilled = 0
+        with self.metrics.time("spill_time"):
+            for b in self.left.execute(partition, ctx):
+                spilled += spill_batch_by_keys(pset, b, tuple(left_keys))
+        pset.finish_writes()
+        self.metrics.add("spill_bytes", spilled)
+        batch_rows = ctx.config.tpu_batch_rows()
+        group = self._GRACE_BUCKETS // k
+        for pass_i in range(k):
+            buckets = range(pass_i * group, (pass_i + 1) * group)
+            ptabs = [t for bk in buckets if (t := pset.read(bk)) is not None and t.num_rows]
+            if not ptabs:
+                continue  # no probe rows: nothing to emit for any kind
+            # one union dictionary for the pass, so every probe chunk shares
+            # codes (per-chunk dictionaries would rebuild the build side at
+            # every chunk's unification)
+            pass_dicts = tables_string_dicts(ptabs)
+
+            def probe_batches(ptabs=ptabs, pass_dicts=pass_dicts):
+                # one batch_rows chunk at a time: K bounds the build side's
+                # residency, not the probe side's; narrowing off on both
+                # sides, so their key columns share one width
+                for t in ptabs:
+                    for off in range(0, t.num_rows, batch_rows):
+                        yield from table_from_arrow(
+                            t.slice(off, batch_rows), batch_rows, frozenset(),
+                            device=ctx.device, fixed_dicts=pass_dicts,
+                        )
+
+            btabs = [t for bk in buckets if (t := sset.read(bk)) is not None and t.num_rows]
+            if not btabs:
+                # an empty build range: INNER and SEMI emit nothing, ANTI
+                # keeps every probe row, LEFT nulls the build side
+                if kind in (JoinSide.INNER, JoinSide.SEMI):
+                    continue
+                for pb in probe_batches():
+                    yield pb if kind == JoinSide.ANTI else self._null_extend(pb)
+                continue
+            with self.metrics.time("build_time"):
+                parts: list[DeviceBatch] = []
+                for t in btabs:
+                    parts.extend(table_from_arrow(t, 1 << 62, frozenset(), device=ctx.device))
+                bb = concat_batches(parts)
+                bt = build_side(bb, right_keys)
+            for pb in probe_batches():
+                bb2, pb2 = self._unify_key_dicts(bb, pb, right_keys, left_keys)
+                if bb2 is not bb:
+                    with self.metrics.time("build_time"):
+                        bt = build_side(bb2, right_keys)
+                    bb = bb2
+                out = self._probe_or_expand(bt, pb2, left_keys, kind, ctx, None, partition)
+                if kind in (JoinSide.INNER, JoinSide.LEFT):
+                    out = self._restore_column_order(out, pb2, build_is_right=True)
+                self.metrics.add("output_batches")
+                yield out
+        pset.close()
+
+    def _null_extend(self, pb: DeviceBatch) -> DeviceBatch:
+        """LEFT-join rows of an empty build range: the probe columns as they
+        are, every build column null."""
+        cols, nulls = list(pb.columns), list(pb.nulls)
+        dicts = dict(pb.dictionaries)
+        for f in self.right.schema():
+            cols.append(torch.zeros(pb.capacity, dtype=f.dtype.to_torch(), device=pb.device))
+            nulls.append(torch.ones(pb.capacity, dtype=torch.bool, device=pb.device))
+            if f.dtype == DataType.STRING:
+                dicts[f.name] = Dictionary(())
+        return DeviceBatch(
+            schema=self._schema, columns=tuple(cols), valid=pb.valid,
+            nulls=tuple(nulls), dictionaries=dicts,
         )
 
     def _probe_loop(
@@ -189,7 +392,7 @@ class HashJoinExec(ExecutionPlan):
         key dictionaries per batch (rebuilding only when that changed the
         build side), then probe or expand and relabel to the plan schema."""
         build_batch, bt = None, None
-        fp = self._strategy_key(self.right, right_keys)
+        fp = self._strategy_key(self.right, right_keys, partition)
         for b in self.left.execute(partition, ctx):
             if build_batch is None:
                 with self.metrics.time("build_time"):
@@ -213,7 +416,7 @@ class HashJoinExec(ExecutionPlan):
         have duplicates, run the m:n expansion."""
         ls, rs = self.left.schema(), self.right.schema()
         with self.metrics.time("build_time"):
-            right_batch = _collect(self.right, ctx)
+            right_batch = self._collect_right(ctx)
         iter_left = iter(self.left.execute(partition, ctx))
         first = next(iter_left, None)
         if first is None:
@@ -384,10 +587,13 @@ class HashJoinExec(ExecutionPlan):
         if bt.lut2 is not None or bt.mode != "exact" or probe_cap < self._LUT_MIN_PROBE:
             return
         cache, key = ctx.plan_cache, ("join_lut", fp)
-        if any(bt.batch.schema.fields[i].dtype == DataType.STRING for i in bt.key_idxs):
-            # dictionary-coded key domains grow as probes unify new strings
-            # in: a cached domain would go stale every run, so these take
-            # the build's own flags each time
+        if fp is None or any(
+            bt.batch.schema.fields[i].dtype == DataType.STRING for i in bt.key_idxs
+        ):
+            # a grace pass (no strategy key: each pass builds other rows), or
+            # dictionary-coded key domains, which grow as probes unify new
+            # strings in: a cached domain would go stale every run, so these
+            # take the build's own flags each time
             cache = None
         cached = cache.get(key) if cache is not None else None
         if cached == 0:  # learned: contiguous, or the domain is too wide
@@ -411,11 +617,15 @@ class HashJoinExec(ExecutionPlan):
         if cache is not None:
             cache[key] = size
 
-    def _strategy_key(self, side_plan: ExecutionPlan, keys: list[int]) -> tuple:
+    def _strategy_key(
+        self, side_plan: ExecutionPlan, keys: list[int], partition: int | None = None
+    ) -> tuple:
         """Plan-cache key of a build side: its plan's display and key
-        indexes. A speculation key only: staleness is caught by deferred
-        validation flags."""
-        return ("join_flags", "", side_plan.display(), tuple(keys), None)
+        indexes, and in partitioned mode the bucket (each bucket's build
+        rows differ). A speculation key only: staleness is caught by
+        deferred validation flags."""
+        bucket = partition if self.partition_mode == "partitioned" else None
+        return ("join_flags", "", side_plan.display(), tuple(keys), bucket)
 
     def _probe_or_expand(
         self, bt: BuildTable, probe: DeviceBatch, probe_keys: list[int],
@@ -423,8 +633,9 @@ class HashJoinExec(ExecutionPlan):
     ) -> DeviceBatch:
         """Unique build: the fixed-capacity probe; duplicated build: the m:n
         expansion. With a plan cache the branch comes from cached flags,
-        validated later, with no host sync."""
-        cache = ctx.plan_cache
+        validated later, with no host sync. A grace pass (``fp`` None)
+        takes its build's own flags."""
+        cache = ctx.plan_cache if fp is not None else None
         cached = cache.get(fp) if cache is not None else None
         if cached is not None:
             if not cached[0]:

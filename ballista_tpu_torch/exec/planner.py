@@ -11,15 +11,25 @@ filter deduplicated on its keys), cross joins broadcast a one-row side, a
 subquery alias renames, and windows and percentiles gather their input.
 File scans raise ``NotImplementedError`` naming the ROADMAP item that ports
 them.
+
+With ``distributed=True`` it plans for the multi-executor tier, as the
+reference does: a hash repartition on the group keys between a GROUP BY's
+partial and final aggregates (``ballista.repartition.aggregations``), a
+partitioned join over a hash repartition of both sides for joins without
+string keys (``ballista.repartition.joins``), and an explicit gather under
+a sort of a multi-partition input. Such a tree also runs in process (the
+repartitions mask their output partitions).
 """
 
 from __future__ import annotations
 
+from ballista_tpu_torch.datatypes import DataType
 from ballista_tpu_torch.errors import PlanError
 from ballista_tpu_torch.exec.aggregate import HashAggregateExec
 from ballista_tpu_torch.exec.base import ExecutionPlan
 from ballista_tpu_torch.exec.joins import CrossJoinExec, EmptyExec, HashJoinExec, UnionExec
 from ballista_tpu_torch.exec.percentile import PercentileExec
+from ballista_tpu_torch.exec.repartition import HashRepartitionExec
 from ballista_tpu_torch.exec.pipeline import (
     CoalescePartitionsExec,
     FilterExec,
@@ -42,9 +52,36 @@ class TableProvider:
 
 
 class PhysicalPlanner:
-    def __init__(self, provider: TableProvider, partitions: int = 2):
+    def __init__(
+        self,
+        provider: TableProvider,
+        partitions: int = 2,
+        config=None,
+        distributed: bool = False,
+    ):
+        """``distributed``: plan hash-exchange boundaries at aggregates and
+        joins (honouring ``config``'s ``ballista.repartition.*`` keys), where
+        a stage splitter cuts the plan into shuffled stages. The in-process
+        tier leaves them out: one device gains nothing from a masked K-way
+        fan-out."""
         self.provider = provider
         self.partitions = partitions
+        self.config = config
+        self.distributed = distributed
+
+    def _repartition_aggregations(self) -> bool:
+        return (
+            self.distributed
+            and self.partitions > 1
+            and (self.config is None or self.config.repartition_aggregations())
+        )
+
+    def _repartition_joins(self) -> bool:
+        return (
+            self.distributed
+            and self.partitions > 1
+            and (self.config is None or self.config.repartition_joins())
+        )
 
     def plan(self, logical: P.LogicalPlan) -> ExecutionPlan:
         return self._plan(logical)
@@ -77,13 +114,19 @@ class PhysicalPlanner:
             )
         if isinstance(node, P.Aggregate):
             return self._two_phase(
-                self._plan(node.input), list(node.group_exprs), list(node.agg_exprs)
+                self._plan(node.input), list(node.group_exprs), list(node.agg_exprs),
+                repartition=bool(node.group_exprs) and self._repartition_aggregations(),
             )
         if isinstance(node, P.Distinct):
             groups = [L.Column(f.name) for f in node.input.schema()]
             return self._two_phase(self._plan(node.input), groups, [])
         if isinstance(node, P.Sort):
-            return SortExec(self._plan(node.input), list(node.sort_exprs))
+            child = self._plan(node.input)
+            if self.distributed and child.output_partitioning().n > 1:
+                # an explicit gather, where the stage splitter cuts: an
+                # upstream K-way final aggregate keeps its K tasks
+                child = CoalescePartitionsExec(child)
+            return SortExec(child, list(node.sort_exprs))
         if isinstance(node, P.Limit):
             child = self._plan(node.input)
             if child.output_partitioning().n > 1:
@@ -101,15 +144,19 @@ class PhysicalPlanner:
             return EmptyExec(node.produce_one_row, node.out_schema)
         raise PlanError(f"cannot lower {type(node).__name__} to physical plan")
 
-    @staticmethod
-    def _two_phase(child: ExecutionPlan, groups: list, aggs: list) -> ExecutionPlan:
+    def _two_phase(
+        self, child: ExecutionPlan, groups: list, aggs: list, repartition: bool = False
+    ) -> ExecutionPlan:
         """A partial aggregate per input partition, then a final merge
-        behind a coalesce."""
+        behind a coalesce, or, with ``repartition``, behind a hash exchange
+        of the partial states on the group keys (K parallel merges)."""
         partial = HashAggregateExec(child, groups, aggs, mode="partial")
-        return HashAggregateExec(
-            CoalescePartitionsExec(partial), groups, aggs, mode="final",
-            spec=partial.spec,
-        )
+        if repartition:
+            keys = [L.Column(f.name) for f in partial.schema().fields[: len(groups)]]
+            merged = HashRepartitionExec(partial, keys, self.partitions)
+        else:
+            merged = CoalescePartitionsExec(partial)
+        return HashAggregateExec(merged, groups, aggs, mode="final", spec=partial.spec)
 
     def _plan_join(self, node: P.Join) -> ExecutionPlan:
         jt = node.join_type
@@ -140,6 +187,27 @@ class PhysicalPlanner:
             )
         left = self._plan(node.left)
         right = self._plan(node.right)
+        # string keys are dictionary-coded, and two executors cannot route
+        # codes alike without a shared dictionary: those joins stay in
+        # collect (broadcast-build) mode
+        no_string_keys = all(
+            a.data_type(node.left.schema()) != DataType.STRING
+            and b.data_type(node.right.schema()) != DataType.STRING
+            for a, b in node.on
+        )
+        if (
+            self._repartition_joins()
+            and no_string_keys
+            and jt in (P.JoinType.INNER, P.JoinType.LEFT, P.JoinType.SEMI, P.JoinType.ANTI)
+        ):
+            # partitioned mode: both sides hash-exchanged on the join keys,
+            # each of K partitions joins its bucket; duplicate build keys
+            # expand per bucket, so SEMI and ANTI need no dedup
+            left = HashRepartitionExec(left, [a for a, _ in node.on], self.partitions)
+            right = HashRepartitionExec(right, [b for _, b in node.on], self.partitions)
+            return HashJoinExec(
+                left, right, list(node.on), jt, node.filter, partition_mode="partitioned"
+            )
         if jt in (P.JoinType.SEMI, P.JoinType.ANTI) and node.filter is None:
             # the probe needs a unique build side, and existence semantics
             # allow deduplicating it on the join keys

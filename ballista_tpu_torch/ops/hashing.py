@@ -7,9 +7,10 @@ way in two's complement, and a logical right shift is an arithmetic shift
 masked to the bits that stay. The result is the uint64 hash's bit pattern
 as int64 (the reference's ``.view(int64)``).
 
-Only hash-packed join keys reach this code in the slice that ported it,
-so it is plain torch; a hand-written kernel comes with hash repartition,
-where every shuffled row is hashed (ROADMAP queue 1, item 8).
+This int64 chain is the plain version (``hash_columns_plain``). On a CUDA
+tensor ``hash_columns`` launches the hand-written partition-hash kernel
+(``csrc/partition_hash.cu``, ``ops/partition.py``) in its hash-only mode,
+or raises; on a CPU tensor it runs the chain.
 """
 
 from __future__ import annotations
@@ -58,7 +59,16 @@ def _to_u64(col: torch.Tensor) -> torch.Tensor:
 
 def hash_columns(cols: list[torch.Tensor]) -> torch.Tensor:
     """Row-wise combined hash of one or more columns: the uint64 hash's
-    bits as int64[n]."""
+    bits as int64[n]. The kernel on CUDA tensors, the plain chain on CPU
+    tensors."""
+    from ballista_tpu_torch.ops import partition
+
+    n = len(cols)
+    return partition.partition_hash(list(cols), [None] * n, [None] * n, None, 0)
+
+
+def hash_columns_plain(cols: list[torch.Tensor]) -> torch.Tensor:
+    """The plain version of ``hash_columns``: the int64 chain."""
     h = torch.zeros(cols[0].shape, dtype=torch.int64, device=cols[0].device)
     for c in cols:
         h = _splitmix64(h ^ _splitmix64(_to_u64(c)))

@@ -20,18 +20,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "onehot_agg.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+from ballista_tpu_torch.ops import cuda_build
+
+SOURCE = cuda_build.CSRC / "onehot_agg.cu"
 
 # The largest dense slot space (the reference's DENSE_AGG_MAX_SLOTS):
 # ops/aggregate.py routes every dense aggregate here and takes its own
@@ -85,9 +80,6 @@ def _ring_bytes(rw: int) -> int:
     return _WARPS * _stages(rw) * (rw + 1) * 32 * 8
 
 launches = 0  # kernel launches (the plain version does not count)
-
-_lock = threading.Lock()
-_lib = None
 
 
 def _pow2_at_least(x: int) -> int:
@@ -209,63 +201,31 @@ def launch_plan(n: int, R: int, P: int, mode: str | None = None) -> dict:
     )
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required")
-    return nvcc
-
-
 def build(verbose: bool = False) -> tuple[pathlib.Path, float, str]:
     """Compile the kernel for sm_90a into ``build/kernels`` (skipped when a
     library of the same source is already there). Returns (library path,
     build seconds, compiler output). ``verbose`` adds ``-Xptxas -v`` (the
     registers and shared memory of each kernel)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    out = BUILD_DIR / f"onehot_agg-{tag}.so"
-    if out.exists() and not verbose:
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE),
+    return cuda_build.build(SOURCE, verbose)
+
+
+def _configure(lib) -> None:
+    f = lib.onehot_sums_f64
+    f.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, secs, proc.stdout + proc.stderr
+    f.restype = ctypes.c_int
+    lib.onehot_error_string.argtypes = [ctypes.c_int]
+    lib.onehot_error_string.restype = ctypes.c_char_p
 
 
 def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            path, _, _ = build()
-            lib = ctypes.CDLL(str(path))
-            f = lib.onehot_sums_f64
-            f.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            f.restype = ctypes.c_int
-            lib.onehot_error_string.argtypes = [ctypes.c_int]
-            lib.onehot_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    return cuda_build.load(SOURCE, _configure)
 
 
 def onehot_sums_plain(rid: torch.Tensor, vals: torch.Tensor, P: int) -> torch.Tensor:

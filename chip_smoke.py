@@ -8,8 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Card: name, count, and ``nvidia-smi`` name and power limit. Without a
    CUDA device the script exits non-zero and prints no result.
-2. Build: compile ``ballista_tpu_torch/csrc/onehot_agg.cu`` for sm_90a with
-   nvcc and print the build seconds and the ``-Xptxas -v`` report.
+2. Build: compile ``ballista_tpu_torch/csrc/onehot_agg.cu`` and
+   ``csrc/partition_hash.cu`` for sm_90a, one nvcc each, started together
+   (``ops/cuda_build.build_many``), and print the build seconds and the
+   ``-Xptxas -v`` report.
 3. Kernel against its plain version at q1's shapes (n = 2^21 and 2^20,
    R = 14, P = 12, and q1's R = 6 once columns without nulls share a count
    row), at P = 2048, 4096 and 65,536 and at a ragged n, with out-of-range
@@ -26,6 +28,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    uniform slot ids, on Zipf-distributed ones (s = 1, hot slots scattered)
    and on ids of which 90% fall in one slot. Then the port's sort on the
    card against the CPU, on keys with +-0.0, NaN, a sign-bit NaN and +-inf.
+   Then the partition-hash kernel against its plain version and a numpy
+   uint64 oracle, bit for bit, at n = 2^21, 2^20 and a ragged n, on one
+   int64 key, (int32, int64) keys, an f64 key with -0.0, NaNs, +-inf and
+   f32-subnormal values, and a string key through its blake2b table with
+   null rows; K in {1, 2, 4, 7, 64} with invalid rows (which come out as
+   K) and the hash-only mode; two launches bit-identical; times of the
+   kernel and the plain version at K = 64 with the bound.
 4. Main path: TPC-H ``lineitem`` at ``--sf`` (seed 42) through
    ``TorchContext(device="cuda").sql(q).collect()`` for q1, q6 and a dense
    GROUP BY over four string keys (480 slots, ``WIDE_SQL``), one cold and
@@ -49,8 +58,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    first run must retry after its aggregate outgrows the default group
    capacity; q4 and q5 must launch the one-hot kernel (counter zeroed
    before each query, read after). ``ops/hashing.hash_columns`` on the
-   card must equal a numpy uint64 splitmix64 bit for bit, on int64, f64
-   and f32 columns with -0.0, NaNs and extreme values. The exact decimal
+   card (the partition-hash kernel's hash-only mode) must equal a numpy
+   uint64 splitmix64 bit for bit, on int64, f64 and f32 columns with -0.0,
+   NaNs and extreme values. The exact decimal
    sums (``tests/test_decimal_exact.py``'s money table) on the card must
    equal the CPU's: the first run within rtol 1e-9, the third bit for bit.
    Prints per query the cold and warm seconds, rows, kernel launches and
@@ -80,7 +90,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launch the kernel. Prints per query what phase 5 prints and the CPU
    seconds, then the phase's peak device memory; then the kernel against
    its plain version on the inputs these queries gave it, as in phase 5.
-7. One JSON line of kernel results, then the last line
+   Phases 5 and 6 also count and replay the partition-hash launches of
+   hash-packed join keys.
+7. Grace-hash spill and the distributed plans, on the tables of phase 5:
+   q3, q5 and q18 in a ``TorchContext(device="cuda")`` with
+   ``ballista.tpu.hbm_budget_mb=16`` (``GRACE_BUDGET_MB``), one cold and
+   one warm run each, held against the same query's unbudgeted card run
+   (schema, keys, counts and row order exact, floats within rtol 1e-9, the
+   sort path's money sums of q3 and q18 bit for bit); each run must take
+   at least 2 grace passes with spilled bytes (``plan_counters``), every
+   query must route rows through the partition-hash kernel, q5's partial
+   aggregates must launch the one-hot kernel at R = 2, and the spill root
+   must hold no attempt directory afterwards. Then q1, q12 and q3 from
+   ``PhysicalPlanner(ctx, 4, config=ctx.config, distributed=True)``,
+   executed in process on the card (cold and warm), each equal to collect
+   mode, q12 and q3 with a partitioned join. Prints per query the seconds,
+   spill bytes and passes, partition-hash launches and their (n, key
+   columns, K), one-hot launches and host syncs, the phase's peak device
+   memory, and replays one partition-hash launch (and one one-hot launch)
+   per distinct shape against its plain version: the budgeted queries'
+   warm runs keep the inputs of their first launch at each shape (device
+   copies, in the phase's peak memory), the distributed trees get one
+   capture run each.
+8. One JSON line of kernel results (both kernels), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -216,14 +248,16 @@ def kernel_case(n: int, m: int, n_sums: int, P: int, seed: int) -> dict:
 class LaunchRecorder:
     """While active, stands in for ``onehot_agg.onehot_sums`` (the dense
     route calls it through the module): each call on the card made while
-    ``tag`` is set adds its (n, R, P) to ``shapes[tag]``; with ``keep`` set
-    instead, the first call at each shape keeps a copy of its inputs for
-    ``replay_launches`` (see ``capture_launch_inputs``). The call itself
-    goes to the wrapper as before and counts its launch there."""
+    ``tag`` is set adds its (n, R, P) to ``shapes[tag]`` (unless
+    ``counting`` is off); with ``keep`` set, the first call at each shape
+    keeps a copy of its inputs for ``replay_launches`` (see
+    ``capture_runs``). The call itself goes to the wrapper as
+    before and counts its launch there."""
 
     def __init__(self) -> None:
         self.tag: str | None = None
         self.keep = False
+        self.counting = True
         self.shapes: dict = {}  # tag -> [(n, R, P), ...], one per launch
         self.inputs: dict = {}  # (n, R, P) -> (tag, rid, vals)
 
@@ -236,9 +270,9 @@ class LaunchRecorder:
             out = self._real(rid, vals, P)
             if self.tag is not None and rid.is_cuda:
                 shape = (int(rid.shape[0]), int(vals.shape[0]), int(P))
-                if not self.keep:
+                if self.counting:
                     self.shapes.setdefault(self.tag, []).append(shape)
-                elif shape not in self.inputs:
+                if self.keep and shape not in self.inputs:
                     self.inputs[shape] = (self.tag, rid.clone(), vals.clone())
             return out
 
@@ -249,21 +283,25 @@ class LaunchRecorder:
         self._mod.onehot_sums = self._real
 
 
-def capture_launch_inputs(rec: LaunchRecorder, ctx, sqls: dict) -> None:
-    """One more run of each query in ``sqls`` that launched the kernel,
-    keeping the inputs of its first launch at each (n, R, P). It comes
-    after the path's counts and peak memory were read, so that neither
-    includes it or the copies."""
-    rec.keep = True
+def capture_runs(recs: list, runs: dict) -> None:
+    """One more run of each tag in ``runs`` (tag -> callable) under which a
+    recorder of ``recs`` saw a launch, every recorder keeping the inputs of
+    its first launch at each shape. It comes after the path's counts and
+    peak memory were read, so that neither includes it or the copies."""
+    for r in recs:
+        r.keep, r.counting = True, False
     try:
-        for q, sql in sqls.items():
-            if rec.shapes.get(q):
-                rec.tag = q
-                ctx.sql(sql).collect()
-                missing = set(rec.shapes[q]) - set(rec.inputs)
-                check(not missing, f"{q}: the capture run missed launch shapes {sorted(missing)}")
+        for q, run in runs.items():
+            if any(r.shapes.get(q) for r in recs):
+                for r in recs:
+                    r.tag = q
+                run()
+                for r in recs:
+                    missing = set(r.shapes.get(q, [])) - set(r.inputs)
+                    check(not missing, f"{q}: the capture run missed launch shapes {sorted(missing)}")
     finally:
-        rec.keep, rec.tag = False, None
+        for r in recs:
+            r.keep, r.counting, r.tag = False, True, None
 
 
 def exact_group_sums(rid, vals, P: int):
@@ -359,6 +397,169 @@ def replay_launches(rec: LaunchRecorder) -> list:
         log(f"replay {what}: ok  {json.dumps(res)}")
         out.append(res)
     rec.inputs.clear()
+    return out
+
+
+# -- phase 3: the partition-hash kernel against its plain version -------------
+
+
+class PartitionRecorder:
+    """``LaunchRecorder`` for ``partition.partition_hash`` (the join's hash
+    packing reaches it through ``hashing.hash_columns``, routing through
+    ``partition_ids``): each call on the card made while ``tag`` is set adds
+    its (n, key columns, K) to ``shapes[tag]`` (K = 0: the hash-only mode);
+    with ``keep`` set, the first call at each shape keeps its inputs."""
+
+    def __init__(self) -> None:
+        self.tag: str | None = None
+        self.keep = False
+        self.counting = True
+        self.shapes: dict = {}
+        self.inputs: dict = {}  # (n, cols, K) -> (tag, cols, nulls, tables, valid)
+
+    def __enter__(self) -> "PartitionRecorder":
+        from ballista_tpu_torch.ops import partition
+
+        self._mod, self._real = partition, partition.partition_hash
+
+        def recorded(cols, nulls, tables, valid, k):
+            out = self._real(cols, nulls, tables, valid, k)
+            if self.tag is not None and cols[0].is_cuda:
+                shape = (int(cols[0].shape[0]), len(cols), int(k))
+                if self.counting:
+                    self.shapes.setdefault(self.tag, []).append(shape)
+                if self.keep and shape not in self.inputs:
+                    clone = lambda xs: [None if x is None else x.clone() for x in xs]  # noqa: E731
+                    self.inputs[shape] = (
+                        self.tag, clone(cols), clone(nulls), clone(tables),
+                        None if valid is None else valid.clone(),
+                    )
+            return out
+
+        partition.partition_hash = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.partition_hash = self._real
+
+
+def partition_bound_ms(cols, nulls, tables, k: int) -> tuple[float, str]:
+    """The least time of one launch: its bytes at the card's memory rate
+    (each key column, the valid mask in the partition-id mode, each null
+    mask and string-table gather read once, the output written once); its
+    integer work is far below the card's rate."""
+    n = cols[0].shape[0]
+    nbytes = sum(c.element_size() * n for c in cols)
+    nbytes += n * sum(m is not None for m in nulls) + 8 * n * sum(t is not None for t in tables)
+    nbytes += 5 * n if k else 8 * n
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def partition_kernel_phase(seed: int) -> dict:
+    """The partition-hash kernel against its plain version and the numpy
+    uint64 oracle, bit for bit, at n = 2^21, 2^20 and a ragged n, on one
+    int64 key, (int32, int64) keys, an f64 key with -0.0, NaNs (one with the
+    sign bit), +-inf and f32-subnormal values, and a string key through its
+    blake2b table with null rows; K in {1, 2, 4, 7, 64} with some rows
+    invalid (which must come out as K), and the hash-only mode; two launches
+    bit-identical. Times at K = 64 (CUDA events after a warm-up) for the
+    kernel and the plain version, with the bound; no single torch call
+    computes this function, so no library time."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops import partition
+
+    rng = np.random.default_rng(seed)
+    words = tuple(f"word-{i:03d}" for i in range(37))
+    table = partition._stable_string_hashes(words)
+    cases, max_err = [], 0
+    for n in (1 << 21, 1 << 20, 1_000_003):
+        i64 = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, dtype=np.int64)
+        i32 = rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max, n, dtype=np.int32)
+        f64 = rng.normal(0, 1e3, n)
+        f64[:12] = [-0.0, 0.0, np.nan, np.inf, -np.inf, 1e-40, -2e-39, 1.4e-45, 3e-38, 1e300, 0.1, -0.1]
+        f64[12] = np.array([0xFFF8000000000000], dtype=np.uint64).view(np.float64)[0]
+        f64[13:n:1000] = -0.0
+        codes = rng.integers(-1, len(words) + 2, n).astype(np.int32)  # some out of range
+        str_nulls = rng.random(n) < 0.2
+        valid = rng.random(n) < 0.95
+        keysets = {
+            "i64": ([i64], [None], [None]),
+            "i32+i64": ([i32, i64], [None, None], [None, None]),
+            "f64": ([f64], [None], [None]),
+            "str": ([codes], [str_nulls], [table]),
+        }
+        dev = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+            a.view(np.int64) if a.dtype == np.uint64 else a
+        ).cuda()
+        valid_d = dev(valid)
+        for name, (cols, nulls, tables) in keysets.items():
+            dc, dn, dt = [dev(c) for c in cols], [dev(m) for m in nulls], [dev(t) for t in tables]
+            tag = f"partition n={n} keys={name}"
+            h = splitmix64_numpy(cols, nulls, tables)
+            for k in (1, 2, 4, 7, 64, 0):
+                got = partition.partition_hash(dc, dn, dt, valid_d, k)
+                again = partition.partition_hash(dc, dn, dt, valid_d, k)
+                plain = partition.partition_ids_plain(dc, dn, dt, valid_d, k)
+                torch.cuda.synchronize()
+                if k:
+                    want = np.where(valid, (h % np.uint64(k)).astype(np.int32), np.int32(k))
+                else:
+                    want = h.view(np.int64)
+                g = got.cpu().numpy()
+                check(torch.equal(got, again), f"{tag} K={k}: two launches differ")
+                check(torch.equal(got, plain), f"{tag} K={k}: kernel differs from the plain version")
+                check(np.array_equal(g, want), f"{tag} K={k}: kernel differs from the numpy oracle")
+                if k:
+                    check((g[~valid] == k).all(), f"{tag} K={k}: an invalid row is not K")
+                max_err = max(max_err, int((got.long() - plain.long()).abs().max()))
+            bound, by = partition_bound_ms(dc, dn, dt, 64)
+            res = dict(
+                n=n, keys=name, K=64,
+                ms=time_ms(lambda: partition.partition_hash(dc, dn, dt, valid_d, 64)),
+                plain_ms=time_ms(lambda: partition.partition_ids_plain(dc, dn, dt, valid_d, 64)),
+                bound_ms=bound, bound_by=by, library_ms=None,
+            )
+            log(f"{tag}: ok  {json.dumps(res)}")
+            cases.append(res)
+    zeros = torch.tensor([0.0, -0.0], dtype=torch.float64, device="cuda")
+    check(
+        len(set(partition.partition_hash([zeros], [None], [None], None, 0).tolist())) == 1,
+        "partition: -0.0 and +0.0 hash apart",
+    )
+    return dict(cases=cases, max_abs_err=max_err)
+
+
+def replay_partition_launches(prec: PartitionRecorder) -> list:
+    """The partition-hash kernel against its plain version on the inputs
+    the query paths gave it, one launch per distinct (n, key columns, K):
+    two launches and the plain version bit-identical; times and bound as
+    in ``partition_kernel_phase``. The kept inputs are released."""
+    import torch
+
+    from ballista_tpu_torch.ops import partition
+
+    out = []
+    for (n, ncols, k), (tag, cols, nulls, tables, valid) in sorted(prec.inputs.items()):
+        got = partition.partition_hash(cols, nulls, tables, valid, k)
+        again = partition.partition_hash(cols, nulls, tables, valid, k)
+        want = partition.partition_ids_plain(cols, nulls, tables, valid, k)
+        torch.cuda.synchronize()
+        what = f"{tag} partition launch n={n} cols={ncols} K={k}"
+        check(torch.equal(got, again), f"{what}: two launches differ")
+        check(torch.equal(got, want), f"{what}: kernel differs from the plain version")
+        bound, by = partition_bound_ms(cols, nulls, tables, k)
+        res = dict(
+            query=tag, n=n, cols=ncols, K=k,
+            dtypes=[str(c.dtype).removeprefix("torch.") for c in cols],
+            ms=time_ms(lambda: partition.partition_hash(cols, nulls, tables, valid, k)),
+            plain_ms=time_ms(lambda: partition.partition_ids_plain(cols, nulls, tables, valid, k)),
+            bound_ms=bound, bound_by=by, library_ms=None, max_abs_err=0,
+        )
+        log(f"replay {what}: ok  {json.dumps(res)}")
+        out.append(res)
+    prec.inputs.clear()
     return out
 
 
@@ -748,7 +949,7 @@ def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -
     launches = onehot_agg.launches  # main path ends here
     rec.tag = None
     peak = torch.cuda.max_memory_allocated()
-    capture_launch_inputs(rec, ctx, queries)
+    capture_runs([rec], {q: (lambda sql=sql: ctx.sql(sql).collect()) for q, sql in queries.items()})
     if profile:
         for q, sql in queries.items():
             out[q]["profile"] = profile_query(ctx, q, sql)
@@ -929,10 +1130,13 @@ def oracle_q18(h: dict, threshold: int = 300) -> dict:
     }
 
 
-def splitmix64_numpy(cols) -> "np.ndarray":
+def splitmix64_numpy(cols, nulls=None, tables=None) -> "np.ndarray":
     """``ops/hashing.hash_columns`` in numpy uint64 (wrapping arithmetic):
-    the independent oracle of the port's int64-emulated hash. Every NaN
-    hashes as the positive quiet NaN."""
+    the independent oracle of the partition-hash kernel and of the port's
+    int64-emulated hash. Every NaN hashes as the positive quiet NaN. A
+    column with a table (a string column's value hashes, uint64) hashes
+    ``table[clip(code)]``; a null row (``nulls``) hashes 0, after the
+    table."""
     import numpy as np
 
     c1, c2, c3 = (np.uint64(v) for v in (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
@@ -943,14 +1147,20 @@ def splitmix64_numpy(cols) -> "np.ndarray":
         x = (x ^ (x >> np.uint64(27))) * c3
         return x ^ (x >> np.uint64(31))
 
+    nulls = nulls or [None] * len(cols)
+    tables = tables or [None] * len(cols)
     with np.errstate(over="ignore", invalid="ignore"):
         h = np.zeros(len(cols[0]), dtype=np.uint64)
-        for c in cols:
-            if c.dtype.kind == "f":
+        for c, m, t in zip(cols, nulls, tables):
+            if t is not None:
+                u = t[np.clip(c, 0, len(t) - 1)].astype(np.uint64)
+            elif c.dtype.kind == "f":
                 u = (c.astype(np.float32) + np.float32(0.0)).view(np.uint32).astype(np.uint64)
                 u[np.isnan(c)] = 0x7FC00000
             else:
                 u = c.astype(np.int64).view(np.uint64)
+            if m is not None:
+                u = np.where(m, np.uint64(0), u)
             h = mix(h ^ mix(u))
     return h
 
@@ -959,14 +1169,17 @@ def hash_check(seed: int) -> dict:
     """``hash_columns`` on the card against the numpy uint64 oracle, on
     int64, f64 and f32 columns (alone and together) holding -0.0, NaNs with
     a sign bit or a payload (all of which must hash alike), +-inf and the
-    int64 extremes, at n = 2^20."""
+    int64 extremes, at n = 2^20. Every call goes through the partition-hash
+    kernel's hash-only mode."""
     import numpy as np
     import torch
 
+    from ballista_tpu_torch.ops import partition
     from ballista_tpu_torch.ops.hashing import hash_columns
 
     rng = np.random.default_rng(seed)
     n = 1 << 20
+    before = partition.launches
     i64 = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, dtype=np.int64)
     i64[:4] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1]
     f64 = rng.normal(0, 1e6, n)
@@ -988,7 +1201,9 @@ def hash_check(seed: int) -> dict:
     )
     nans = torch.from_numpy(f64[[2, 6, 7, 8]].copy()).cuda()
     check(len(set(hash_columns([nans]).tolist())) == 1, "hash: NaNs hash differently")
-    res = dict(n=n, cases=list(cases), ok=True)
+    # every call on the card went through the partition-hash kernel
+    check(partition.launches - before == len(cases) + 2, "hash: a call did not launch the kernel")
+    res = dict(n=n, cases=list(cases), kernel_launches=partition.launches - before, ok=True)
     log(f"hash: ok  {json.dumps(res)}")
     return res
 
@@ -1051,13 +1266,16 @@ def decimal_check() -> dict:
     return res
 
 
-def joins_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> dict:
+def joins_path(
+    data: dict, warm: int, profile: bool, rec: "LaunchRecorder", prec: "PartitionRecorder"
+) -> dict:
     """q3, q4, q5, q10 and q18 through the port on the card against the
-    numpy oracles; ``rec`` keeps the kernel's launch shapes and inputs."""
+    numpy oracles; ``rec`` and ``prec`` keep the kernels' launch shapes and
+    inputs."""
     import torch
 
     from ballista_tpu_torch.exec.context import TorchContext
-    from ballista_tpu_torch.ops import onehot_agg
+    from ballista_tpu_torch.ops import onehot_agg, partition
 
     t0 = time.perf_counter()
     h = host_columns(data)
@@ -1073,21 +1291,22 @@ def joins_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> d
         ctx.register_table(name, t)
     out = {}
     torch.cuda.reset_peak_memory_stats()
-    launches = 0
+    launches = plaunches = 0
     for q in JOIN_QUERIES:
         sql = (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
         runs = []
-        rec.tag = q
+        rec.tag = prec.tag = q
         for i in range(1 + warm):
-            onehot_agg.launches = 0  # this query's run starts here
+            onehot_agg.launches = partition.launches = 0  # this query's run starts here
             t = time.perf_counter()
             df = ctx.sql(sql)
             res, syncs = count_syncs(df.collect)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
             launches += onehot_agg.launches
+            plaunches += partition.launches
             runs.append(dict(
-                s=secs, launches=onehot_agg.launches,
+                s=secs, launches=onehot_agg.launches, plaunches=partition.launches,
                 capacity_retries=df.stats.get("capacity_retries", 0),
                 speculation_misses=df.stats.get("speculation_misses", 0),
                 syncs=syncs, table=res,
@@ -1106,12 +1325,15 @@ def joins_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> d
             speculation_misses=[r["speculation_misses"] for r in runs],
             host_syncs=[r["syncs"] for r in runs],
             kernel_shapes=sorted(set(rec.shapes.get(q, []))),
+            partition_launches=[r["plaunches"] for r in runs],
+            partition_shapes=sorted(set(prec.shapes.get(q, []))),
         )
         log(f"{q}: ok  {json.dumps(out[q])}")
-    rec.tag = None
+    rec.tag = prec.tag = None
     peak = torch.cuda.max_memory_allocated()
-    capture_launch_inputs(rec, ctx, {
-        q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in JOIN_QUERIES
+    capture_runs([rec, prec], {
+        q: (lambda q=q: ctx.sql((ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()).collect())
+        for q in JOIN_QUERIES
     })
     check(out["q18"]["capacity_retries"][0] >= 1, "q18's first run did not retry after a capacity overflow")
     for q in ("q4", "q5"):
@@ -1123,6 +1345,7 @@ def joins_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> d
             sql = (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
             out[q]["profile"] = profile_query(ctx, q, sql)
     out["launches"] = launches
+    out["partition_launches"] = plaunches
     out["peak_bytes"] = peak
     return out
 
@@ -1190,7 +1413,9 @@ def selects_rows(t) -> bool:
     return t.num_rows > 0 and t.column(t.num_columns - 1).null_count < t.num_rows
 
 
-def rest_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> dict:
+def rest_path(
+    data: dict, warm: int, profile: bool, rec: "LaunchRecorder", prec: "PartitionRecorder"
+) -> dict:
     """The TPC-H queries not yet on the card, the window query and the
     percentile query: each once on the CPU (the port's plain path), then
     cold and ``warm`` times on the card, every card run held against the
@@ -1199,7 +1424,7 @@ def rest_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> di
     import torch
 
     from ballista_tpu_torch.exec.context import TorchContext
-    from ballista_tpu_torch.ops import onehot_agg
+    from ballista_tpu_torch.ops import onehot_agg, partition
     from ballista_tpu_torch.tpch import spec_substitutions
 
     card, cpu = TorchContext(device="cuda"), TorchContext(device="cpu")
@@ -1219,7 +1444,7 @@ def rest_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> di
     out: dict = {}
     sqls: dict = {}
     torch.cuda.reset_peak_memory_stats()
-    launches = 0
+    launches = plaunches = 0
     for q, sql, on_card, on_cpu in jobs:
         t = time.perf_counter()
         want = on_cpu.sql(sql).collect()
@@ -1238,17 +1463,18 @@ def rest_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> di
             check(selects_rows(want), f"{q}: selects no rows, even with {subst}")
         sqls[q] = (sql, on_card)
         runs = []
-        rec.tag = q
+        rec.tag = prec.tag = q
         for i in range(1 + warm):
-            onehot_agg.launches = 0  # this query's run starts here
+            onehot_agg.launches = partition.launches = 0  # this query's run starts here
             t = time.perf_counter()
             df = on_card.sql(sql)
             res, syncs = count_syncs(df.collect)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
             launches += onehot_agg.launches
+            plaunches += partition.launches
             runs.append(dict(
-                s=secs, launches=onehot_agg.launches,
+                s=secs, launches=onehot_agg.launches, plaunches=partition.launches,
                 capacity_retries=df.stats.get("capacity_retries", 0),
                 speculation_misses=df.stats.get("speculation_misses", 0),
                 syncs=syncs, table=res,
@@ -1278,6 +1504,8 @@ def rest_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> di
             speculation_misses=[r["speculation_misses"] for r in runs],
             host_syncs=[r["syncs"] for r in runs],
             kernel_shapes=sorted(set(rec.shapes.get(q, []))),
+            partition_launches=[r["plaunches"] for r in runs],
+            partition_shapes=sorted(set(prec.shapes.get(q, []))),
             # float columns of the third run equal to the CPU's bit for bit
             float_bit_identical={
                 c: third.column(c).equals(want.column(c))
@@ -1285,19 +1513,195 @@ def rest_path(data: dict, warm: int, profile: bool, rec: "LaunchRecorder") -> di
             },
         )
         log(f"{q}: ok  {json.dumps(out[q])}")
-    rec.tag = None
+    rec.tag = prec.tag = None
     peak = torch.cuda.max_memory_allocated()
     for q in ("q12", "q22"):
         check(min(out[q]["kernel_launches"]) > 0, f"{q} did not launch the one-hot kernel")
     log(f"rest: kernel launches {launches}, peak device memory {peak} bytes "
         f"({peak / 2**30:.3f} GiB)")
-    for ctx in (card, card_nn):
-        capture_launch_inputs(rec, ctx, {q: s for q, (s, c) in sqls.items() if c is ctx})
+    capture_runs([rec, prec], {
+        q: (lambda s=s, c=c: c.sql(s).collect()) for q, (s, c) in sqls.items()
+    })
     if profile:
         for q, (sql, on_card) in sqls.items():
             out[q]["profile"] = profile_query(on_card, q, sql)
     out["launches"] = launches
+    out["partition_launches"] = plaunches
     out["peak_bytes"] = peak
+    return out
+
+
+# -- phase 7: hash repartition and grace-hash spill ---------------------------
+
+GRACE_QUERIES = ("q3", "q5", "q18")
+# device budget of phase 7 (MB): small enough that a join of each of q3, q5
+# and q18 (and q18's subquery aggregate) spills at SF=1
+GRACE_BUDGET_MB = 16
+DIST_QUERIES = ("q1", "q12", "q3")
+# the sort path's money sums (exact decimals): bit for bit under the budget;
+# q5's revenue goes through the dense path's f64 sums, whose order of adds
+# the grace passes change
+GRACE_EXACT = {"q3": ("revenue",), "q18": ("SUM(l_quantity)",)}
+
+
+def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict:
+    """q3, q5 and q18 under ``ballista.tpu.hbm_budget_mb`` on the card, one
+    cold and one warm run each, held against the same query's unbudgeted
+    card run; then q1, q12 and q3 from the distributed planner (K = 4)
+    executed in process on the card, held against collect mode."""
+    import os
+
+    import pyarrow as pa
+    import torch
+
+    from ballista_tpu_torch.columnar.arrow_interop import batch_to_arrow
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.base import (
+        execute_to_batches,
+        plan_counters,
+        run_with_capacity_retry,
+    )
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.exec.planner import PhysicalPlanner
+    from ballista_tpu_torch.exec.spill import SPILL_TMP_ROOT
+    from ballista_tpu_torch.ops import onehot_agg, partition
+    from ballista_tpu_torch.plan.optimizer import optimize
+
+    sqls = {
+        q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
+        for q in dict.fromkeys(GRACE_QUERIES + DIST_QUERIES)
+    }
+    # the yardstick: each query once, unbudgeted, in collect mode
+    t = time.perf_counter()
+    card = TorchContext(device="cuda")
+    for name, tab in data.items():
+        card.register_table(name, tab)
+    want = {q: card.sql(sql).collect() for q, sql in sqls.items()}
+    ref_s = time.perf_counter() - t
+    log(f"grace: unbudgeted references in {ref_s:.1f}s")
+
+    dirs = lambda: set(os.listdir(SPILL_TMP_ROOT)) if os.path.isdir(SPILL_TMP_ROOT) else set()  # noqa: E731
+    before = dirs()
+    ctx = TorchContext(
+        BallistaConfig({"ballista.tpu.hbm_budget_mb": str(GRACE_BUDGET_MB)}), device="cuda"
+    )
+    for name, tab in data.items():
+        ctx.register_table(name, tab)
+    out: dict = {}
+    launches = plaunches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for q in GRACE_QUERIES:
+        tag = f"{q}-budget"
+        runs = []
+        rec.tag = prec.tag = tag
+        for i in range(2):
+            # the warm run keeps the inputs of its first launch at each
+            # shape (device copies, no sync) for the replays: a capture run
+            # of its own would cost a spilling run more
+            rec.keep = prec.keep = i == 1
+            seen = (len(rec.shapes.get(tag, [])), len(prec.shapes.get(tag, [])))
+            onehot_agg.launches = partition.launches = 0  # this run starts here
+            t = time.perf_counter()
+            df = ctx.sql(sqls[q])
+            (res, plan), syncs = count_syncs(df.collect_with_plan)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches += onehot_agg.launches
+            plaunches += partition.launches
+            spilled = plan_counters(plan, ("spill_bytes", "spill_passes"))
+            runs.append(dict(
+                s=secs, launches=onehot_agg.launches, plaunches=partition.launches,
+                capacity_retries=df.stats.get("capacity_retries", 0), syncs=syncs, **spilled,
+            ))
+            compare_tables(f"{tag} run {i}", res, want[q])
+            for c in GRACE_EXACT.get(q, ()):
+                check(res.column(c).equals(want[q].column(c)), f"{tag} run {i}: {c} not bit for bit")
+            check(
+                spilled["spill_passes"] >= 2 and spilled["spill_bytes"] > 0,
+                f"{tag} run {i}: no grace passes ({spilled})",
+            )
+        rec.keep = prec.keep = False
+        for r, n0 in zip((rec, prec), seen):
+            missing = set(r.shapes.get(tag, [])[n0:]) - set(r.inputs)
+            check(not missing, f"{tag}: the warm run kept no input at shapes {sorted(missing)}")
+        out[tag] = dict(
+            cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]], rows=want[q].num_rows,
+            spill_bytes=[r["spill_bytes"] for r in runs],
+            spill_passes=[r["spill_passes"] for r in runs],
+            partition_launches=[r["plaunches"] for r in runs],
+            partition_shapes=sorted(set(prec.shapes.get(tag, []))),
+            onehot_launches=[r["launches"] for r in runs],
+            onehot_shapes=sorted(set(rec.shapes.get(tag, []))),
+            capacity_retries=[r["capacity_retries"] for r in runs],
+            host_syncs=[r["syncs"] for r in runs],
+        )
+        log(f"{tag}: ok  {json.dumps(out[tag])}")
+    rec.tag = prec.tag = None
+    peak = torch.cuda.max_memory_allocated()
+    check(not dirs() - before, f"grace: attempt directories left in {SPILL_TMP_ROOT}")
+    check(min(out["q5-budget"]["onehot_launches"]) > 0, "q5-budget did not launch the one-hot kernel")
+    check(
+        any(r == 2 for _, r, _ in out["q5-budget"]["onehot_shapes"]),
+        "q5-budget's partial aggregates did not launch the one-hot kernel at R = 2",
+    )
+    for q in GRACE_QUERIES:
+        check(min(out[f"{q}-budget"]["partition_launches"]) > 0, f"{q}-budget routed no row by the kernel")
+    log(f"grace: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) under a "
+        f"{GRACE_BUDGET_MB} MB budget")
+
+    # the distributed planner's trees, in process on the card
+    plans = {
+        q: PhysicalPlanner(card, 4, config=card.config, distributed=True).plan(
+            optimize(card.sql_to_logical(sqls[q]))
+        )
+        for q in DIST_QUERIES
+    }
+
+    def run_tree(q: str):
+        def run(task):
+            return [rb for b in execute_to_batches(plans[q], task) if (rb := batch_to_arrow(b)).num_rows]
+
+        return pa.Table.from_batches(run_with_capacity_retry(card.config, run, device="cuda"))
+
+    torch.cuda.reset_peak_memory_stats()
+    for q in DIST_QUERIES:
+        tag = f"{q}-dist"
+        text = plans[q].display()
+        check("HashRepartitionExec" in text, f"{tag}: no hash repartition in the plan")
+        if q in ("q12", "q3"):
+            check("partitioned" in text, f"{tag}: no partitioned join in the plan")
+        rec.tag = prec.tag = tag
+        runs = []
+        for i in range(2):
+            onehot_agg.launches = partition.launches = 0  # this run starts here
+            t = time.perf_counter()
+            res, syncs = count_syncs(lambda q=q: run_tree(q))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches += onehot_agg.launches
+            plaunches += partition.launches
+            runs.append(dict(s=secs, launches=onehot_agg.launches, plaunches=partition.launches, syncs=syncs))
+            compare_tables(f"{tag} run {i}", res, want[q])
+        out[tag] = dict(
+            cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]], rows=want[q].num_rows,
+            partition_launches=[r["plaunches"] for r in runs],
+            partition_shapes=sorted(set(prec.shapes.get(tag, []))),
+            onehot_launches=[r["launches"] for r in runs],
+            host_syncs=[r["syncs"] for r in runs],
+            plan=text.splitlines(),
+        )
+        log(f"{tag}: ok  {json.dumps(out[tag])}")
+        check(min(out[tag]["partition_launches"]) > 0, f"{tag} routed no row by the kernel")
+    rec.tag = prec.tag = None
+    dist_peak = torch.cuda.max_memory_allocated()
+    log(f"grace: distributed trees' peak device memory {dist_peak} bytes ({dist_peak / 2**30:.3f} GiB)")
+    capture_runs([rec, prec], {f"{q}-dist": (lambda q=q: run_tree(q)) for q in DIST_QUERIES})
+    check(not dirs() - before, f"grace: attempt directories left in {SPILL_TMP_ROOT}")
+    out["launches"] = launches
+    out["partition_launches"] = plaunches
+    out["peak_bytes"] = peak
+    out["dist_peak_bytes"] = dist_peak
+    out["reference_s"] = ref_s
     return out
 
 
@@ -1319,7 +1723,7 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run needs a card")
     sys.path.insert(0, str(ROOT))
-    from ballista_tpu_torch.ops import onehot_agg
+    from ballista_tpu_torch.ops import cuda_build, onehot_agg, partition
 
     # 1. card
     name = torch.cuda.get_device_name(0)
@@ -1328,12 +1732,15 @@ def main() -> int:
     log(f"card: {name}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
-    # 2. build
-    path, secs, report = onehot_agg.build(verbose=True)
-    log(f"build: {path.name} in {secs:.2f}s")
-    for line in report.splitlines():
-        if "registers" in line or "smem" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    # 2. build: both kernels, one nvcc each, started together
+    t0 = time.perf_counter()
+    built = cuda_build.build_many([onehot_agg.SOURCE, partition.SOURCE], verbose=True)
+    for path, secs, report in built:
+        log(f"build: {path.name} in {secs:.2f}s")
+        for line in report.splitlines():
+            if "registers" in line or "smem" in line or "Compiling" in line or "warning" in line:
+                log(f"  nvcc: {line.strip()}")
+    log(f"build: both kernels in {time.perf_counter() - t0:.2f}s")
 
     # 3. kernel vs plain; the sort on the card vs the CPU
     t0 = time.perf_counter()
@@ -1359,6 +1766,7 @@ def main() -> int:
         dists=("uniform", "zipf", "hot90"), seed=12,
     )
     sorted_ok = sort_check(seed=10)
+    pkernel = partition_kernel_phase(seed=14)
     log(f"phase 3 took {time.perf_counter() - t0:.1f}s")
 
     # 4. main path (q1, q6, the wide GROUP BY)
@@ -1370,7 +1778,7 @@ def main() -> int:
         + ", ".join(f"{k} {t.num_rows}" for k, t in data.items())
         + f" rows, generated in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    with LaunchRecorder() as rec:
+    with LaunchRecorder() as rec, PartitionRecorder() as prec:
         mp = main_path(data["lineitem"], args.sf, args.warm, args.profile, rec)
         replays = replay_launches(rec)
         log(f"phase 4 took {time.perf_counter() - t0:.1f}s")
@@ -1379,28 +1787,47 @@ def main() -> int:
         t0 = time.perf_counter()
         hashed = hash_check(seed=13)
         decimal = decimal_check()
-        jp = joins_path(data, args.warm, args.profile, rec)
+        jp = joins_path(data, args.warm, args.profile, rec, prec)
         replays += replay_launches(rec)
+        preplays = replay_partition_launches(prec)
         log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
 
         # 6. the rest of TPC-H, windows and percentiles
         t0 = time.perf_counter()
-        rp = rest_path(data, args.warm, args.profile, rec)
+        rp = rest_path(data, args.warm, args.profile, rec, prec)
         replays += replay_launches(rec)
+        preplays += replay_partition_launches(prec)
         log(f"phase 6 took {time.perf_counter() - t0:.1f}s")
-    for q in ("q1", "wide", "q4", "q5", "q12", "q22"):
-        check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
-    q1, q1_now = cases[0], cases[7]
 
-    # 7. results
+        # 7. grace-hash spill under a device budget; the distributed plans
+        t0 = time.perf_counter()
+        gp = grace_path(data, rec, prec)
+        replays += replay_launches(rec)
+        grace_replays = replay_partition_launches(prec)
+        preplays += grace_replays
+        log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
+    for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget"):
+        check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
+    for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist"):
+        check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
+    q1, q1_now = cases[0], cases[7]
+    # the partition kernel at the main path's shape: phase 7's routing
+    # launch with the most rows (the spills of the budgeted queries)
+    routed = max(
+        (r for r in grace_replays if r["K"] and r["query"].endswith("-budget")),
+        key=lambda r: (r["n"], r["cols"]),
+    )
+
+    # 8. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
         "source": "ballista_tpu_torch/csrc/onehot_agg.cu",
         "replaces": "ballista_tpu/ops/pallas_agg.py:66",
         # the paths' runs: q1, q6 and wide; q3-q18 (q4, q5 launch it); the
-        # rest of TPC-H (q12, q22 and others), the window and the percentile
-        "launches": mp["launches"] + jp["launches"] + rp["launches"],
+        # rest of TPC-H (q12, q22 and others), the window and the percentile;
+        # the budgeted q3, q5, q18 and the distributed q1, q12, q3
+        "launches": mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
         "plain_ms": q1["plain_ms"],
@@ -1412,6 +1839,23 @@ def main() -> int:
         "ms_at_q1_now": q1_now["ms"],
         "bound_ms_at_q1_now": q1_now["bound_ms"],
         "bound_share_at_q1_now": q1_now["bound_ms"] / q1_now["ms"],
+    }, {
+        "name": "partition_hash",
+        "route": "cuda",
+        "source": "ballista_tpu_torch/csrc/partition_hash.cu",
+        "replaces": "ballista_tpu/ops/partition.py:59",
+        # phase 7's runs (every spilled and repartitioned row), and the
+        # hash-packed join keys of phases 5 and 6
+        "launches": jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"],
+        "max_abs_err": max([pkernel["max_abs_err"]] + [r["max_abs_err"] for r in preplays]),
+        "ms": routed["ms"],
+        "plain_ms": routed["plain_ms"],
+        "bound_ms": routed["bound_ms"],
+        "bound_by": routed["bound_by"],
+        "library_ms": None,
+        "bound_share": routed["bound_ms"] / routed["ms"],
+        "shape": [routed["n"], routed["cols"], routed["K"]],
+        "main_path_launches": gp["partition_launches"],
     }]
     log(json.dumps({
         "cases": cases,
@@ -1427,6 +1871,11 @@ def main() -> int:
         "join_peak_bytes": jp["peak_bytes"],
         "rest_queries": {q: rp[q] for q in REST_QUERIES + ("window", "percentile")},
         "rest_peak_bytes": rp["peak_bytes"],
+        "partition_kernel": pkernel["cases"],
+        "partition_launches": preplays,
+        "grace_queries": {q: v for q, v in gp.items() if q.endswith(("-budget", "-dist"))},
+        "grace_peak_bytes": gp["peak_bytes"],
+        "dist_peak_bytes": gp["dist_peak_bytes"],
         "sf": args.sf,
     }))
     log(smi)

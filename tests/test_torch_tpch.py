@@ -135,13 +135,14 @@ def test_unported_plans_raise_with_their_roadmap_item(contexts):
         port.sql(
             "create external table f (x int) stored as csv location 'f.csv'"
         ).collect()
-    # a partitioned join needs hash repartition
+    # partitioned joins are ported (hash repartition); an unknown partition
+    # mode is a plan error
     scan = port.scan("lineitem", ["l_orderkey"], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        HashJoinExec(
-            scan, scan, [(L.Column("l_orderkey"), L.Column("l_orderkey"))],
-            JoinType.INNER, partition_mode="partitioned",
-        )
+    on = [(L.Column("l_orderkey"), L.Column("l_orderkey"))]
+    join = HashJoinExec(scan, scan, on, JoinType.INNER, partition_mode="partitioned")
+    assert "partitioned" in join.describe()
+    with pytest.raises(PlanError, match="partition mode"):
+        HashJoinExec(scan, scan, on, JoinType.INNER, partition_mode="broadcast")
 
 
 # -- joins and the sort-based aggregate: q3, q4, q5, q10, q18 ---------------
