@@ -252,15 +252,27 @@ def table_from_arrow(
 
 def batch_to_arrow(batch: DeviceBatch) -> pa.RecordBatch:
     """Gather live rows to host and decode dictionaries back to strings."""
+    schema, cols, nulls = batch.to_host()
+    return arrow_from_host(schema, cols, nulls, batch.dictionaries)
+
+
+def arrow_from_host(
+    schema: Schema,
+    cols: list[np.ndarray],
+    nulls: list[np.ndarray | None],
+    dictionaries: dict,
+) -> pa.RecordBatch:
+    """One Arrow batch from host arrays of a batch's rows (its device
+    representation: dictionary codes, int32 days, int64 microseconds),
+    decoding dictionaries back to strings and applying the null masks."""
     import pyarrow.compute as pc
 
-    schema, cols, nulls = batch.to_host()
     arrays = []
     for field, col, nm in zip(schema, cols, nulls):
         if field.dtype == DataType.NULL:
             arr = pa.nulls(len(col), type=pa.null())
         elif field.dtype == DataType.STRING:
-            d = batch.dictionaries.get(field.name)
+            d = dictionaries.get(field.name)
             if d is None and len(col) == 0:
                 arrays.append(pa.array([], type=pa.string()))
                 continue

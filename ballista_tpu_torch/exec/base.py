@@ -211,6 +211,39 @@ AGG_CAPACITY_HARD_MAX = 1 << 25
 # Bound of a long-lived plan-strategy cache, as in the reference.
 PLAN_CACHE_MAX_ENTRIES = 4096
 
+# Keys eviction never removes (the reference's: the shared tally of the
+# join build-table cache is an accounting cell, not a learned strategy).
+_PLAN_CACHE_STICKY = ("__build_cache_bytes__",)
+
+# Plan-cache evictions of this process: passes that evicted, and entries
+# evicted (the reference meters both through its compile-cache metrics).
+plan_cache_evictions = {"flushes": 0, "evicted": 0}
+
+
+def evict_plan_cache(plan_cache: dict, pinned=(), max_entries: int = PLAN_CACHE_MAX_ENTRIES) -> int:
+    """Bound ``plan_cache`` by evicting oldest-first (insertion order),
+    down to half of ``max_entries`` so that eviction amortizes instead of
+    firing on every insert. ``pinned`` keys and the sticky keys survive: a
+    task running against a job's snapshot keeps the entries the snapshot
+    was taken from. Returns the number of entries evicted."""
+    if len(plan_cache) <= max_entries:
+        return 0
+    keep = set(pinned)
+    keep.update(_PLAN_CACHE_STICKY)
+    target = max_entries // 2
+    evicted = 0
+    for k in list(plan_cache):
+        if len(plan_cache) <= target:
+            break
+        if k in keep:
+            continue
+        del plan_cache[k]
+        evicted += 1
+    if evicted:
+        plan_cache_evictions["flushes"] += 1
+        plan_cache_evictions["evicted"] += evicted
+    return evicted
+
 
 def run_with_capacity_retry(
     config: BallistaConfig,
@@ -219,6 +252,7 @@ def run_with_capacity_retry(
     hint: dict | None = None,
     plan_cache: dict | None = None,
     stats: dict | None = None,
+    pinned_cache_keys=(),
 ):
     """The execution loop: build a TaskContext, run ``fn(ctx)``, raise
     the deferred device checks, and retry on two faults:
@@ -238,7 +272,9 @@ def run_with_capacity_retry(
     grew to (keys ``"agg_capacity"`` and ``"site_capacity"``), so warm
     re-runs start there instead of overflowing again. ``stats``, when
     given, counts the retries
-    (``"capacity_retries"``, ``"speculation_misses"``)."""
+    (``"capacity_retries"``, ``"speculation_misses"``). A ``plan_cache``
+    grown past ``PLAN_CACHE_MAX_ENTRIES`` is first cut back by
+    ``evict_plan_cache``, which keeps ``pinned_cache_keys``."""
     from ballista_tpu_torch.columnar.batch import round_capacity
     from ballista_tpu_torch.errors import CapacityError, SpeculationMiss
 
@@ -248,8 +284,8 @@ def run_with_capacity_retry(
     sites: dict = dict((hint or {}).get("site_capacity", {}))
     if len(sites) > PLAN_CACHE_MAX_ENTRIES:
         sites.clear()
-    if plan_cache is not None and len(plan_cache) > PLAN_CACHE_MAX_ENTRIES:
-        plan_cache.clear()
+    if plan_cache is not None:
+        evict_plan_cache(plan_cache, pinned=pinned_cache_keys)
     spec_misses = 0
     while True:
         ctx = TaskContext(

@@ -63,10 +63,10 @@ def _live_rows(batches: list[DeviceBatch]) -> DeviceBatch:
 @functools.lru_cache(maxsize=None)
 def partition_ids_fn(key_idxs: tuple, num_partitions: int):
     """The per-batch partition-id function of one routing (the key columns
-    and K), shared by every consumer of the hash-routing rule: this
-    operator, the grace-hash spills (``exec/spill.py``) and, with the
-    distributed tier, the shuffle writer. The string-key tables are an
-    argument, as each batch's dictionaries give their own."""
+    and K): this operator's, and, with the distributed tier, the shuffle
+    writer's. The grace-hash spills route by the same rule through the
+    grouped mode (``ops/partition.batch_partition_groups``). The string-key
+    tables are an argument, as each batch's dictionaries give their own."""
     return lambda batch, tables: partition_ids(batch, list(key_idxs), num_partitions, tables)
 
 

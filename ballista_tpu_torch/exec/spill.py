@@ -13,10 +13,17 @@ buckets pass by pass through the same kernels. This module owns the files:
 - the bytes written are held against ``ballista.tpu.spill_budget_mb``, so
   a runaway spill fails the task instead of filling the disk.
 
-Rows route by the shuffle's rule (``ops/partition.py`` through
-``exec/repartition.partition_ids_fn``): a string key hashes by its value,
-NULL keys share a bucket. Each routed batch costs one device-to-host copy
-of its live rows and partition ids, and one IPC write per bucket it fills.
+Rows route by the shuffle's rule (``ops/partition.py``): a string key
+hashes by its value, NULL keys share a bucket. A spilled batch is grouped
+by bucket on the card (``partition_groups``: the rows in a stable bucket
+order and each bucket's start), gathered in that order column by column,
+and copied into one pinned host buffer of the manager's, with one wait a
+batch (``stats["waits"]``) that also brings back the bucket starts. One
+Arrow batch is built from it, and each bucket file gets a zero-copy slice.
+The bucket files hold what the reference's ``write_split`` writes (the same
+rows in the same order), and each slice is charged the bytes of the
+``take`` the reference makes (``take_nbytes``). On the CPU the same code
+runs over ``partition_groups_plain``, without pinned memory.
 
 Left out of the port, as neither changes a result and the port has neither
 module yet: the reference's resource-witness hooks (``analysis.reswitness``)
@@ -29,6 +36,7 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
+import time
 import uuid
 
 import numpy as np
@@ -36,9 +44,25 @@ import pyarrow as pa
 import pyarrow.ipc as paipc
 import torch
 
-from ballista_tpu_torch.columnar.arrow_interop import batch_to_arrow
+from ballista_tpu_torch.columnar.arrow_interop import arrow_from_host
 from ballista_tpu_torch.columnar.batch import DeviceBatch, Dictionary
 from ballista_tpu_torch.errors import ExecutionError
+
+# What the spill writes cost, summed over the process (a run reads them
+# after ``reset_stats``): spilled batches; waits on the card (one a batch
+# there); device ms of the grouping and gathers and of the copy to the host
+# (CUDA events, read after the wait); host seconds of queueing them, blocked
+# in the wait, of the Arrow build (with the bytes charged) and of the IPC
+# writes.
+stats = dict(
+    batches=0, waits=0, group_ms=0.0, copy_ms=0.0, queue_s=0.0, wait_s=0.0, arrow_s=0.0,
+    ipc_s=0.0,
+)
+
+
+def reset_stats() -> None:
+    for k in stats:
+        stats[k] = type(stats[k])()
 
 # Shared temp root of spills without a ballista.tpu.spill_dir; every
 # attempt's directory is removed by SpillManager.close(). Per user (uid
@@ -70,6 +94,20 @@ class SpillManager:
         self.budget_bytes = budget_bytes
         self.total_bytes = 0
         self._sets: list[SpillSet] = []
+        self._staging: torch.Tensor | None = None  # pinned host bytes
+
+    def staging(self, nbytes: int) -> torch.Tensor:
+        """At least ``nbytes`` of pinned host memory (uint8), owned by the
+        manager: grown (by half again at least) when too small, released
+        by ``close``. A write's copy lands here; it is read before the next
+        write begins."""
+        if self._staging is None or self._staging.numel() < nbytes:
+            have = 0 if self._staging is None else self._staging.numel()
+            self._staging = None
+            self._staging = torch.empty(
+                max(nbytes, have + have // 2), dtype=torch.uint8, pin_memory=True
+            )
+        return self._staging
 
     def new_set(self, tag: str, buckets: int) -> "SpillSet":
         s = SpillSet(self, os.path.join(self.dir, tag), buckets)
@@ -88,6 +126,7 @@ class SpillManager:
         for s in self._sets:
             s.close()
         self._sets.clear()
+        self._staging = None
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -108,7 +147,9 @@ class SpillSet:
     def _path(self, bucket: int) -> str:
         return os.path.join(self.dir, f"bucket-{bucket}.arrow")
 
-    def write(self, bucket: int, rb: pa.RecordBatch) -> None:
+    def write(self, bucket: int, rb: pa.RecordBatch, nbytes: int) -> None:
+        """Append ``rb`` to a bucket file, charging ``nbytes`` to the bucket
+        and the manager's budget."""
         if rb.num_rows == 0:
             return
         w = self._writers.get(bucket)
@@ -117,27 +158,34 @@ class SpillSet:
             self._writers[bucket] = w
         w.write_batch(rb)
         self.bucket_rows[bucket] += rb.num_rows
-        self.bucket_bytes[bucket] += rb.nbytes
-        self.manager.account(rb.nbytes)
+        self.bucket_bytes[bucket] += nbytes
+        self.manager.account(nbytes)
 
-    def write_split(self, batch: DeviceBatch, pids: torch.Tensor) -> int:
-        """Route a batch's live rows to the bucket files by their partition
-        ids (aligned with the batch's capacity; invalid rows carry the drop
-        id and are left out by ``batch_to_arrow``'s live-row gather).
-        Returns the bytes written."""
+    def write_split(
+        self, batch: DeviceBatch, order: torch.Tensor, offsets: torch.Tensor
+    ) -> int:
+        """Write a batch's live rows to the bucket files, grouped: ``order``
+        lists the batch's rows bucket by bucket (stable, the invalid rows
+        last) and ``offsets`` where each bucket starts, ``offsets[-2]`` the
+        live rows (``ops/partition.partition_groups``). Returns the bytes
+        written."""
         before = self.manager.total_bytes
-        rb = batch_to_arrow(batch)
-        if rb.num_rows:
-            # the live rows' ids, in batch_to_arrow's row order
-            live = pids[batch.valid].cpu().numpy()
-            # one stable argsort groups the rows by bucket; searchsorted
-            # gives each bucket's contiguous index range
-            order = np.argsort(live, kind="stable")
-            grouped = live[order]
-            bounds = np.searchsorted(grouped, np.arange(self.buckets + 1))
-            for b in np.unique(grouped):
-                s, e = bounds[b], bounds[b + 1]
-                self.write(int(b), rb.take(pa.array(order[s:e])))
+        stats["batches"] += 1
+        cols, nulls, offs = _grouped_to_host(self.manager, batch, order, offsets)
+        live = int(offs[-2])
+        if live:
+            t = time.perf_counter()
+            rb = arrow_from_host(
+                batch.schema, [c[:live] for c in cols],
+                [None if m is None else m[:live] for m in nulls], batch.dictionaries,
+            )
+            starts, lens = offs[:-2], np.diff(offs[:-1])
+            charged = take_nbytes(rb, starts, lens)
+            t1 = time.perf_counter()
+            for b in np.flatnonzero(lens):
+                self.write(int(b), rb.slice(int(starts[b]), int(lens[b])), int(charged[b]))
+            stats["arrow_s"] += t1 - t
+            stats["ipc_s"] += time.perf_counter() - t1
         return self.manager.total_bytes - before
 
     def finish_writes(self) -> None:
@@ -164,16 +212,87 @@ class SpillSet:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
+def _grouped_to_host(manager: SpillManager, batch: DeviceBatch, order, offsets):
+    """The batch's columns and null masks gathered by ``order`` (all rows,
+    the live ones first), and ``offsets``, as host numpy arrays. On the
+    card: the gathers queue behind the grouping, every piece is copied into
+    the manager's pinned buffer, and one wait ends it. On the CPU: the
+    gathers alone."""
+    pieces = [*batch.columns, *(m for m in batch.nulls if m is not None)]
+    if order.device.type == "cpu":
+        host = [p.index_select(0, order).numpy() for p in pieces] + [offsets.numpy()]
+    else:
+        t = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        gathered = [p.index_select(0, order) for p in pieces] + [offsets]
+        ev[1].record()
+        sizes = [g.numel() * g.element_size() for g in gathered]
+        starts = np.cumsum([0] + [-(-n // 16) * 16 for n in sizes])  # 16-byte aligned
+        staging = manager.staging(int(starts[-1]))
+        host = []
+        for g, s, n in zip(gathered, starts, sizes):
+            dst = staging[s : s + n].view(g.dtype)
+            dst.copy_(g, non_blocking=True)
+            host.append(dst.numpy())
+        ev[2].record()
+        t1 = time.perf_counter()
+        ev[2].synchronize()
+        stats["waits"] += 1
+        stats["wait_s"] += time.perf_counter() - t1
+        stats["group_ms"] += ev[0].elapsed_time(ev[1])
+        stats["copy_ms"] += ev[1].elapsed_time(ev[2])
+        stats["queue_s"] += t1 - t
+    masks = iter(host[len(batch.columns) : -1])
+    nulls = [None if m is None else next(masks) for m in batch.nulls]
+    return host[: len(batch.columns)], nulls, host[-1]
+
+
+def take_nbytes(rb: pa.RecordBatch, starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The ``nbytes`` of ``rb.take(range(s, s + n))`` for each range of
+    ``starts`` and ``lens`` (int64 arrays): what the reference charges a
+    bucket, whose ``take`` makes fresh arrays. A slice's own ``nbytes``
+    differs: it counts the bitmap bytes its bit offset spans, and a
+    string's characters under null rows, where a ``take`` holds none. Per
+    column: a validity bitmap where the column has one (a string's
+    ``take`` always has one), the values (a bitmap for bools), and for
+    strings 4 bytes of offsets a row and the characters of the non-null
+    rows."""
+    lens = np.asarray(lens, dtype=np.int64)
+    starts = np.asarray(starts, dtype=np.int64)
+    bitmap = (lens + 7) // 8
+    out = np.zeros(len(lens), dtype=np.int64)
+    for col in rb.columns:
+        t = col.type
+        if pa.types.is_null(t):
+            continue
+        if col.buffers()[0] is not None or pa.types.is_string(t):  # take gives strings one
+            out += bitmap
+        if pa.types.is_boolean(t):
+            out += bitmap
+        elif pa.types.is_string(t):
+            ends = np.frombuffer(
+                col.buffers()[1], dtype=np.int32, count=len(col) + 1, offset=4 * col.offset
+            )
+            chars = np.diff(ends).astype(np.int64)
+            if col.null_count:
+                chars[np.asarray(col.is_null())] = 0
+            before = np.concatenate([[0], np.cumsum(chars)])
+            out += 4 * lens + before[starts + lens] - before[starts]
+        else:
+            out += lens * (t.bit_width // 8)
+    return out
+
+
 def spill_batch_by_keys(spill_set: SpillSet, batch: DeviceBatch, key_idxs: tuple) -> int:
     """Hash-route a batch's live rows into the set's bucket files, by the
-    shuffle's routing (``exec/repartition.partition_ids_fn``). Returns the
-    bytes written."""
-    from ballista_tpu_torch.exec.repartition import partition_ids_fn
-    from ballista_tpu_torch.ops.partition import string_key_tables
+    shuffle's routing, grouped on the batch's device
+    (``ops/partition.batch_partition_groups``). Returns the bytes
+    written."""
+    from ballista_tpu_torch.ops.partition import batch_partition_groups
 
-    tables = string_key_tables(batch, list(key_idxs))
-    pids = partition_ids_fn(tuple(key_idxs), spill_set.buckets)(batch, tables)
-    return spill_set.write_split(batch, pids)
+    _, order, offsets = batch_partition_groups(batch, list(key_idxs), spill_set.buckets)
+    return spill_set.write_split(batch, order, offsets)
 
 
 def tables_string_dicts(tabs: list) -> dict:

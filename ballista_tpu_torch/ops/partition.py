@@ -13,7 +13,16 @@ On a CUDA tensor ``partition_hash`` launches the hand-written kernel
 ``csrc/partition_hash.cu`` (built with nvcc at first use, loaded with
 ctypes) or raises; on a CPU tensor it runs the plain version
 ``partition_ids_plain``. ``ops/hashing.hash_columns`` on a CUDA tensor runs
-the same kernel in its hash-only mode.
+the same kernel in its hash-only mode. ``partition_groups`` adds the rows
+grouped by partition (a stable order and each bucket's start), which the
+grace-hash spill writes from; its plain version is
+``partition_groups_plain``.
+
+The wrappers check what the kernel's C entry cannot: dtypes, lengths and
+the device. The C entry checks the ranges (the column count, K, the string
+tables' lengths) and returns ``cudaErrorInvalidValue``, which the wrappers
+raise as ``ValueError``; on CPU tensors the wrappers check the same ranges
+themselves.
 
 Floats route as the port hashes them: -0.0 with +0.0, and every NaN alike.
 The reference's jitted routing folds its ``+ 0.0`` away and routes -0.0
@@ -22,8 +31,11 @@ apart from +0.0 (ROADMAP queue 3).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import struct
+import threading
 
 import numpy as np
 import torch
@@ -37,8 +49,12 @@ from ballista_tpu_torch.ops.hashing import hash_columns_plain
 SOURCE = cuda_build.CSRC / "partition_hash.cu"
 MAX_COLS = 8  # key columns a launch takes (kMaxCols); more chain launches
 MAX_PARTITIONS = (1 << 31) - 1
+MAX_GROUPS = 1024  # K of the grouped mode (kMaxGroups)
 
-launches = 0  # kernel launches (the plain version does not count)
+# Kernel launches of every mode, and of the grouped mode alone (calls;
+# the plain versions do not count)
+launches = 0
+group_launches = 0
 
 # the kernel's dtype codes
 _DTYPE_CODES = {
@@ -48,8 +64,7 @@ _DTYPE_CODES = {
     torch.float32: 3,
     torch.float64: 4,
 }
-_THREADS = 256
-_MAX_BLOCKS = 132 * 16  # whole waves over the H100's 132 SMs
+_CUDA_INVALID_VALUE = 1  # cudaErrorInvalidValue: an argument out of range
 
 _dict_hash_cache: dict[tuple[str, ...], np.ndarray] = {}
 
@@ -73,28 +88,69 @@ def _stable_string_hashes(values: tuple[str, ...]) -> np.ndarray:
     return cached
 
 
-class _KeyCol(ctypes.Structure):
-    """``KeyCol`` of the kernel source."""
-
-    _fields_ = [
-        ("data", ctypes.c_void_p),
-        ("nulls", ctypes.c_void_p),
-        ("table", ctypes.c_void_p),
-        ("table_len", ctypes.c_longlong),
-        ("dtype", ctypes.c_int),
-    ]
+# ``KeyCol`` of the kernel source: data, nulls and table pointers, the
+# table's length, the dtype code (and 4 bytes of padding)
+_KEYCOL = struct.Struct("=QQQqi4x")
 
 
-def _configure(lib) -> None:
-    f = lib.partition_hash
-    f.argtypes = [
-        ctypes.POINTER(_KeyCol), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    f.restype = ctypes.c_int
-    lib.partition_hash_error_string.argtypes = [ctypes.c_int]
-    lib.partition_hash_error_string.restype = ctypes.c_char_p
+class _Launcher:
+    """The loaded library and what every launch reuses: the key-column
+    descriptors (one buffer a thread, refilled: the foreign call releases
+    the GIL), the tile size of the grouped mode and the current-stream
+    lookup. Made at the first launch."""
+
+    def __init__(self) -> None:
+        lib = cuda_build.load(SOURCE, lambda lib: None)
+        keys = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong]
+        lib.partition_hash.argtypes = keys + [ctypes.c_void_p] * 3
+        lib.partition_groups.argtypes = keys + [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        lib.partition_hash.restype = lib.partition_groups.restype = ctypes.c_int
+        lib.partition_groups_tile_rows.restype = ctypes.c_int
+        lib.partition_hash_error_string.argtypes = [ctypes.c_int]
+        lib.partition_hash_error_string.restype = ctypes.c_char_p
+        self.lib = lib
+        self.tile_rows = lib.partition_groups_tile_rows()
+        self._local = threading.local()
+        # torch's raw stream lookup (no Stream object) where it has one
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        self.stream = raw if raw is not None else (
+            lambda index: torch.cuda.current_stream(index).cuda_stream
+        )
+
+    def descs(self, cols, nulls, tables):
+        """This thread's descriptor buffer, filled for the key columns."""
+        buf = getattr(self._local, "descs", None)
+        if buf is None:
+            buf = self._local.descs = ctypes.create_string_buffer(_KEYCOL.size * MAX_COLS)
+        for j, (c, m, t) in enumerate(zip(cols, nulls, tables)):
+            _KEYCOL.pack_into(
+                buf, j * _KEYCOL.size, c.data_ptr(),
+                0 if m is None else m.data_ptr(), 0 if t is None else t.data_ptr(),
+                0 if t is None else t.shape[0], _DTYPE_CODES[c.dtype],
+            )
+        return buf
+
+    def raise_for(self, rc: int, what: str) -> None:
+        msg = self.lib.partition_hash_error_string(rc).decode()
+        if rc == _CUDA_INVALID_VALUE:
+            raise ValueError(
+                f"{what}: an argument out of range ({msg}): 1..{MAX_COLS} key columns a "
+                f"launch, K in 1..2^31-1 (grouped: 1..{MAX_GROUPS}), non-empty string tables"
+            )
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+_launcher: _Launcher | None = None
+
+
+def _lib() -> _Launcher:
+    global _launcher
+    if _launcher is None:
+        _launcher = _Launcher()
+    return _launcher
 
 
 def _umod(h: torch.Tensor, k: int) -> torch.Tensor:
@@ -136,27 +192,72 @@ def partition_ids_plain(
     return torch.where(valid, pid, torch.full_like(pid, num_partitions))
 
 
-def _check(cols, nulls, tables, valid, num_partitions) -> None:
+def group_by_id(pid: torch.Tensor, num_partitions: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order, offsets) of partition ids ``pid`` in [0, K]: the row indices
+    sorted stably by id (int32[n]) and where each id's rows start
+    (int64[K + 2]; ``offsets[K]`` the rows below K, ``offsets[K + 1]`` n):
+    a stable argsort and a cumulative bincount."""
+    order = torch.argsort(pid, stable=True).to(torch.int32)
+    offsets = torch.zeros(num_partitions + 2, dtype=torch.int64, device=pid.device)
+    torch.cumsum(torch.bincount(pid, minlength=num_partitions + 1), 0, out=offsets[1:])
+    return order, offsets
+
+
+def partition_groups_plain(
+    cols: list[torch.Tensor],
+    nulls: list[torch.Tensor | None],
+    tables: list[torch.Tensor | None],
+    valid: torch.Tensor,
+    num_partitions: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the grouped mode: ``partition_ids_plain``, then
+    ``group_by_id``."""
+    pid = partition_ids_plain(cols, nulls, tables, valid, num_partitions)
+    return (pid, *group_by_id(pid, num_partitions))
+
+
+def _check(cols, nulls, tables, valid) -> torch.device | None:
+    """What the C entry cannot check: the tensors' dtypes, lengths and
+    device. Returns their CUDA device, or None when all lie on the CPU."""
     if not cols:
         raise ValueError("partition_hash: no key columns")
     if not len(cols) == len(nulls) == len(tables):
         raise ValueError("partition_hash: one null mask and one table per column")
-    if not 0 <= num_partitions <= MAX_PARTITIONS:
-        raise ValueError(f"partition_hash: K={num_partitions} outside 0..{MAX_PARTITIONS}")
     n = cols[0].shape[0]
-    masks = [m for m in nulls if m is not None] + ([valid] if num_partitions else [])
+    device = cols[0].device
+    same = True
     for c in cols:
-        if c.dim() != 1 or c.shape[0] != n or c.dtype not in _DTYPE_CODES:
+        if c.dtype not in _DTYPE_CODES or c.dim() != 1 or c.shape[0] != n:
             raise TypeError(
                 f"partition_hash: key column {tuple(c.shape)} {c.dtype}; want 1-d "
                 f"length {n} of {sorted(map(str, _DTYPE_CODES))}"
             )
-    for m in masks:
-        if m is None or m.dim() != 1 or m.shape[0] != n or m.dtype != torch.bool:
-            raise TypeError("partition_hash: masks must be bool[n]")
+        same = same and c.device == device
+    for m in (*nulls, valid):
+        if m is not None:
+            if m.dtype != torch.bool or m.dim() != 1 or m.shape[0] != n:
+                raise TypeError("partition_hash: masks must be bool[n]")
+            same = same and m.device == device
     for t in tables:
-        if t is not None and (t.dim() != 1 or t.dtype != torch.int64 or t.shape[0] == 0):
-            raise TypeError("partition_hash: string tables must be non-empty int64")
+        if t is not None:
+            if t.dtype != torch.int64 or t.dim() != 1:
+                raise TypeError("partition_hash: string tables must be int64")
+            same = same and t.device == device
+    if same and device.type == "cpu":
+        return None
+    if not same or device.type != "cuda":
+        raise ValueError(
+            "partition_hash: every tensor must be on one CUDA device (or all on the CPU)"
+        )
+    return device
+
+
+def _check_ranges(tables, num_partitions: int, low: int, high: int) -> None:
+    """The C entry's range checks, for the CPU route (and empty inputs)."""
+    if not low <= num_partitions <= high:
+        raise ValueError(f"partition_hash: K={num_partitions} outside {low}..{high}")
+    if any(t is not None and t.shape[0] == 0 for t in tables):
+        raise ValueError("partition_hash: string tables must be non-empty")
 
 
 def partition_hash(
@@ -172,66 +273,122 @@ def partition_hash(
     mask (or None) and, for a STRING column's codes, its table of value
     hashes (or None). On CUDA tensors the kernel; on CPU tensors the plain
     version."""
-    _check(cols, nulls, tables, valid, num_partitions)
-    tensors = [*cols, *(m for m in nulls if m is not None), *(t for t in tables if t is not None)]
-    if num_partitions:
-        tensors.append(valid)
-    if all(t.device.type == "cpu" for t in tensors):
-        return partition_ids_plain(cols, nulls, tables, valid, num_partitions)
-    device = cols[0].device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError(
-            "partition_hash: every tensor must be on one CUDA device (or all on the CPU)"
+    if num_partitions and valid is None:
+        raise TypeError("partition_hash: partition ids need the valid mask")
+    device = _check(cols, nulls, tables, valid if num_partitions else None)
+    n = cols[0].shape[0]
+    if device is None or n == 0:
+        _check_ranges(tables, num_partitions, 0, MAX_PARTITIONS)
+        if device is None:
+            return partition_ids_plain(cols, nulls, tables, valid, num_partitions)
+    out_dtype = torch.int32 if num_partitions else torch.int64
+    out = torch.empty(n, dtype=out_dtype, device=device)
+    if n:
+        h = _hash_prefix(cols, nulls, tables, device)
+        last = len(cols) - (len(cols) - 1) % MAX_COLS - 1
+        _launch_hash(cols[last:], nulls[last:], tables[last:], h, valid, num_partitions, out)
+    return out
+
+
+def partition_groups(
+    cols: list[torch.Tensor],
+    nulls: list[torch.Tensor | None],
+    tables: list[torch.Tensor | None],
+    valid: torch.Tensor,
+    num_partitions: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rows grouped by partition: ``(pid, order, offsets)``, with
+    ``pid`` as ``partition_hash`` gives it (int32[n]), ``order`` the row
+    indices sorted stably by ``pid`` (int32[n]: each bucket's rows in row
+    order, the invalid rows last) and ``offsets`` where each bucket starts
+    (int64[K + 2]: ``offsets[K]`` the valid rows, ``offsets[K + 1]`` n).
+    1 <= K <= ``MAX_GROUPS``. On CUDA tensors the kernel's grouped mode;
+    on CPU tensors ``partition_groups_plain``."""
+    if valid is None:
+        raise TypeError("partition_groups: the valid mask is required")
+    device = _check(cols, nulls, tables, valid)
+    n = cols[0].shape[0]
+    if device is None or n == 0:
+        _check_ranges(tables, num_partitions, 1, MAX_GROUPS)
+        if device is None:
+            return partition_groups_plain(cols, nulls, tables, valid, num_partitions)
+        empty = torch.empty(0, dtype=torch.int32, device=device)
+        return empty, empty, torch.zeros(num_partitions + 2, dtype=torch.int64, device=device)
+    lib = _lib()
+    ntiles = -(-n // lib.tile_rows)
+    scratch_len = (num_partitions + 1) * (ntiles + 1)
+    ints = torch.empty(2 * n + scratch_len, dtype=torch.int32, device=device)
+    pid, order, scratch = ints[:n], ints[n : 2 * n], ints[2 * n :]
+    offsets = torch.empty(num_partitions + 2, dtype=torch.int64, device=device)
+    h = _hash_prefix(cols, nulls, tables, device)
+    last = len(cols) - (len(cols) - 1) % MAX_COLS - 1
+    cols, nulls, tables = _contiguous(cols[last:], nulls[last:], tables[last:])
+    valid = valid.contiguous()
+    with _on(device):
+        rc = lib.lib.partition_groups(
+            lib.descs(cols, nulls, tables), len(cols), 0 if h is None else h.data_ptr(),
+            valid.data_ptr(), n, num_partitions, pid.data_ptr(), order.data_ptr(),
+            offsets.data_ptr(), scratch.data_ptr(), scratch_len, lib.stream(device.index),
         )
+    if rc:
+        lib.raise_for(rc, "partition_groups")
+    global launches, group_launches
+    launches += 1
+    group_launches += 1
+    return pid, order, offsets
+
+
+def _on(device: torch.device):
+    """``torch.cuda.device(device)`` only when it is not the current device
+    (entering it costs more host time than the launch)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _hash_prefix(cols, nulls, tables, device) -> torch.Tensor | None:
+    """The hashes of all but the last launch's key columns (hash-only
+    launches of MAX_COLS columns each, chained), or None for at most
+    MAX_COLS key columns."""
     h = None
-    for s in range(0, len(cols), MAX_COLS):
-        last = s + MAX_COLS >= len(cols)
-        h = _launch(
-            cols[s : s + MAX_COLS], nulls[s : s + MAX_COLS], tables[s : s + MAX_COLS],
-            h, valid, num_partitions if last else 0,
+    for s in range(0, (len(cols) - 1) // MAX_COLS * MAX_COLS, MAX_COLS):
+        out = torch.empty(cols[0].shape[0], dtype=torch.int64, device=device)
+        _launch_hash(
+            cols[s : s + MAX_COLS], nulls[s : s + MAX_COLS], tables[s : s + MAX_COLS], h, None,
+            0, out,
         )
+        h = out
     return h
 
 
-def _launch(cols, nulls, tables, h0, valid, num_partitions) -> torch.Tensor:
-    """One launch over at most MAX_COLS key columns, from the hashes ``h0``
-    of earlier columns (or None)."""
-    device = cols[0].device
-    n = cols[0].shape[0]
-    if num_partitions:
-        out = torch.empty(n, dtype=torch.int32, device=device)
-    else:
-        out = torch.empty(n, dtype=torch.int64, device=device)
-    if n == 0:
-        return out
-    # contiguous copies where needed; held until the launch is queued
-    cols = [c.contiguous() for c in cols]
-    nulls = [None if m is None else m.contiguous() for m in nulls]
-    tables = [None if t is None else t.contiguous() for t in tables]
-    descs = (_KeyCol * len(cols))()
-    for d, c, m, t in zip(descs, cols, nulls, tables):
-        d.data = c.data_ptr()
-        d.nulls = 0 if m is None else m.data_ptr()
-        d.table = 0 if t is None else t.data_ptr()
-        d.table_len = 0 if t is None else t.shape[0]
-        d.dtype = _DTYPE_CODES[c.dtype]
-    valid_c = valid.contiguous() if num_partitions else None
-    blocks = min(-(-n // _THREADS), _MAX_BLOCKS)
-    lib = cuda_build.load(SOURCE, _configure)
-    global launches
-    with torch.cuda.device(device):
-        rc = lib.partition_hash(
-            descs, len(cols), 0 if h0 is None else h0.data_ptr(),
-            0 if valid_c is None else valid_c.data_ptr(), n, num_partitions,
-            out.data_ptr() if num_partitions else 0,
-            0 if num_partitions else out.data_ptr(), blocks, _THREADS,
-            torch.cuda.current_stream(device).cuda_stream,
+def _contiguous(cols, nulls, tables):
+    """Contiguous copies where needed, held by the caller until the launch
+    is queued."""
+    return (
+        [c.contiguous() for c in cols],
+        [None if m is None else m.contiguous() for m in nulls],
+        [None if t is None else t.contiguous() for t in tables],
+    )
+
+
+def _launch_hash(cols, nulls, tables, h0, valid, num_partitions, out) -> None:
+    """One launch of the ids (``num_partitions`` > 0, into int32 ``out``)
+    or hash-only mode (into int64 ``out``) over at most MAX_COLS key
+    columns, from the hashes ``h0`` of earlier columns (or None)."""
+    cols, nulls, tables = _contiguous(cols, nulls, tables)
+    valid = valid.contiguous() if num_partitions else None
+    lib = _lib()
+    with _on(out.device):
+        rc = lib.lib.partition_hash(
+            lib.descs(cols, nulls, tables), len(cols), 0 if h0 is None else h0.data_ptr(),
+            0 if valid is None else valid.data_ptr(), out.shape[0],
+            num_partitions, out.data_ptr() if num_partitions else 0,
+            0 if num_partitions else out.data_ptr(), lib.stream(out.device.index),
         )
-        if rc != 0:
-            msg = lib.partition_hash_error_string(rc).decode()
-            raise RuntimeError(f"partition_hash kernel launch failed: {msg} ({rc})")
-        launches += 1
-    return out
+    if rc:
+        lib.raise_for(rc, "partition_hash")
+    global launches
+    launches += 1
 
 
 def partition_ids_for(
@@ -292,4 +449,23 @@ def partition_ids(
         batch.valid,
         num_partitions,
         list(dict_tables),
+    )
+
+
+def batch_partition_groups(
+    batch: DeviceBatch,
+    key_idxs: list[int],
+    num_partitions: int,
+    dict_tables: tuple[torch.Tensor | None, ...] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``partition_groups`` over a batch's key columns (the routing of
+    ``partition_ids``): the batch's rows grouped by partition."""
+    if dict_tables is None:
+        dict_tables = string_key_tables(batch, key_idxs)
+    return partition_groups(
+        [batch.columns[i] for i in key_idxs],
+        [batch.nulls[i] for i in key_idxs],
+        list(dict_tables),
+        batch.valid,
+        num_partitions,
     )

@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py [--sf 1] [--seed 42] [--warm 3] [--profile]
+    python3 chip_smoke.py --partition-timing [--root CHECKOUT]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -34,7 +35,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    f32-subnormal values, and a string key through its blake2b table with
    null rows; K in {1, 2, 4, 7, 64} with invalid rows (which come out as
    K) and the hash-only mode; two launches bit-identical; times of the
-   kernel and the plain version at K = 64 with the bound.
+   kernel and the plain version at K = 64 with the bound. Then its grouped
+   mode (``partition_groups``: ids, the rows' stable order by id, each
+   bucket's start) against its plain version bit for bit, at n in {1,
+   2048, a ragged n, 2^20, 2^21, 2^22} and K in {1, 2, 4, 7, 64, 1024}, on
+   uniform keys, keys of which 90% share one value, rows all invalid and a
+   string key with null rows, two launches bit-identical; both modes on
+   keys made to hash to the edges of ``h % K`` against numpy's uint64
+   ``%``. Then both modes' times at one int32 key and K = 64, at n = 2048,
+   2^21 and 2^22 (``partition_timing``): device time (``torch.profiler``,
+   the ``partition_*`` kernels), call time (CUDA events), host time of a
+   call (``perf_counter`` over 200 calls without a sync), the plain
+   version's time, the bound, and for the grouped mode the library
+   yardstick (the ids call, a stable ``torch.argsort`` and a
+   ``torch.bincount``).
 4. Main path: TPC-H ``lineitem`` at ``--sf`` (seed 42) through
    ``TorchContext(device="cuda").sql(q).collect()`` for q1, q6 and a dense
    GROUP BY over four string keys (480 slots, ``WIDE_SQL``), one cold and
@@ -99,21 +113,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (schema, keys, counts and row order exact, floats within rtol 1e-9, the
    sort path's money sums of q3 and q18 bit for bit); each run must take
    at least 2 grace passes with spilled bytes (``plan_counters``), every
-   query must route rows through the partition-hash kernel, q5's partial
+   query must route rows through the partition-hash kernel, every spilled
+   batch must be grouped by its grouped mode with one wait on the card
+   (``exec/spill.stats``), q5's partial
    aggregates must launch the one-hot kernel at R = 2, and the spill root
    must hold no attempt directory afterwards. Then q1, q12 and q3 from
    ``PhysicalPlanner(ctx, 4, config=ctx.config, distributed=True)``,
    executed in process on the card (cold and warm), each equal to collect
    mode, q12 and q3 with a partitioned join. Prints per query the seconds,
-   spill bytes and passes, partition-hash launches and their (n, key
-   columns, K), one-hot launches and host syncs, the phase's peak device
-   memory, and replays one partition-hash launch (and one one-hot launch)
-   per distinct shape against its plain version: the budgeted queries'
-   warm runs keep the inputs of their first launch at each shape (device
-   copies, in the phase's peak memory), the distributed trees get one
-   capture run each.
-8. One JSON line of kernel results (both kernels), then the last line
+   spill bytes and passes, partition-hash launches (all modes, and the
+   grouped ones) and their (n, key columns, K, mode), one-hot launches,
+   host syncs and the spill write's waits on the card, with its split
+   (device ms of the grouping and of the copy, host s of queueing them, of
+   the wait, of the Arrow build and of the IPC writes), the phase's peak
+   device memory, and replays one partition-hash launch (and one one-hot
+   launch) per distinct shape against its plain version: the budgeted
+   queries' warm runs keep the inputs of their first launch at each shape
+   (device copies, in the phase's peak memory), the distributed trees get
+   one capture run each.
+8. One JSON line of kernel results (the one-hot kernel, and the
+   partition-hash kernel's ids and grouped modes), then the last line
    ``{"ok": true, "device": {...}}``.
+
+``--partition-timing`` runs phase 1, builds the partition-hash kernel and
+prints ``partition_timing``'s results, and stops. With ``--root`` it
+imports another checkout's ``ballista_tpu_torch`` (unpacked into a
+gitignored directory such as ``build/``), so that two checkouts' kernels
+are timed on one card in one call.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -404,28 +430,27 @@ def replay_launches(rec: LaunchRecorder) -> list:
 
 
 class PartitionRecorder:
-    """``LaunchRecorder`` for ``partition.partition_hash`` (the join's hash
-    packing reaches it through ``hashing.hash_columns``, routing through
-    ``partition_ids``): each call on the card made while ``tag`` is set adds
-    its (n, key columns, K) to ``shapes[tag]`` (K = 0: the hash-only mode);
-    with ``keep`` set, the first call at each shape keeps its inputs."""
+    """``LaunchRecorder`` for the partition-hash kernel's wrappers,
+    ``partition.partition_hash`` (the join's hash packing reaches it through
+    ``hashing.hash_columns``, the repartition through ``partition_ids``) and
+    ``partition.partition_groups`` (the grace-hash spills): each call on
+    the card made while ``tag`` is set adds its (n, key columns, K, mode)
+    to ``shapes[tag]`` (mode ``ids``, K = 0 for the hash-only mode, or
+    ``grouped``); with ``keep`` set, the first call at each shape keeps its
+    inputs."""
 
     def __init__(self) -> None:
         self.tag: str | None = None
         self.keep = False
         self.counting = True
         self.shapes: dict = {}
-        self.inputs: dict = {}  # (n, cols, K) -> (tag, cols, nulls, tables, valid)
+        self.inputs: dict = {}  # (n, cols, K, mode) -> (tag, cols, nulls, tables, valid)
 
-    def __enter__(self) -> "PartitionRecorder":
-        from ballista_tpu_torch.ops import partition
-
-        self._mod, self._real = partition, partition.partition_hash
-
+    def _wrap(self, real, mode: str):
         def recorded(cols, nulls, tables, valid, k):
-            out = self._real(cols, nulls, tables, valid, k)
+            out = real(cols, nulls, tables, valid, k)
             if self.tag is not None and cols[0].is_cuda:
-                shape = (int(cols[0].shape[0]), len(cols), int(k))
+                shape = (int(cols[0].shape[0]), len(cols), int(k), mode)
                 if self.counting:
                     self.shapes.setdefault(self.tag, []).append(shape)
                 if self.keep and shape not in self.inputs:
@@ -436,22 +461,32 @@ class PartitionRecorder:
                     )
             return out
 
-        partition.partition_hash = recorded
+        return recorded
+
+    def __enter__(self) -> "PartitionRecorder":
+        from ballista_tpu_torch.ops import partition
+
+        self._mod = partition
+        self._real = partition.partition_hash, partition.partition_groups
+        partition.partition_hash = self._wrap(self._real[0], "ids")
+        partition.partition_groups = self._wrap(self._real[1], "grouped")
         return self
 
     def __exit__(self, *exc) -> None:
-        self._mod.partition_hash = self._real
+        self._mod.partition_hash, self._mod.partition_groups = self._real
 
 
-def partition_bound_ms(cols, nulls, tables, k: int) -> tuple[float, str]:
+def partition_bound_ms(cols, nulls, tables, k: int, grouped: bool = False) -> tuple[float, str]:
     """The least time of one launch: its bytes at the card's memory rate
     (each key column, the valid mask in the partition-id mode, each null
-    mask and string-table gather read once, the output written once); its
-    integer work is far below the card's rate."""
+    mask and string-table gather read once, the output written once; the
+    grouped mode also reads its 4-byte ids back and writes 4 bytes of
+    order a row); its integer work is far below the card's rate."""
     n = cols[0].shape[0]
     nbytes = sum(c.element_size() * n for c in cols)
     nbytes += n * sum(m is not None for m in nulls) + 8 * n * sum(t is not None for t in tables)
     nbytes += 5 * n if k else 8 * n
+    nbytes += 8 * n if grouped else 0
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -533,34 +568,238 @@ def partition_kernel_phase(seed: int) -> dict:
 
 def replay_partition_launches(prec: PartitionRecorder) -> list:
     """The partition-hash kernel against its plain version on the inputs
-    the query paths gave it, one launch per distinct (n, key columns, K):
-    two launches and the plain version bit-identical; times and bound as
+    the query paths gave it, one launch per distinct (n, key columns, K,
+    mode): two launches and the plain version bit-identical (ids, and in
+    the grouped mode the order and bucket starts too); times and bound as
     in ``partition_kernel_phase``. The kept inputs are released."""
     import torch
 
     from ballista_tpu_torch.ops import partition
 
     out = []
-    for (n, ncols, k), (tag, cols, nulls, tables, valid) in sorted(prec.inputs.items()):
-        got = partition.partition_hash(cols, nulls, tables, valid, k)
-        again = partition.partition_hash(cols, nulls, tables, valid, k)
-        want = partition.partition_ids_plain(cols, nulls, tables, valid, k)
+    for (n, ncols, k, mode), (tag, cols, nulls, tables, valid) in sorted(prec.inputs.items()):
+        args = (cols, nulls, tables, valid, k)
+        if mode == "grouped":
+            kernel, plain = partition.partition_groups, partition.partition_groups_plain
+        else:
+            kernel, plain = partition.partition_hash, partition.partition_ids_plain
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
         torch.cuda.synchronize()
-        what = f"{tag} partition launch n={n} cols={ncols} K={k}"
-        check(torch.equal(got, again), f"{what}: two launches differ")
-        check(torch.equal(got, want), f"{what}: kernel differs from the plain version")
-        bound, by = partition_bound_ms(cols, nulls, tables, k)
+        if mode != "grouped":
+            got, again, want = (got,), (again,), (want,)
+        what = f"{tag} partition launch n={n} cols={ncols} K={k} {mode}"
+        check(all(map(torch.equal, got, again)), f"{what}: two launches differ")
+        check(all(map(torch.equal, got, want)), f"{what}: kernel differs from the plain version")
+        bound, by = partition_bound_ms(cols, nulls, tables, k, grouped=mode == "grouped")
         res = dict(
-            query=tag, n=n, cols=ncols, K=k,
+            query=tag, n=n, cols=ncols, K=k, mode=mode,
             dtypes=[str(c.dtype).removeprefix("torch.") for c in cols],
-            ms=time_ms(lambda: partition.partition_hash(cols, nulls, tables, valid, k)),
-            plain_ms=time_ms(lambda: partition.partition_ids_plain(cols, nulls, tables, valid, k)),
+            ms=time_ms(lambda: kernel(*args)), plain_ms=time_ms(lambda: plain(*args)),
             bound_ms=bound, bound_by=by, library_ms=None, max_abs_err=0,
         )
         log(f"replay {what}: ok  {json.dumps(res)}")
         out.append(res)
     prec.inputs.clear()
     return out
+
+
+def profiled_device_ms(fn, needle: str, iters: int = 20) -> tuple[float, dict]:
+    """Device time of one ``fn()`` from a ``torch.profiler`` trace of
+    ``iters`` calls (after a warm-up): the kernels whose names contain
+    ``needle``, summed, over ``iters``; and each such kernel's mean ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    for _ in range(3):
+        fn()
+    # a trace now and then comes back without the kernels (seen once in
+    # some 30 traces of one process): trace again, up to three times
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = {
+            e.key: dev_us(e) / 1e3 / iters
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and needle in e.key
+        }
+        if rows:
+            return sum(rows.values()), {k[:60]: v for k, v in rows.items()}
+    raise SmokeFailure(f"profiler: no kernel named *{needle}* in three traces")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one ``fn()``: ``perf_counter`` over ``calls`` calls with
+    no synchronization inside the loop (the launches queue up behind each
+    other; the device time is not in it while the host is the slower)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
+def partition_timing(seed: int, ns=(2048, 1 << 21, 1 << 22), k: int = 64) -> list:
+    """The partition-hash kernel's modes at the spills' shape (one int32
+    key, 5% of the rows invalid, K = 64), at each n: the device time of a
+    call (``torch.profiler``, kernels named ``partition_*``), its call time
+    (CUDA events) and its host time (``host_us``). Modes: ``ids``
+    (``partition_hash``) and, where the checkout has it, ``grouped``
+    (``partition_groups``), each with its bound; the grouped mode also with
+    its library yardstick (the ids call, a stable ``torch.argsort`` and a
+    ``torch.bincount``). Works on any checkout's ``ops/partition.py`` that
+    has ``partition_hash`` (``--partition-timing --root``)."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops import partition
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in ns:
+        col = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)).cuda()
+        valid = torch.from_numpy(rng.random(n) < 0.95).cuda()
+        args = ([col], [None], [None], valid, k)
+        modes = {"ids": lambda: partition.partition_hash(*args)}
+        if hasattr(partition, "partition_groups"):
+            modes["grouped"] = lambda: partition.partition_groups(*args)
+
+        def library():
+            pid = partition.partition_hash(*args)
+            torch.argsort(pid, stable=True)
+            return torch.bincount(pid, minlength=k + 1)
+
+        for mode, fn in modes.items():
+            device_ms, kernels = profiled_device_ms(fn, "partition_")
+            # bytes: the key, the valid mask, 4 B of ids written; the grouped
+            # mode also reads the ids back and writes 4 B of order a row
+            nbytes = n * (4 + 1 + 4) + (8 * n if mode == "grouped" else 0)
+            res = dict(
+                mode=mode, n=n, keys="i32", K=k, device_ms=device_ms,
+                ms=time_ms(fn), host_us=host_us(fn),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                plain_ms=time_ms(
+                    (lambda: partition.partition_groups_plain(*args)) if mode == "grouped"
+                    else (lambda: partition.partition_ids_plain(*args))
+                ),
+                library_ms=time_ms(library) if mode == "grouped" else None,
+                kernels=kernels,
+            )
+            res["bound_share"] = res["bound_ms"] / res["device_ms"]
+            log(f"partition timing: {json.dumps(res)}")
+            out.append(res)
+    return out
+
+
+GROUP_KS = (1, 2, 4, 7, 64, 1024)
+_M64 = (1 << 64) - 1
+_SPLITMIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+
+
+def unsplitmix64(h: int) -> int:
+    """The inverse of splitmix64 (each of its steps is a bijection of
+    uint64): the lane that splitmix64 takes to ``h``."""
+    c1, c2, c3 = _SPLITMIX
+
+    def unxorshift(y, s):
+        x = y
+        for _ in range(64 // s):
+            x = y ^ (x >> s)
+        return x
+
+    x = (unxorshift(h, 31) * pow(c3, -1, 1 << 64)) & _M64
+    x = (unxorshift(x, 27) * pow(c2, -1, 1 << 64)) & _M64
+    return (unxorshift(x, 30) - c1) & _M64
+
+
+def edge_keys(k: int) -> tuple:
+    """int64 keys whose one-column row hash is at an edge of ``h % k``
+    (0, 1, 2^64 - 1, 2^63 and its neighbours, multiples of ``k`` at both
+    ends of the range and their neighbours), with those hashes (uint64)."""
+    import numpy as np
+
+    top = _M64 // k
+    hashes = {0, 1, _M64, _M64 - 1, 1 << 63, (1 << 63) - 1, (1 << 63) + 1}
+    for m in (j * k for j in (1, 2, 3, top // 2, top - 1, top)):
+        hashes.update(m + d for d in (-1, 0, 1) if 0 <= m + d <= _M64)
+    hashes = sorted(hashes)
+    keys = [unsplitmix64(unsplitmix64(h)) for h in hashes]
+    return np.array(keys, dtype=np.uint64).view(np.int64), np.array(hashes, dtype=np.uint64)
+
+
+def partition_groups_phase(seed: int) -> dict:
+    """The grouped mode (``partition_groups``) against its plain version,
+    bit for bit (ids, order, bucket starts), at n in {1, 2048, a ragged n,
+    2^20, 2^21, 2^22} and K in {1, 2, 4, 7, 64, 1024}, on uniform int32
+    keys, on keys of which 90% share one value (one bucket holds 90% of
+    the valid rows), with every row invalid, and on a string key through its
+    blake2b table with null rows (some codes out of range); two launches
+    bit-identical; the bucket starts end at the valid rows and n. Then the
+    ids and grouped modes on keys made to hash to the edges of ``h % K``
+    (``edge_keys``), K up to 2^31 - 1, against numpy's uint64 ``%``."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops import partition
+
+    rng = np.random.default_rng(seed)
+    words = tuple(f"word-{i:03d}" for i in range(37))
+    table = torch.from_numpy(partition._stable_string_hashes(words).view(np.int64)).cuda()
+    dev = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    checked = 0
+    for n in (1, 2048, 1_000_003, 1 << 20, 1 << 21, 1 << 22):
+        i32 = rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
+        skew = np.where(rng.random(n) < 0.9, np.int32(7), i32)
+        valid = dev(rng.random(n) < 0.95)
+        codes = rng.integers(-1, len(words) + 2, n).astype(np.int32)
+        cases = {
+            "uniform": ([dev(i32)], [None], [None], valid),
+            "skew90": ([dev(skew)], [None], [None], valid),
+            "invalid": ([dev(i32)], [None], [None], torch.zeros_like(valid)),
+            "str+nulls": ([dev(codes)], [dev(rng.random(n) < 0.2)], [table], valid),
+        }
+        for name, args in cases.items():
+            for k in GROUP_KS:
+                got = partition.partition_groups(*args, k)
+                again = partition.partition_groups(*args, k)
+                want = partition.partition_groups_plain(*args, k)
+                torch.cuda.synchronize()
+                tag = f"groups n={n} keys={name} K={k}"
+                check(all(map(torch.equal, got, again)), f"{tag}: two launches differ")
+                check(all(map(torch.equal, got, want)), f"{tag}: kernel differs from the plain version")
+                check(
+                    got[2][k].item() == args[3].sum().item() and got[2][k + 1].item() == n,
+                    f"{tag}: the bucket starts do not end at the valid rows and n",
+                )
+                checked += 1
+            log(f"groups n={n} keys={name}: ok at K in {GROUP_KS}")
+    edges = 0
+    for k in GROUP_KS + (3, 1000003, (1 << 31) - 1):
+        keys, hashes = edge_keys(k)
+        col, valid = [dev(keys)], torch.ones(len(keys), dtype=torch.bool, device="cuda")
+        want = (hashes % np.uint64(k)).astype(np.int32)
+        got = partition.partition_hash(col, [None], [None], valid, k).cpu().numpy()
+        check(np.array_equal(got, want), f"edge hashes K={k}: the ids mode's modulo is wrong")
+        if k <= partition.MAX_GROUPS:
+            pid = partition.partition_groups(col, [None], [None], valid, k)[0].cpu().numpy()
+            check(np.array_equal(pid, want), f"edge hashes K={k}: the grouped mode's modulo is wrong")
+        edges += len(keys)
+    res = dict(cases=checked, edge_hashes=edges, ok=True)
+    log(f"groups: ok  {json.dumps(res)}")
+    return res
 
 
 def slot_ids(n: int, P: int, dist: str, g):
@@ -1563,6 +1802,7 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
     )
     from ballista_tpu_torch.exec.context import TorchContext
     from ballista_tpu_torch.exec.planner import PhysicalPlanner
+    from ballista_tpu_torch.exec import spill
     from ballista_tpu_torch.exec.spill import SPILL_TMP_ROOT
     from ballista_tpu_torch.ops import onehot_agg, partition
     from ballista_tpu_torch.plan.optimizer import optimize
@@ -1588,7 +1828,7 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
     for name, tab in data.items():
         ctx.register_table(name, tab)
     out: dict = {}
-    launches = plaunches = 0
+    launches = plaunches = glaunches = 0
     torch.cuda.reset_peak_memory_stats()
     for q in GRACE_QUERIES:
         tag = f"{q}-budget"
@@ -1600,7 +1840,9 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
             # of its own would cost a spilling run more
             rec.keep = prec.keep = i == 1
             seen = (len(rec.shapes.get(tag, [])), len(prec.shapes.get(tag, [])))
-            onehot_agg.launches = partition.launches = 0  # this run starts here
+            # this run starts here
+            onehot_agg.launches = partition.launches = partition.group_launches = 0
+            spill.reset_stats()
             t = time.perf_counter()
             df = ctx.sql(sqls[q])
             (res, plan), syncs = count_syncs(df.collect_with_plan)
@@ -1608,11 +1850,21 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
             secs = time.perf_counter() - t
             launches += onehot_agg.launches
             plaunches += partition.launches
+            glaunches += partition.group_launches
             spilled = plan_counters(plan, ("spill_bytes", "spill_passes"))
             runs.append(dict(
                 s=secs, launches=onehot_agg.launches, plaunches=partition.launches,
-                capacity_retries=df.stats.get("capacity_retries", 0), syncs=syncs, **spilled,
+                glaunches=partition.group_launches,
+                capacity_retries=df.stats.get("capacity_retries", 0), syncs=syncs,
+                write=dict(spill.stats), **spilled,
             ))
+            # the spill write waits on the card once a spilled batch, and
+            # groups every spilled batch with the kernel
+            check(
+                spill.stats["waits"] == spill.stats["batches"] == partition.group_launches > 0,
+                f"{tag} run {i}: {spill.stats['waits']} waits, {partition.group_launches} grouped "
+                f"launches for {spill.stats['batches']} spilled batches",
+            )
             compare_tables(f"{tag} run {i}", res, want[q])
             for c in GRACE_EXACT.get(q, ()):
                 check(res.column(c).equals(want[q].column(c)), f"{tag} run {i}: {c} not bit for bit")
@@ -1629,11 +1881,17 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
             spill_bytes=[r["spill_bytes"] for r in runs],
             spill_passes=[r["spill_passes"] for r in runs],
             partition_launches=[r["plaunches"] for r in runs],
+            grouped_launches=[r["glaunches"] for r in runs],
             partition_shapes=sorted(set(prec.shapes.get(tag, []))),
             onehot_launches=[r["launches"] for r in runs],
             onehot_shapes=sorted(set(rec.shapes.get(tag, []))),
             capacity_retries=[r["capacity_retries"] for r in runs],
             host_syncs=[r["syncs"] for r in runs],
+            spill_waits=[r["write"]["waits"] for r in runs],
+            # the spill write's split: device ms of the grouping and gathers
+            # and of the copy (CUDA events), host s of queueing them, of the
+            # wait, of the Arrow build and of the IPC writes
+            spill_write=[r["write"] for r in runs],
         )
         log(f"{tag}: ok  {json.dumps(out[tag])}")
     rec.tag = prec.tag = None
@@ -1673,13 +1931,15 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
         rec.tag = prec.tag = tag
         runs = []
         for i in range(2):
-            onehot_agg.launches = partition.launches = 0  # this run starts here
+            # this run starts here
+            onehot_agg.launches = partition.launches = partition.group_launches = 0
             t = time.perf_counter()
             res, syncs = count_syncs(lambda q=q: run_tree(q))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
             launches += onehot_agg.launches
             plaunches += partition.launches
+            glaunches += partition.group_launches
             runs.append(dict(s=secs, launches=onehot_agg.launches, plaunches=partition.launches, syncs=syncs))
             compare_tables(f"{tag} run {i}", res, want[q])
         out[tag] = dict(
@@ -1699,6 +1959,7 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
     check(not dirs() - before, f"grace: attempt directories left in {SPILL_TMP_ROOT}")
     out["launches"] = launches
     out["partition_launches"] = plaunches
+    out["grouped_launches"] = glaunches
     out["peak_bytes"] = peak
     out["dist_peak_bytes"] = dist_peak
     out["reference_s"] = ref_s
@@ -1715,14 +1976,25 @@ def main() -> int:
         help="after the main path, trace one warm run of each query with "
         "torch.profiler and print the device time by kernel",
     )
+    ap.add_argument(
+        "--partition-timing", action="store_true",
+        help="only build the partition-hash kernel and print its modes' device, "
+        "call and host times (partition_timing), then stop",
+    )
+    ap.add_argument(
+        "--root", default=str(ROOT),
+        help="the checkout whose ballista_tpu_torch is imported (default: this "
+        "script's): time another checkout's kernel in the same call",
+    )
     args = ap.parse_args()
     check(args.warm >= 2, "--warm must be at least 2: two warm runs are compared")
 
-    check((ROOT / "ballista_tpu_torch").is_dir(), f"no ballista_tpu_torch beside {__file__}")
+    pkg_root = pathlib.Path(args.root).resolve()
+    check((pkg_root / "ballista_tpu_torch").is_dir(), f"no ballista_tpu_torch in {pkg_root}")
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run needs a card")
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(pkg_root))
     from ballista_tpu_torch.ops import cuda_build, onehot_agg, partition
 
     # 1. card
@@ -1731,6 +2003,12 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"card: {name}, count {count}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+    if args.partition_timing:
+        path, secs, _ = cuda_build.build(partition.SOURCE)
+        log(f"build: {path.name} in {secs:.2f}s (from {pkg_root})")
+        log(json.dumps({"partition_timing": partition_timing(seed=15), "root": str(pkg_root)}))
+        log(smi)
+        return 0
 
     # 2. build: both kernels, one nvcc each, started together
     t0 = time.perf_counter()
@@ -1767,6 +2045,8 @@ def main() -> int:
     )
     sorted_ok = sort_check(seed=10)
     pkernel = partition_kernel_phase(seed=14)
+    pgroups = partition_groups_phase(seed=16)
+    ptiming = partition_timing(seed=15)
     log(f"phase 3 took {time.perf_counter() - t0:.1f}s")
 
     # 4. main path (q1, q6, the wide GROUP BY)
@@ -1811,12 +2091,14 @@ def main() -> int:
     for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist"):
         check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
     q1, q1_now = cases[0], cases[7]
-    # the partition kernel at the main path's shape: phase 7's routing
-    # launch with the most rows (the spills of the budgeted queries)
-    routed = max(
-        (r for r in grace_replays if r["K"] and r["query"].endswith("-budget")),
-        key=lambda r: (r["n"], r["cols"]),
+    # the partition kernel's modes at the spills' shape (2^21 rows, one
+    # int32 key, K = 64), from phase 3's timing
+    ids, grouped = (
+        next(r for r in ptiming if r["n"] == 1 << 21 and r["mode"] == m) for m in ("ids", "grouped")
     )
+    # launches of the main path (phases 5-7): the ids and hash-only modes
+    # (repartitions, hash-packed join keys) and the grouped mode (spills)
+    plaunches = jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
 
     # 8. results
     kernels = [{
@@ -1839,24 +2121,30 @@ def main() -> int:
         "ms_at_q1_now": q1_now["ms"],
         "bound_ms_at_q1_now": q1_now["bound_ms"],
         "bound_share_at_q1_now": q1_now["bound_ms"] / q1_now["ms"],
-    }, {
-        "name": "partition_hash",
+    }] + [{
+        "name": name,
         "route": "cuda",
         "source": "ballista_tpu_torch/csrc/partition_hash.cu",
         "replaces": "ballista_tpu/ops/partition.py:59",
-        # phase 7's runs (every spilled and repartitioned row), and the
-        # hash-packed join keys of phases 5 and 6
-        "launches": jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"],
+        "launches": launches,
+        # every comparison of phases 3 and 5-7 is bit for bit
         "max_abs_err": max([pkernel["max_abs_err"]] + [r["max_abs_err"] for r in preplays]),
-        "ms": routed["ms"],
-        "plain_ms": routed["plain_ms"],
-        "bound_ms": routed["bound_ms"],
-        "bound_by": routed["bound_by"],
-        "library_ms": None,
-        "bound_share": routed["bound_ms"] / routed["ms"],
-        "shape": [routed["n"], routed["cols"], routed["K"]],
-        "main_path_launches": gp["partition_launches"],
-    }]
+        "ms": r["ms"],
+        "device_ms": r["device_ms"],
+        "host_us": r["host_us"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "bound_share": r["bound_ms"] / r["device_ms"],
+        "shape": [r["n"], 1, r["K"]],
+    } for name, r, launches in (
+        # the ids and hash-only modes: phase 7's repartitions and the
+        # hash-packed join keys of phases 5 and 6; ids at the spills' shape
+        ("partition_hash", ids, plaunches - gp["grouped_launches"]),
+        # the grouped mode: every spilled batch of phase 7
+        ("partition_groups", grouped, gp["grouped_launches"]),
+    )]
     log(json.dumps({
         "cases": cases,
         "crossover": sweep["kernel_loses_at_PR"],
@@ -1872,6 +2160,8 @@ def main() -> int:
         "rest_queries": {q: rp[q] for q in REST_QUERIES + ("window", "percentile")},
         "rest_peak_bytes": rp["peak_bytes"],
         "partition_kernel": pkernel["cases"],
+        "partition_groups": pgroups,
+        "partition_timing": ptiming,
         "partition_launches": preplays,
         "grace_queries": {q: v for q, v in gp.items() if q.endswith(("-budget", "-dist"))},
         "grace_peak_bytes": gp["peak_bytes"],

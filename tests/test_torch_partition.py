@@ -283,3 +283,192 @@ def test_hash_columns_on_card_launches_the_kernel():
     got = hashing.hash_columns([x.to(dev)])
     assert partition.launches == before + 1
     assert torch.equal(got.cpu(), hashing.hash_columns_plain([x]))
+
+
+# -- the grouped mode: rows grouped by partition ------------------------------
+
+GROUP_KS = [1, 2, 4, 7, 64, 1024]
+GROUP_NS = [0, 1, 2048, 5003]
+_C1, _C2, _C3 = 0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64_np(x: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(_C1)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(_C2)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(_C3)
+        return x ^ (x >> np.uint64(31))
+
+
+def _oracle_pid(lanes: list[np.ndarray], valid: np.ndarray, k: int) -> np.ndarray:
+    """Partition ids in numpy uint64: splitmix64 over the lanes, ``% k``,
+    ``k`` for invalid rows."""
+    h = np.zeros(len(valid), dtype=np.uint64)
+    for u in lanes:
+        h = _splitmix64_np(h ^ _splitmix64_np(u))
+    return np.where(valid, (h % np.uint64(k)).astype(np.int64), k)
+
+
+def group_case(case: str, n: int, seed: int):
+    """(cols, nulls, tables, valid, lanes) of one grouped-mode case:
+    ``uniform`` int64 keys, ``skew`` (90% of the rows share one key),
+    ``invalid`` (no row valid) and ``str`` (string codes through a blake2b
+    table, a fifth of them null; some codes out of range)."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) < 0.9
+    if case == "str":
+        words = tuple(f"w{i}" for i in range(23))
+        table = partition._stable_string_hashes(words)
+        codes = rng.integers(-1, len(words) + 1, n).astype(np.int32)
+        nulls = rng.random(n) < 0.2
+        lanes = np.where(nulls, np.uint64(0), table[np.clip(codes, 0, len(words) - 1)])
+        cols = [torch.from_numpy(codes)]
+        return cols, [torch.from_numpy(nulls)], [torch.from_numpy(table.view(np.int64))], torch.from_numpy(valid), [lanes]
+    keys = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, dtype=np.int64)
+    if case == "skew":
+        keys[rng.random(n) < 0.9] = 12345
+    if case == "invalid":
+        valid[:] = False
+    return [torch.from_numpy(keys)], [None], [None], torch.from_numpy(valid), [keys.view(np.uint64)]
+
+
+@pytest.mark.parametrize("case", ["uniform", "skew", "invalid", "str"])
+@pytest.mark.parametrize("n", GROUP_NS)
+@pytest.mark.parametrize("k", GROUP_KS)
+def test_partition_groups_match_numpy_oracle(case, n, k):
+    """``partition_groups`` on the CPU: the ids, the stable order by id and
+    the bucket starts equal numpy's ``argsort(kind="stable")`` and
+    ``bincount`` bit for bit."""
+    cols, nulls, tables, valid, lanes = group_case(case, n, seed=n * 31 + k)
+    pid, order, offsets = partition.partition_groups(cols, nulls, tables, valid, k)
+    want_pid = _oracle_pid(lanes, valid.numpy(), k)
+    want_order = np.argsort(want_pid, kind="stable")
+    want_offsets = np.concatenate([[0], np.cumsum(np.bincount(want_pid, minlength=k + 1))])
+    assert pid.dtype == order.dtype == torch.int32 and offsets.dtype == torch.int64
+    assert np.array_equal(pid.numpy(), want_pid)
+    assert np.array_equal(order.numpy(), want_order)
+    assert np.array_equal(offsets.numpy(), want_offsets)
+    assert offsets[k] == int(valid.sum()) and offsets[k + 1] == n
+    if case == "skew" and n > 1000:
+        assert np.bincount(want_pid).max() > 0.7 * n  # 90% of keys, 90% valid
+    # the ids are partition_hash's
+    assert torch.equal(pid, partition.partition_hash(cols, nulls, tables, valid, k))
+
+
+@pytest.mark.parametrize("k", [0, -1, 1025])
+def test_partition_groups_rejects_k_out_of_range(k):
+    cols, nulls, tables, valid, _ = group_case("uniform", 16, seed=1)
+    with pytest.raises(ValueError):
+        partition.partition_groups(cols, nulls, tables, valid, k)
+
+
+def _unsplitmix64(h: int) -> int:
+    """The inverse of splitmix64 (each step is a bijection of uint64)."""
+
+    def unxorshift(y, s):
+        x = y
+        for _ in range(64 // s):
+            x = y ^ (x >> s)
+        return x
+
+    x = unxorshift(h, 31)
+    x = (x * pow(_C3, -1, 1 << 64)) & _M64
+    x = unxorshift(x, 27)
+    x = (x * pow(_C2, -1, 1 << 64)) & _M64
+    x = unxorshift(x, 30)
+    return (x - _C1) & _M64
+
+
+def edge_hashes(k: int, seed: int) -> list[int]:
+    """uint64 hashes at the modulo's edges: 0, 1, 2^64 - 1, 2^63 and its
+    neighbours, multiples of ``k`` at both ends of the range and their
+    neighbours, and random hashes."""
+    top = _M64 // k
+    mult = [j * k for j in (1, 2, 3, top // 2, top - 1, top)]
+    out = {0, 1, _M64, _M64 - 1, 1 << 63, (1 << 63) - 1, (1 << 63) + 1}
+    out.update(m + d for m in mult for d in (-1, 0, 1) if 0 <= m + d <= _M64)
+    rng = np.random.default_rng(seed)
+    out.update(int(v) for v in rng.integers(0, _M64, 200, dtype=np.uint64, endpoint=True))
+    return sorted(out)
+
+
+def edge_keys(k: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """int64 keys whose one-column row hash is each of ``edge_hashes``,
+    and those hashes (uint64)."""
+    hashes = edge_hashes(k, seed)
+    keys = [_unsplitmix64(_unsplitmix64(h)) for h in hashes]
+    return np.array(keys, dtype=np.uint64).view(np.int64), np.array(hashes, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("k", sorted(set(KS + GROUP_KS + [1000003, (1 << 31) - 1])))
+def test_multiply_high_modulo_is_exact_at_the_edges(k):
+    """The kernel's ``h % K`` (``umod`` in ``csrc/partition_hash.cu``):
+    q = umulhi(h, floor((2^64 - 1) / K)) is floor(h / K) or one less, so
+    h - q K lies in [0, 2K) and one subtraction ends it, for every uint64
+    h. Checked in exact integers at the edge hashes; and keys made to hash
+    to them route to h % K (the gpu test holds the kernel to the same)."""
+    magic = _M64 // k
+    for h in edge_hashes(k, seed=k):
+        r = h - (((h * magic) >> 64) * k)
+        assert 0 <= r < 2 * k, (h, k)
+        assert (r - k if r >= k else r) == h % k, (h, k)
+    keys, hashes = edge_keys(k, seed=k)
+    assert np.array_equal(_oracle_pid([keys.view(np.uint64)], np.ones(len(keys), bool), 0x7FFFFFFF + 1), (hashes % np.uint64(1 << 31)).astype(np.int64))
+    got = partition.partition_hash([torch.from_numpy(keys)], [None], [None], torch.ones(len(keys), dtype=torch.bool), k)
+    assert np.array_equal(got.numpy(), (hashes % np.uint64(k)).astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uniform", "skew", "invalid", "str"])
+def test_partition_groups_kernel_matches_plain_on_card(case):
+    """The grouped mode on the card equals its plain version bit for bit
+    (ids, order, bucket starts), and two launches are bit-identical, at
+    every K of the CPU tests and n from 1 to past a tile boundary."""
+    dev = _card()
+    for n in (1, 2048, 4096, 4097, 100_003, 1 << 20):
+        cols, nulls, tables, valid, _ = group_case(case, n, seed=n)
+        on = lambda xs: [None if x is None else x.to(dev) for x in xs]  # noqa: E731
+        for k in GROUP_KS:
+            want = partition.partition_groups_plain(cols, nulls, tables, valid, k)
+            before = partition.launches
+            got = partition.partition_groups(on(cols), on(nulls), on(tables), valid.to(dev), k)
+            again = partition.partition_groups(on(cols), on(nulls), on(tables), valid.to(dev), k)
+            assert partition.launches == before + 2
+            for g, a, w in zip(got, again, want):
+                assert torch.equal(g, a), (case, n, k)
+                assert torch.equal(g.cpu(), w), (case, n, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 7, 64, 1024, 1000003, (1 << 31) - 1])
+def test_kernel_modulo_at_edge_hashes_on_card(k):
+    dev = _card()
+    keys, hashes = edge_keys(k, seed=k)
+    col = [torch.from_numpy(keys).to(dev)]
+    valid = torch.ones(len(keys), dtype=torch.bool, device=dev)
+    got = partition.partition_hash(col, [None], [None], valid, k).cpu().numpy()
+    assert np.array_equal(got, (hashes % np.uint64(k)).astype(np.int32))
+    if k <= partition.MAX_GROUPS:
+        pid, _, _ = partition.partition_groups(col, [None], [None], valid, k)
+        assert np.array_equal(pid.cpu().numpy(), got)
+
+
+def test_key_column_descriptor_layout():
+    """The descriptors the wrapper packs (``_KEYCOL``) have the layout of
+    the kernel source's ``struct KeyCol`` as a C compiler lays it out."""
+    import ctypes
+
+    class KeyCol(ctypes.Structure):
+        _fields_ = [
+            ("data", ctypes.c_void_p), ("nulls", ctypes.c_void_p), ("table", ctypes.c_void_p),
+            ("table_len", ctypes.c_longlong), ("dtype", ctypes.c_int),
+        ]
+
+    assert partition._KEYCOL.size == ctypes.sizeof(KeyCol)
+    buf = ctypes.create_string_buffer(partition._KEYCOL.size)
+    partition._KEYCOL.pack_into(buf, 0, 1 << 40, 2, 3, 4, 2)
+    got = KeyCol.from_buffer_copy(buf.raw)
+    assert (got.data, got.nulls, got.table, got.table_len, got.dtype) == (1 << 40, 2, 3, 4, 2)
+    src = partition.SOURCE.read_text()
+    assert "struct KeyCol {" in src and "long long table_len;\n  int dtype;\n};" in src
