@@ -1,24 +1,88 @@
-"""Session configuration: the keys the port reads, with the reference's
-names and defaults (``ballista_tpu/config.py``).
+"""Session configuration: every key of the reference's ``BallistaConfig``
+(``ballista_tpu/config.py``), with its name, default and parse rule.
 
 An unknown key or an unparsable value raises :class:`ConfigError`, the same
-contract as the reference's ``BallistaConfig``. Keys the reference has and
-the port does not read yet are unknown here rather than silently ignored.
+contract as the reference's. A job ships its session keys to every
+executor, so the port knows all of them, also those whose feature it does
+not have yet. Such a key keeps its default behaviour, and a non-default
+value raises at the point of use (``check_ported``), naming the ROADMAP
+item that ports the feature; it is never silently ignored. Keys read only
+by the scheduler and the executor daemons (task retries, stragglers, skew,
+AQE, the result cache, grant batching, metrics shipping, history) are
+accepted here and read when those parts are ported (ROADMAP queue 1, items
+9c and 9d).
 """
 
 from __future__ import annotations
 
+from ballista_tpu_torch.columnar.batch import MIN_CAPACITY
 from ballista_tpu_torch.errors import ConfigError
 
+BALLISTA_JOB_NAME = "ballista.job.name"
 BALLISTA_DEFAULT_SHUFFLE_PARTITIONS = "ballista.shuffle.partitions"
-BALLISTA_AGG_CAPACITY = "ballista.tpu.agg_capacity"
-BALLISTA_TPU_BATCH_ROWS = "ballista.tpu.batch_rows"
-BALLISTA_JOIN_EXPANSION = "ballista.tpu.join_expansion"
+BALLISTA_DEFAULT_BATCH_SIZE = "ballista.batch.size"
 BALLISTA_REPARTITION_JOINS = "ballista.repartition.joins"
 BALLISTA_REPARTITION_AGGREGATIONS = "ballista.repartition.aggregations"
+BALLISTA_REPARTITION_WINDOWS = "ballista.repartition.windows"
+BALLISTA_PARQUET_PRUNING = "ballista.parquet.pruning"
+BALLISTA_WITH_INFORMATION_SCHEMA = "ballista.with_information_schema"
+BALLISTA_PLUGIN_DIR = "ballista.plugin_dir"
+BALLISTA_DEVICE = "ballista.tpu.device"
+BALLISTA_AGG_CAPACITY = "ballista.tpu.agg_capacity"
+BALLISTA_TPU_BATCH_ROWS = "ballista.tpu.batch_rows"
+BALLISTA_PROFILE_DIR = "ballista.tpu.profile_dir"
+BALLISTA_JOIN_EXPANSION = "ballista.tpu.join_expansion"
+BALLISTA_BUILD_CACHE_MB = "ballista.tpu.build_cache_mb"
+BALLISTA_COLLECTIVE_SHUFFLE = "ballista.tpu.collective_shuffle"
+BALLISTA_SCAN_STREAM_MB = "ballista.tpu.scan_stream_mb"
 BALLISTA_HBM_BUDGET_MB = "ballista.tpu.hbm_budget_mb"  # grace-hash trigger
 BALLISTA_SPILL_BUDGET_MB = "ballista.tpu.spill_budget_mb"  # host spill ceiling
 BALLISTA_SPILL_DIR = "ballista.tpu.spill_dir"  # grace-hash spill location
+BALLISTA_PREFETCH_DEPTH = "ballista.tpu.prefetch_depth"
+BALLISTA_VERIFY_PLANS = "ballista.tpu.verify_plans"
+BALLISTA_TASK_MAX_ATTEMPTS = "ballista.tpu.task_max_attempts"
+BALLISTA_FETCH_RETRIES = "ballista.tpu.fetch_retries"
+BALLISTA_FETCH_BACKOFF_MS = "ballista.tpu.fetch_backoff_ms"
+BALLISTA_FETCH_TIMEOUT_S = "ballista.tpu.fetch_timeout_s"
+BALLISTA_SHUFFLE_FETCH_CONCURRENCY = "ballista.tpu.shuffle_fetch_concurrency"
+BALLISTA_SHUFFLE_COMPRESSION = "ballista.tpu.shuffle_compression"  # none|lz4|zstd|auto
+BALLISTA_SHUFFLE_LOCAL_FASTPATH = "ballista.tpu.shuffle_local_fastpath"
+BALLISTA_EAGER_SHUFFLE = "ballista.tpu.eager_shuffle"
+BALLISTA_PUSH_SHUFFLE = "ballista.tpu.push_shuffle"
+BALLISTA_PUSH_SHUFFLE_WINDOW_MB = "ballista.tpu.push_shuffle_window_mb"
+BALLISTA_SHUFFLE_TARGET_BATCH_MB = "ballista.tpu.shuffle_target_batch_mb"
+BALLISTA_EAGER_POLL_MS = "ballista.tpu.eager_poll_ms"
+BALLISTA_EAGER_WAIT_S = "ballista.tpu.eager_wait_s"
+BALLISTA_CAPACITY_BUCKETS = "ballista.tpu.capacity_buckets"
+BALLISTA_PREWARM = "ballista.tpu.prewarm"  # off|on|background
+BALLISTA_TRACE = "ballista.tpu.trace"  # off|on|<jsonl path>
+BALLISTA_METRICS_COLLECTOR = "ballista.tpu.metrics_collector"  # shipping|logging
+BALLISTA_STRAGGLER_FACTOR = "ballista.tpu.straggler_factor"
+BALLISTA_STRAGGLER_MIN_S = "ballista.tpu.straggler_min_s"
+BALLISTA_SKEW_RATIO = "ballista.tpu.skew_ratio"
+BALLISTA_SKEW_MIN_ROWS = "ballista.tpu.skew_min_rows"
+BALLISTA_SCALER_QUEUE_WAIT_TARGET_S = "ballista.tpu.scaler_queue_wait_target_s"
+BALLISTA_AQE = "ballista.tpu.aqe"
+BALLISTA_AQE_BROADCAST_THRESHOLD_MB = "ballista.tpu.aqe_broadcast_threshold_mb"
+BALLISTA_AQE_TARGET_PARTITION_MB = "ballista.tpu.aqe_target_partition_mb"
+BALLISTA_COST_ACCOUNTING = "ballista.tpu.cost_accounting"
+BALLISTA_HISTORY_RETENTION_JOBS = "ballista.tpu.history_retention_jobs"
+BALLISTA_RESULT_CACHE_MB = "ballista.tpu.result_cache_mb"
+BALLISTA_SINGLE_STAGE_BYPASS = "ballista.tpu.single_stage_bypass"
+BALLISTA_TASK_GRANT_BATCH = "ballista.tpu.task_grant_batch"
+
+# Task-scoped keys the scheduler stamps onto a task's props for the
+# executor (attempt number, trace context, query class). Not session
+# config: executors strip this prefix before building a BallistaConfig.
+BALLISTA_INTERNAL_PREFIX = "ballista.internal."
+BALLISTA_INTERNAL_TASK_ATTEMPT = "ballista.internal.task_attempt"
+BALLISTA_INTERNAL_TRACE_ID = "ballista.internal.trace_id"
+BALLISTA_INTERNAL_SPAN_PARENT = "ballista.internal.span_parent"
+BALLISTA_INTERNAL_QUERY_CLASS = "ballista.internal.query_class"
+
+METRICS_COLLECTORS = ("shipping", "logging")
+SHUFFLE_COMPRESSION_CODECS = ("none", "lz4", "zstd", "auto")
+PREWARM_MODES = ("off", "on", "background")
 
 
 def _parse_bool(s: str) -> bool:
@@ -29,25 +93,144 @@ def _parse_bool(s: str) -> bool:
     raise ValueError(f"not a boolean: {s!r}")
 
 
-# key -> (default, parser)
+def _parse_metrics_collector(s: str) -> str:
+    v = s.lower()
+    if v not in METRICS_COLLECTORS:
+        raise ValueError(f"not a metrics collector (shipping|logging): {s!r}")
+    return v
+
+
+def _parse_trace(s: str) -> str:
+    # "off" | "on" (any case) | a JSONL export path, taken as it is
+    v = s.strip()
+    if v.lower() in ("off", "on"):
+        return v.lower()
+    return v or "off"
+
+
+def _parse_prewarm(s: str) -> str:
+    v = s.lower()
+    if v not in PREWARM_MODES:
+        raise ValueError(f"not a prewarm mode (off|on|background): {s!r}")
+    return v
+
+
+def _parse_shuffle_compression(s: str) -> str:
+    v = s.lower()
+    if v not in SHUFFLE_COMPRESSION_CODECS:
+        raise ValueError(f"not a shuffle codec (none|lz4|zstd|auto): {s!r}")
+    return v
+
+
+def _parse_capacity_buckets(s: str) -> str:
+    """The reference's ladder spec rules (``CapacityLadder.parse``):
+    "<min>:<ratio>", "<min>", or an explicit "b0,b1,..." list; the lowest
+    bucket at least 2048 and the ratio at least 2."""
+    spec = (s or "").strip()
+    if not spec:
+        return s
+    if "," in spec:
+        buckets = sorted({int(b) for b in spec.split(",") if b.strip()})
+        if buckets[0] < 8:
+            raise ValueError(f"capacity bucket too small: {buckets[0]}")
+        low = buckets[0]
+    else:
+        mn, _, r = spec.partition(":")
+        low, ratio = int(mn), int(r) if r else 2
+        if low < 8:
+            raise ValueError(f"min capacity too small: {low}")
+        if ratio < 2:
+            raise ValueError(f"bucket ratio must be >= 2: {ratio}")
+    if low < MIN_CAPACITY:
+        raise ValueError(f"capacity bucket below the {MIN_CAPACITY} tileable minimum: {low}")
+    return s
+
+
+# key -> (default, parser), the reference's closed set of valid settings
 _ENTRIES: dict[str, tuple[str, object]] = {
+    BALLISTA_JOB_NAME: ("", str),
     BALLISTA_DEFAULT_SHUFFLE_PARTITIONS: ("2", int),
-    BALLISTA_AGG_CAPACITY: (str(1 << 16), int),
-    BALLISTA_TPU_BATCH_ROWS: (str(1 << 21), int),
-    # output rows per probe row that a join's m:n expansion allocates
-    # before it overflows and the run is retried with more
-    BALLISTA_JOIN_EXPANSION: ("4", int),
+    BALLISTA_DEFAULT_BATCH_SIZE: ("8192", int),
     # hash-exchange the inputs of joins and aggregations in a distributed
     # plan (PhysicalPlanner(distributed=True))
     BALLISTA_REPARTITION_JOINS: ("true", _parse_bool),
     BALLISTA_REPARTITION_AGGREGATIONS: ("true", _parse_bool),
+    BALLISTA_REPARTITION_WINDOWS: ("true", _parse_bool),
+    BALLISTA_PARQUET_PRUNING: ("true", _parse_bool),
+    BALLISTA_WITH_INFORMATION_SCHEMA: ("false", _parse_bool),
+    BALLISTA_PLUGIN_DIR: ("", str),
+    BALLISTA_PROFILE_DIR: ("", str),
+    BALLISTA_DEVICE: ("auto", str),
+    BALLISTA_AGG_CAPACITY: (str(1 << 16), int),
+    BALLISTA_BUILD_CACHE_MB: ("2048", int),
+    BALLISTA_TPU_BATCH_ROWS: (str(1 << 21), int),
+    # output rows per probe row that a join's m:n expansion allocates
+    # before it overflows and the run is retried with more
+    BALLISTA_JOIN_EXPANSION: ("4", int),
+    BALLISTA_COLLECTIVE_SHUFFLE: ("true", _parse_bool),
+    BALLISTA_SCAN_STREAM_MB: ("4096", int),
     # device bytes (MB) a join build side or a final aggregate's states may
     # hold before they go grace-hash through host Arrow IPC buckets; 0 = off
     BALLISTA_HBM_BUDGET_MB: ("0", int),
     # host bytes (MB) of spill files a task attempt may write; 0 = no limit
     BALLISTA_SPILL_BUDGET_MB: (str(1 << 16), int),
-    # where spill files go; empty = the system temp directory
+    # where spill files go; empty = the task's work_dir, else the temp dir
     BALLISTA_SPILL_DIR: ("", str),
+    BALLISTA_PREFETCH_DEPTH: ("1", int),
+    BALLISTA_VERIFY_PLANS: ("true", _parse_bool),
+    BALLISTA_TASK_MAX_ATTEMPTS: ("3", int),
+    BALLISTA_FETCH_RETRIES: ("3", int),
+    BALLISTA_FETCH_BACKOFF_MS: ("50", int),
+    BALLISTA_FETCH_TIMEOUT_S: ("300", float),
+    # upstream shuffle files a reader fetches at once (<= 1: one by one)
+    BALLISTA_SHUFFLE_FETCH_CONCURRENCY: ("4", int),
+    # IPC codec of shuffle files; "auto" writes them uncompressed
+    BALLISTA_SHUFFLE_COMPRESSION: ("auto", _parse_shuffle_compression),
+    BALLISTA_SHUFFLE_LOCAL_FASTPATH: ("true", _parse_bool),
+    BALLISTA_EAGER_SHUFFLE: ("true", _parse_bool),
+    BALLISTA_PUSH_SHUFFLE: ("true", _parse_bool),
+    BALLISTA_PUSH_SHUFFLE_WINDOW_MB: ("256", int),
+    # shuffle writers concatenate slices up to this size before a write
+    BALLISTA_SHUFFLE_TARGET_BATCH_MB: ("8", int),
+    BALLISTA_EAGER_POLL_MS: ("10", int),
+    BALLISTA_CAPACITY_BUCKETS: ("2048:2", _parse_capacity_buckets),
+    BALLISTA_PREWARM: ("off", _parse_prewarm),
+    BALLISTA_TRACE: ("off", _parse_trace),
+    BALLISTA_METRICS_COLLECTOR: ("shipping", _parse_metrics_collector),
+    BALLISTA_STRAGGLER_FACTOR: ("3", float),
+    BALLISTA_STRAGGLER_MIN_S: ("1", float),
+    BALLISTA_SKEW_RATIO: ("4", float),
+    BALLISTA_SKEW_MIN_ROWS: ("4096", int),
+    BALLISTA_SCALER_QUEUE_WAIT_TARGET_S: ("2", float),
+    BALLISTA_AQE: ("false", _parse_bool),
+    BALLISTA_AQE_BROADCAST_THRESHOLD_MB: ("32", int),
+    BALLISTA_AQE_TARGET_PARTITION_MB: ("16", int),
+    BALLISTA_COST_ACCOUNTING: ("true", _parse_bool),
+    BALLISTA_HISTORY_RETENTION_JOBS: ("512", int),
+    BALLISTA_RESULT_CACHE_MB: ("0", int),
+    BALLISTA_SINGLE_STAGE_BYPASS: ("true", _parse_bool),
+    BALLISTA_TASK_GRANT_BATCH: ("4", int),
+    BALLISTA_EAGER_WAIT_S: ("60", float),
+}
+
+# Keys whose feature the port lacks, with the ROADMAP item that ports it.
+# A non-default value raises where the reference would use it.
+UNPORTED: dict[str, str] = {
+    BALLISTA_PLUGIN_DIR: "ROADMAP queue 1, item 10a (UDF plugins)",
+    BALLISTA_WITH_INFORMATION_SCHEMA: "ROADMAP queue 1, item 3 (SHOW statements)",
+    BALLISTA_CAPACITY_BUCKETS: "ROADMAP queue 1, item 3 (the capacity ladder)",
+    BALLISTA_COST_ACCOUNTING: "ROADMAP queue 1, item 3 (history and system tables)",
+    BALLISTA_HISTORY_RETENTION_JOBS: "ROADMAP queue 1, item 3 (history and system tables)",
+    BALLISTA_PARQUET_PRUNING: "ROADMAP queue 1, item 3 (file scans)",
+    BALLISTA_SCAN_STREAM_MB: "ROADMAP queue 1, item 3 (file scans)",
+    BALLISTA_PREFETCH_DEPTH: "ROADMAP queue 1, item 3 (file scans)",
+    BALLISTA_BUILD_CACHE_MB: "ROADMAP queue 1, item 6 (the build-table cache)",
+    BALLISTA_PROFILE_DIR: "ROADMAP queue 1, item 10b (trace hooks)",
+    BALLISTA_TRACE: "ROADMAP queue 1, item 10b (trace hooks)",
+    BALLISTA_PREWARM: "ROADMAP queue 1, item 10b (kernel registry)",
+    BALLISTA_VERIFY_PLANS: "ROADMAP queue 1, item 10b (plan verifier)",
+    BALLISTA_COLLECTIVE_SHUFFLE: "ROADMAP queue 1, item 10b (multi-device)",
+    BALLISTA_SHUFFLE_LOCAL_FASTPATH: "ROADMAP queue 1, item 9c (Flight fetch)",
 }
 
 
@@ -79,6 +262,18 @@ class BallistaConfig:
         default, parse = _ENTRIES[key]
         return parse(self._settings.get(key, default))
 
+    def check_ported(self, *keys: str) -> None:
+        """Raise ConfigError for a key of ``keys`` (each one of
+        ``UNPORTED``) set to a value other than its default: the feature
+        that would honour it is not ported."""
+        for key in keys:
+            if key in self._settings and self._get(key) != _ENTRIES[key][1](_ENTRIES[key][0]):
+                raise ConfigError(
+                    f"{key}={self._settings[key]!r} is not supported by this engine "
+                    f"yet ({UNPORTED[key]}); leave it at its default "
+                    f"{_ENTRIES[key][0]!r}"
+                )
+
     def default_shuffle_partitions(self) -> int:
         return self._get(BALLISTA_DEFAULT_SHUFFLE_PARTITIONS)
 
@@ -105,3 +300,27 @@ class BallistaConfig:
 
     def spill_dir(self) -> str:
         return self._get(BALLISTA_SPILL_DIR)
+
+    def shuffle_fetch_concurrency(self) -> int:
+        return max(0, self._get(BALLISTA_SHUFFLE_FETCH_CONCURRENCY))
+
+    def shuffle_compression(self) -> str:
+        return self._get(BALLISTA_SHUFFLE_COMPRESSION)
+
+    def eager_shuffle(self) -> bool:
+        return self._get(BALLISTA_EAGER_SHUFFLE)
+
+    def push_shuffle(self) -> bool:
+        return self._get(BALLISTA_PUSH_SHUFFLE)
+
+    def push_shuffle_window_mb(self) -> int:
+        return self._get(BALLISTA_PUSH_SHUFFLE_WINDOW_MB)
+
+    def shuffle_target_batch_mb(self) -> int:
+        return max(0, self._get(BALLISTA_SHUFFLE_TARGET_BATCH_MB))
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, BallistaConfig) and other._settings == self._settings
+
+    def __repr__(self) -> str:
+        return f"BallistaConfig({self._settings!r})"

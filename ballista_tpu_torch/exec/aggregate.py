@@ -193,7 +193,7 @@ def decompose_aggregates(
             )
         if isinstance(a, L.UdafExpr):
             raise NotImplementedError(
-                "aggregate UDFs are not ported yet (ROADMAP queue 1, item 10)"
+                "aggregate UDFs are not ported yet (ROADMAP queue 1, item 10a)"
             )
         if a.func == L.AggFunc.AVG:
             src = arg_slot(a.arg)
@@ -411,7 +411,13 @@ class HashAggregateExec(ExecutionPlan):
         agg_exprs: list[L.Expr],
         mode: str,  # "partial" | "final"
         spec: AggSpec | None = None,
+        capacity: int | None = None,
+        planned_input_schema: Schema | None = None,
     ) -> None:
+        """``capacity``: the group capacity a plan fixes (serde carries
+        it; the planner leaves it to the config). ``planned_input_schema``:
+        the schema the aggregate expressions were planned against (the
+        partial's input), which a final aggregate carries for serde."""
         super().__init__()
         if mode not in ("partial", "final"):
             raise PlanError(f"bad aggregate mode {mode}")
@@ -419,7 +425,9 @@ class HashAggregateExec(ExecutionPlan):
         self.group_exprs = list(group_exprs)
         self.agg_exprs = list(agg_exprs)
         self.mode = mode
+        self.capacity = capacity
         ins = input.schema()
+        self.planned_input_schema = planned_input_schema if planned_input_schema is not None else ins
         self._pre_plan = None
         if mode == "partial":
             self.spec = (
@@ -480,8 +488,10 @@ class HashAggregateExec(ExecutionPlan):
 
     # -- execution -----------------------------------------------------------
     def _agg_capacity(self, ctx: TaskContext) -> int:
-        # a retry's grown capacity wins over the configured one
-        return ctx.agg_capacity_override or ctx.config.agg_capacity()
+        # a retry's grown capacity wins over the planned and the configured one
+        if ctx.agg_capacity_override:
+            return max(ctx.agg_capacity_override, self.capacity or 0)
+        return self.capacity or ctx.config.agg_capacity()
 
     def _dec_scaled_sums(self, val_cols, val_nulls, ops, batch, ctx, site, from_state):
         """Exact decimal summation: f64 SUM inputs that are decimals (every

@@ -6,9 +6,10 @@ DeviceBatches, per-operator metrics, the task context that carries the
 device, the deferred device checks, the plan-cache speculation protocol
 and the attempt's grace-hash spill files, the retry loop
 ``run_with_capacity_retry``, ``plan_counters`` and ``execute_to_batches``.
-Not ported: the reference's JAX profiler branch, the executor's work
-directory for spills (with the distributed tier) and its plan-cache
-eviction by age (the port clears an overfull cache).
+``replace_children`` rebinds an operator's children (the stage splitter
+and ``remove_unresolved_shuffles`` use it). Not ported: the reference's
+JAX profiler branch (``ballista.tpu.profile_dir``, ROADMAP queue 1, item
+10b).
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ class TaskContext:
 
     config: BallistaConfig = dataclasses.field(default_factory=BallistaConfig)
     device: torch.device | str = "cuda"
+    session_id: str = ""
+    job_id: str = ""
+    # where a shuffle-writing task puts its files (and its spills, unless
+    # ballista.tpu.spill_dir names a directory); empty in local contexts
+    work_dir: str = ""
     # After an aggregate overflowed its group capacity, the retry runs with
     # this capacity (it wins over the configured one).
     agg_capacity_override: int | None = None
@@ -77,19 +83,26 @@ class TaskContext:
     # first spill; run_with_capacity_retry closes it (deleting its files)
     # at every attempt boundary, so a retry never reads stale buckets.
     spill: object | None = None
+    # An executor's poller of published shuffle locations, which eager
+    # shuffle and push shuffle need (ROADMAP queue 1, item 9c); None here.
+    shuffle_locations: object | None = None
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
 
     def spill_manager(self):
         """The attempt's SpillManager, made on the first spill, under
-        ``ballista.tpu.spill_dir`` or else the shared temp spill root."""
+        ``ballista.tpu.spill_dir``, else the task's work_dir, else the
+        shared temp spill root."""
         if self.spill is None:
+            import os
+
             from ballista_tpu_torch.exec.spill import SpillManager
 
-            self.spill = SpillManager(
-                self.config.spill_dir() or None, self.config.spill_budget_mb() << 20
-            )
+            base = self.config.spill_dir() or None
+            if base is None and self.work_dir:
+                base = os.path.join(self.work_dir, self.job_id or "local", "spill")
+            self.spill = SpillManager(base, self.config.spill_budget_mb() << 20)
         return self.spill
 
     def close_spills(self) -> None:
@@ -253,6 +266,9 @@ def run_with_capacity_retry(
     plan_cache: dict | None = None,
     stats: dict | None = None,
     pinned_cache_keys=(),
+    work_dir: str = "",
+    job_id: str = "",
+    session_id: str = "",
 ):
     """The execution loop: build a TaskContext, run ``fn(ctx)``, raise
     the deferred device checks, and retry on two faults:
@@ -274,9 +290,14 @@ def run_with_capacity_retry(
     given, counts the retries
     (``"capacity_retries"``, ``"speculation_misses"``). A ``plan_cache``
     grown past ``PLAN_CACHE_MAX_ENTRIES`` is first cut back by
-    ``evict_plan_cache``, which keeps ``pinned_cache_keys``."""
+    ``evict_plan_cache``, which keeps ``pinned_cache_keys``. ``work_dir``,
+    ``job_id`` and ``session_id`` go to every attempt's TaskContext (a
+    shuffle-writing task's files)."""
     from ballista_tpu_torch.columnar.batch import round_capacity
+    from ballista_tpu_torch.config import BALLISTA_BUILD_CACHE_MB, BALLISTA_PROFILE_DIR
     from ballista_tpu_torch.errors import CapacityError, SpeculationMiss
+
+    config.check_ported(BALLISTA_PROFILE_DIR, BALLISTA_BUILD_CACHE_MB)
 
     override: int | None = (hint or {}).get("agg_capacity")
     if override is not None and override <= config.agg_capacity():
@@ -291,6 +312,7 @@ def run_with_capacity_retry(
         ctx = TaskContext(
             config=config, device=device, agg_capacity_override=override,
             site_capacity=dict(sites), plan_cache=plan_cache,
+            work_dir=work_dir, job_id=job_id, session_id=session_id,
         )
         # operators write some plan-cache entries during the run (join
         # build flags, probe-table sizes); a failed attempt may have taken
@@ -448,6 +470,30 @@ class ExecutionPlan:
 
         walk(self, 0)
         return "\n".join(lines)
+
+
+def replace_children(plan: ExecutionPlan, children: list[ExecutionPlan]) -> ExecutionPlan:
+    """Rebind an operator's children, in place where one changed (its
+    ``input``, ``left``/``right`` or ``inputs`` slot). Callers that need
+    copy-on-write pass a ``copy.copy`` of ``plan``
+    (``distributed_plan.remove_unresolved_shuffles``)."""
+    from ballista_tpu_torch.errors import PlanError
+
+    old = plan.children()
+    if len(old) != len(children):
+        raise PlanError("child arity mismatch")
+    if all(a is b for a, b in zip(old, children)):
+        return plan
+    if hasattr(plan, "input") and len(children) == 1:
+        plan.input = children[0]
+        return plan
+    if hasattr(plan, "left") and len(children) == 2:
+        plan.left, plan.right = children
+        return plan
+    if hasattr(plan, "inputs"):
+        plan.inputs = list(children)
+        return plan
+    raise PlanError(f"cannot rebuild {type(plan).__name__} with new children")
 
 
 def execute_to_batches(plan: ExecutionPlan, ctx: TaskContext) -> list[DeviceBatch]:

@@ -16,7 +16,9 @@ again without it. The context keeps the plan cache (join build flags,
 probe-table sizes, decimal scales) and the grown capacity across runs, as
 ``TpuContext`` does. Not ported: history and system tables, the staleness
 witness, plan verification, file registration, DDL statements, the
-persisted capacity hints.
+persisted capacity hints. A session key whose feature is not ported
+(``config.UNPORTED``) raises here when it is set to another value than
+its default.
 """
 
 from __future__ import annotations
@@ -33,7 +35,13 @@ from ballista_tpu_torch.columnar.arrow_interop import (
     schema_to_arrow,
 )
 from ballista_tpu_torch.columnar.batch import resolve_device
-from ballista_tpu_torch.config import BallistaConfig
+from ballista_tpu_torch.config import (
+    BALLISTA_BUILD_CACHE_MB,
+    BALLISTA_PROFILE_DIR,
+    BALLISTA_SHUFFLE_LOCAL_FASTPATH,
+    UNPORTED,
+    BallistaConfig,
+)
 from ballista_tpu_torch.datatypes import Schema
 from ballista_tpu_torch.errors import PlanError
 from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, run_with_capacity_retry
@@ -63,6 +71,12 @@ def plan_fingerprint(obj):
     return (type(obj).__name__, obj)
 
 
+_CONTEXT_UNPORTED = tuple(
+    k for k in UNPORTED
+    if k not in (BALLISTA_PROFILE_DIR, BALLISTA_BUILD_CACHE_MB, BALLISTA_SHUFFLE_LOCAL_FASTPATH)
+)
+
+
 class TorchContext(Catalog, TableProvider):
     """Register Arrow tables, run SQL, collect Arrow results."""
 
@@ -72,6 +86,9 @@ class TorchContext(Catalog, TableProvider):
         device: str | torch.device = "cuda",
     ):
         self.config = config or BallistaConfig()
+        # the keys a context reads at its start in the reference, whose
+        # features the port lacks: a non-default value raises here
+        self.config.check_ported(*_CONTEXT_UNPORTED)
         self.device = resolve_device(device)
         self.tables: dict[str, tuple[Schema, pa.Table, dict]] = {}
         self._physical_cache: dict = {}

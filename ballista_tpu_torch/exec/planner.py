@@ -156,7 +156,10 @@ class PhysicalPlanner:
             merged = HashRepartitionExec(partial, keys, self.partitions)
         else:
             merged = CoalescePartitionsExec(partial)
-        return HashAggregateExec(merged, groups, aggs, mode="final", spec=partial.spec)
+        return HashAggregateExec(
+            merged, groups, aggs, mode="final", spec=partial.spec,
+            planned_input_schema=partial.planned_input_schema,
+        )
 
     def _plan_join(self, node: P.Join) -> ExecutionPlan:
         jt = node.join_type

@@ -3,8 +3,10 @@
 
 The distributed planner (``PhysicalPlanner(distributed=True)``) puts one
 between the partial and the final aggregate and under both sides of a
-partitioned join. In a distributed run the stage splitter turns it into a
-shuffle (ROADMAP queue 1, item 9); in process it executes by masking: the
+partitioned join. In a distributed run the stage splitter
+(``distributed_plan.py``) turns it into a shuffle, written by
+``executor/shuffle.py`` and read by ``executor/reader.py``; in process it
+executes by masking: the
 input is materialized once per task context, its live rows gathered into
 one batch of the smallest ladder capacity that holds them, their
 partition ids computed once (the partition-hash kernel on the card), and

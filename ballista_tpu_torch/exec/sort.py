@@ -1,10 +1,11 @@
 """Sort and limit operators (port of ``ballista_tpu/exec/sort.py``).
 
 SortExec gathers its input partitions into one batch and sorts it with
-stable LSD passes of ``torch.sort(stable=True)`` (``ops/sort.py``).
-GlobalLimitExec applies skip/fetch over the merged input. The reference's
-TopK form of SortExec (a ``fetch`` bound) is set only by its serde and
-plan rewrites, which are not ported.
+stable LSD passes of ``torch.sort(stable=True)`` (``ops/sort.py``). With a
+``fetch`` bound it is the reference's TopK: the sorting permutation is cut
+to the bound (rounded up to the capacity ladder) before the gather, and
+rows past the bound are masked off. Serde carries the bound; the planner
+never sets one. GlobalLimitExec applies skip/fetch over the merged input.
 """
 
 from __future__ import annotations
@@ -13,19 +14,28 @@ from typing import Iterator
 
 import torch
 
-from ballista_tpu_torch.columnar.batch import DeviceBatch
+from ballista_tpu_torch.columnar.batch import DeviceBatch, round_capacity
 from ballista_tpu_torch.datatypes import Schema
 from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, UnknownPartitioning
 from ballista_tpu_torch.ops.concat import concat_batches
-from ballista_tpu_torch.ops.sort import SortKey, resolve_sort_keys, sort_batch
+from ballista_tpu_torch.ops.sort import (
+    SortKey,
+    gather_batch,
+    resolve_sort_keys,
+    sort_batch,
+    sort_perm,
+)
 from ballista_tpu_torch.plan.logical import SortExpr
 
 
 class SortExec(ExecutionPlan):
-    def __init__(self, input: ExecutionPlan, sort_exprs: list[SortExpr]) -> None:
+    def __init__(
+        self, input: ExecutionPlan, sort_exprs: list[SortExpr], fetch: int | None = None
+    ) -> None:
         super().__init__()
         self.input = input
         self.sort_exprs = list(sort_exprs)
+        self.fetch = fetch
         self._keys: list[SortKey] = resolve_sort_keys(input.schema(), self.sort_exprs)
 
     def schema(self) -> Schema:
@@ -42,7 +52,8 @@ class SortExec(ExecutionPlan):
             f"{s.expr.name()} {'ASC' if s.ascending else 'DESC'}"
             for s in self.sort_exprs
         )
-        return f"SortExec: [{ks}]"
+        f = f", fetch={self.fetch}" if self.fetch is not None else ""
+        return f"SortExec: [{ks}]{f}"
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
         assert partition == 0
@@ -53,7 +64,16 @@ class SortExec(ExecutionPlan):
             return
         merged = concat_batches(batches)
         with self.metrics.time("sort_time"):
-            out = sort_batch(merged, self._keys)
+            if self.fetch is None:
+                out = sort_batch(merged, self._keys)
+            else:
+                # invalid rows sort last, so the first m rows of the
+                # permutation hold the top rows: the gather scales with the
+                # bound, not the input
+                m = min(round_capacity(max(self.fetch, 8)), merged.capacity)
+                out = gather_batch(merged, sort_perm(merged, self._keys)[:m])
+                keep = torch.arange(m, device=out.valid.device) < self.fetch
+                out = out.with_valid(out.valid & keep)
         yield out
 
 

@@ -23,7 +23,9 @@ Arrow batch is built from it, and each bucket file gets a zero-copy slice.
 The bucket files hold what the reference's ``write_split`` writes (the same
 rows in the same order), and each slice is charged the bytes of the
 ``take`` the reference makes (``take_nbytes``). On the CPU the same code
-runs over ``partition_groups_plain``, without pinned memory.
+runs over ``partition_groups_plain``, without pinned memory. The shuffle
+writer (``executor/shuffle.py``) writes its partition files through the
+same grouped copy (``grouped_arrow``), with its own stats.
 
 Left out of the port, as neither changes a result and the port has neither
 module yet: the reference's resource-witness hooks (``analysis.reswitness``)
@@ -48,21 +50,28 @@ from ballista_tpu_torch.columnar.arrow_interop import arrow_from_host
 from ballista_tpu_torch.columnar.batch import DeviceBatch, Dictionary
 from ballista_tpu_torch.errors import ExecutionError
 
-# What the spill writes cost, summed over the process (a run reads them
-# after ``reset_stats``): spilled batches; waits on the card (one a batch
-# there); device ms of the grouping and gathers and of the copy to the host
-# (CUDA events, read after the wait); host seconds of queueing them, blocked
-# in the wait, of the Arrow build (with the bytes charged) and of the IPC
-# writes.
-stats = dict(
-    batches=0, waits=0, group_ms=0.0, copy_ms=0.0, queue_s=0.0, wait_s=0.0, arrow_s=0.0,
-    ipc_s=0.0,
-)
+
+def new_write_stats() -> dict:
+    """What grouped writes cost, summed over the process (a run reads them
+    after ``reset_stats``): grouped batches; waits on the card (one a batch
+    there); device ms of the grouping and gathers and of the copy to the
+    host (CUDA events, read after the wait); host seconds of queueing them,
+    blocked in the wait, of the Arrow build (with the bytes charged) and of
+    the IPC writes."""
+    return dict(
+        batches=0, waits=0, group_ms=0.0, copy_ms=0.0, queue_s=0.0, wait_s=0.0,
+        arrow_s=0.0, ipc_s=0.0,
+    )
 
 
-def reset_stats() -> None:
-    for k in stats:
-        stats[k] = type(stats[k])()
+# the spill's writes
+stats = new_write_stats()
+
+
+def reset_stats(which: dict | None = None) -> None:
+    which = stats if which is None else which
+    for k in which:
+        which[k] = type(which[k])()
 
 # Shared temp root of spills without a ballista.tpu.spill_dir; every
 # attempt's directory is removed by SpillManager.close(). Per user (uid
@@ -94,20 +103,7 @@ class SpillManager:
         self.budget_bytes = budget_bytes
         self.total_bytes = 0
         self._sets: list[SpillSet] = []
-        self._staging: torch.Tensor | None = None  # pinned host bytes
-
-    def staging(self, nbytes: int) -> torch.Tensor:
-        """At least ``nbytes`` of pinned host memory (uint8), owned by the
-        manager: grown (by half again at least) when too small, released
-        by ``close``. A write's copy lands here; it is read before the next
-        write begins."""
-        if self._staging is None or self._staging.numel() < nbytes:
-            have = 0 if self._staging is None else self._staging.numel()
-            self._staging = None
-            self._staging = torch.empty(
-                max(nbytes, have + have // 2), dtype=torch.uint8, pin_memory=True
-            )
-        return self._staging
+        self.staging = HostStaging()
 
     def new_set(self, tag: str, buckets: int) -> "SpillSet":
         s = SpillSet(self, os.path.join(self.dir, tag), buckets)
@@ -126,7 +122,7 @@ class SpillManager:
         for s in self._sets:
             s.close()
         self._sets.clear()
-        self._staging = None
+        self.staging.release()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -170,16 +166,9 @@ class SpillSet:
         live rows (``ops/partition.partition_groups``). Returns the bytes
         written."""
         before = self.manager.total_bytes
-        stats["batches"] += 1
-        cols, nulls, offs = _grouped_to_host(self.manager, batch, order, offsets)
-        live = int(offs[-2])
-        if live:
+        rb, starts, lens = grouped_arrow(self.manager.staging, batch, order, offsets, stats)
+        if rb is not None:
             t = time.perf_counter()
-            rb = arrow_from_host(
-                batch.schema, [c[:live] for c in cols],
-                [None if m is None else m[:live] for m in nulls], batch.dictionaries,
-            )
-            starts, lens = offs[:-2], np.diff(offs[:-1])
             charged = take_nbytes(rb, starts, lens)
             t1 = time.perf_counter()
             for b in np.flatnonzero(lens):
@@ -212,11 +201,54 @@ class SpillSet:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def _grouped_to_host(manager: SpillManager, batch: DeviceBatch, order, offsets):
+class HostStaging:
+    """Pinned host memory (uint8) that a grouped write copies into: grown
+    (by half again at least) when too small, freed by ``release``. A
+    write's copy is read before the next write begins."""
+
+    def __init__(self) -> None:
+        self._buf: torch.Tensor | None = None
+
+    def __call__(self, nbytes: int) -> torch.Tensor:
+        if self._buf is None or self._buf.numel() < nbytes:
+            have = 0 if self._buf is None else self._buf.numel()
+            self._buf = None
+            self._buf = torch.empty(max(nbytes, have + have // 2), dtype=torch.uint8, pin_memory=True)
+        return self._buf
+
+    def release(self) -> None:
+        self._buf = None
+
+
+def grouped_arrow(staging: HostStaging, batch: DeviceBatch, order, offsets, stats: dict):
+    """One Arrow batch of a batch's live rows in the grouped order
+    (``order`` and ``offsets`` of ``ops/partition.partition_groups``), with
+    each group's start and length (int64 arrays of K): ``(rb, starts,
+    lens)``, ``rb`` None when no row is live. One copy to the host and one
+    wait on the card (``_grouped_to_host``); the Arrow build's host seconds
+    go to ``stats["arrow_s"]``. On the card the batch's numeric columns
+    alias ``staging``'s buffer, which the next call overwrites: a caller
+    that keeps the batch longer passes a staging of its own."""
+    stats["batches"] += 1
+    cols, nulls, offs = _grouped_to_host(staging, batch, order, offsets, stats)
+    live = int(offs[-2])
+    starts, lens = offs[:-2], np.diff(offs[:-1])
+    if not live:
+        return None, starts, lens
+    t = time.perf_counter()
+    rb = arrow_from_host(
+        batch.schema, [c[:live] for c in cols],
+        [None if m is None else m[:live] for m in nulls], batch.dictionaries,
+    )
+    stats["arrow_s"] += time.perf_counter() - t
+    return rb, starts, lens
+
+
+def _grouped_to_host(staging: HostStaging, batch: DeviceBatch, order, offsets, stats: dict):
     """The batch's columns and null masks gathered by ``order`` (all rows,
     the live ones first), and ``offsets``, as host numpy arrays. On the
     card: the gathers queue behind the grouping, every piece is copied into
-    the manager's pinned buffer, and one wait ends it. On the CPU: the
+    the pinned ``staging`` buffer, and one wait ends it. On the CPU: the
     gathers alone."""
     pieces = [*batch.columns, *(m for m in batch.nulls if m is not None)]
     if order.device.type == "cpu":
@@ -229,10 +261,10 @@ def _grouped_to_host(manager: SpillManager, batch: DeviceBatch, order, offsets):
         ev[1].record()
         sizes = [g.numel() * g.element_size() for g in gathered]
         starts = np.cumsum([0] + [-(-n // 16) * 16 for n in sizes])  # 16-byte aligned
-        staging = manager.staging(int(starts[-1]))
+        buf = staging(int(starts[-1]))
         host = []
         for g, s, n in zip(gathered, starts, sizes):
-            dst = staging[s : s + n].view(g.dtype)
+            dst = buf[s : s + n].view(g.dtype)
             dst.copy_(g, non_blocking=True)
             host.append(dst.numpy())
         ev[2].record()

@@ -20,7 +20,7 @@ same doubling scan; bounded ROWS frames for MIN/MAX are rejected (no
 prefix trick exists), as in the reference. The operator gathers every
 input partition into one batch (a partition of the window must be in one
 place); the reference's mesh form (``MeshWindowExec``) is ROADMAP queue 1,
-item 10.
+item 10b.
 """
 
 from __future__ import annotations

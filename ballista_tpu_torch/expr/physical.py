@@ -14,7 +14,7 @@ Every expression kind of the reference is ported. Host-side tables over a
 dictionary (LIKE, ``substr``) are built once per (dictionary, pattern) and
 kept on the device beside the dictionary (``dict_util.memo``), so a warm
 query gathers by code without rebuilding or uploading them. UDFs are not
-ported (ROADMAP queue 1, item 10): their names do not resolve.
+ported (ROADMAP queue 1, item 10a): their names do not resolve.
 """
 
 from __future__ import annotations
@@ -665,7 +665,7 @@ def _compile_scalar_fn(expr: L.ScalarFunction, schema: Schema):
 
     raise NotImplementedError(
         f"scalar function {name!r}: UDF plugins are not ported yet "
-        "(ROADMAP queue 1, item 10)"
+        "(ROADMAP queue 1, item 10a)"
     )
 
 

@@ -2,7 +2,7 @@
 
 The reference's plugin loader (``ballista_tpu/plugin.py``) runs UDF bodies
 written against jax; loading plugins is not ported yet (ROADMAP queue 1,
-item 10). The SQL parser and the logical expressions resolve function
+item 10a). The SQL parser and the logical expressions resolve function
 names against this registry, which stays empty, so an unknown function
 raises exactly as it does in the reference with no plugin directory.
 """
@@ -25,7 +25,7 @@ class UdfRegistry:
 global_registry = UdfRegistry()
 
 
-_NOT_PORTED = "UDF plugins are not ported yet (ROADMAP queue 1, item 10)"
+_NOT_PORTED = "UDF plugins are not ported yet (ROADMAP queue 1, item 10a)"
 
 
 def lookup_udf(name: str):

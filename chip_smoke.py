@@ -15,7 +15,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``-Xptxas -v`` report.
 3. Kernel against its plain version at q1's shapes (n = 2^21 and 2^20,
    R = 14, P = 12, and q1's R = 6 once columns without nulls share a count
-   row), at P = 2048, 4096 and 65,536 and at a ragged n, with out-of-range
+   row; at the two q1 shapes of n = 2^21 also the device time of a call by
+   ``torch.profiler``), at P = 2048, 4096 and 65,536 and at a ragged n, with out-of-range
    slot ids and a NaN row: counts exact, sums within rtol 1e-12, the NaN in
    its own slot, two launches bit-identical. Times (CUDA events, after a
    warm-up): the kernel, the plain version, and one library call
@@ -131,9 +132,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    queries' warm runs keep the inputs of their first launch at each shape
    (device copies, in the phase's peak memory), the distributed trees get
    one capture run each.
-8. One JSON line of kernel results (the one-hot kernel, and the
-   partition-hash kernel's ids and grouped modes), then the last line
-   ``{"ok": true, "device": {...}}``.
+8. The staged path, on the tables of phase 5: q1, q3, q5, q12 and q18
+   planned for the distributed tier (K = 4, ``STAGED_K``), split into
+   stages (``distributed_plan.DistributedPlanner``), every stage's plan
+   sent through proto bytes (``serde.BallistaCodec``; the decoded
+   ``display()`` must equal the encoded one's), its inputs resolved to the
+   files of the stages before it (``remove_unresolved_shuffles``), and one
+   task an input partition run on the card under the retry loop, each
+   writing Arrow IPC files into a temporary work directory
+   (``executor/shuffle.ShuffleWriterExec``) that the next stage reads
+   (``executor/reader.ShuffleReaderExec``), ``run_staged``; the directory
+   is removed after each run. One cold and two warm runs each, held
+   against collect mode on the card (schema, keys, counts and row order
+   exact, floats within rtol 1e-9, the sort path's money sums of q3 and
+   q18 bit for bit) and, for q1, q3, q5 and q18, against the numpy oracles
+   of phases 4 and 5; two warm runs bit-identical. Every hash-partitioned
+   batch written must be grouped by the partition-hash kernel's grouped
+   mode with one wait on the card, every query must record a grouped
+   launch and q1 a one-hot launch. Prints per query the stages, tasks,
+   shuffle files and MB, the kernels' launches and shapes, cold and warm
+   seconds beside collect mode's, host syncs, the write split (device ms
+   of the grouping and of the copy, host s of the Arrow build and of the
+   IPC writes) and the read split (host s of the IPC reads and of the
+   uploads), then the phase's peak device memory; then replays one launch
+   per distinct shape of each kernel against its plain version.
+9. One JSON line of kernel results (the one-hot kernel, and the
+   partition-hash kernel's ids and grouped modes), the card's name and
+   power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 ``--partition-timing`` runs phase 1, builds the partition-hash kernel and
 prints ``partition_timing``'s results, and stops. With ``--root`` it
@@ -201,9 +226,11 @@ def time_ms(fn, iters: int = 20) -> float:
 # -- phase 3: the kernel against its plain version ---------------------------
 
 
-def kernel_case(n: int, m: int, n_sums: int, P: int, seed: int) -> dict:
+def kernel_case(n: int, m: int, n_sums: int, P: int, seed: int, profiled: bool = False) -> dict:
     """One comparison at (n rows, m count rows + n_sums sum rows, P slots),
-    with slot ids in [-1, P] (both ends dropped) and one NaN."""
+    with slot ids in [-1, P] (both ends dropped) and one NaN. ``profiled``
+    adds the device time of a call (``torch.profiler``, the kernel's own
+    programs)."""
     import torch
 
     from ballista_tpu_torch.ops import onehot_agg
@@ -267,8 +294,17 @@ def kernel_case(n: int, m: int, n_sums: int, P: int, seed: int) -> dict:
         max_abs_err=err.max().item(), max_rel_err=rel,
         plan=onehot_agg.launch_plan(n, R, P),
     )
+    if profiled:
+        res["device_ms"], res["device_kernels"] = profiled_device_ms(
+            lambda: onehot_agg.onehot_sums(rid, vals, P), ONEHOT_KERNELS
+        )
     log(f"kernel {tag}: ok  {json.dumps(res)}")
     return res
+
+
+# the one-hot kernel's device programs (csrc/onehot_agg.cu): a lanes or an
+# owners pass, then the reduction of its partials
+ONEHOT_KERNELS = ("partial_sums", "owner_sums", "reduce_partials")
 
 
 class LaunchRecorder:
@@ -603,10 +639,11 @@ def replay_partition_launches(prec: PartitionRecorder) -> list:
     return out
 
 
-def profiled_device_ms(fn, needle: str, iters: int = 20) -> tuple[float, dict]:
+def profiled_device_ms(fn, needle, iters: int = 20) -> tuple[float, dict]:
     """Device time of one ``fn()`` from a ``torch.profiler`` trace of
     ``iters`` calls (after a warm-up): the kernels whose names contain
-    ``needle``, summed, over ``iters``; and each such kernel's mean ms."""
+    ``needle`` (a string, or a tuple of them), summed, over ``iters``; and
+    each such kernel's mean ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -628,7 +665,8 @@ def profiled_device_ms(fn, needle: str, iters: int = 20) -> tuple[float, dict]:
         rows = {
             e.key: dev_us(e) / 1e3 / iters
             for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA and needle in e.key
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and any(n in e.key for n in ((needle,) if isinstance(needle, str) else needle))
         }
         if rows:
             return sum(rows.values()), {k[:60]: v for k, v in rows.items()}
@@ -1202,6 +1240,7 @@ def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -
         )
     log(f"main path: kernel launches {launches}, peak device memory "
         f"{peak} bytes ({peak / 2**30:.3f} GiB)")
+    out["oracles"] = oracles
     out["launches"] = launches
     out["peak_bytes"] = peak
     return out
@@ -1583,6 +1622,7 @@ def joins_path(
         for q in JOIN_QUERIES:
             sql = (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
             out[q]["profile"] = profile_query(ctx, q, sql)
+    out["oracles"] = oracles
     out["launches"] = launches
     out["partition_launches"] = plaunches
     out["peak_bytes"] = peak
@@ -1966,6 +2006,176 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
     return out
 
 
+# -- phase 8: the staged path (plans across the wire, shuffle files) ----------
+
+STAGED_QUERIES = ("q1", "q3", "q5", "q12", "q18")
+STAGED_K = 4
+# the sort path's money sums (exact decimals): bit for bit against collect
+# mode; q1's and q5's sums go through the dense path's f64 sums, whose
+# order of adds a staged plan changes
+STAGED_EXACT = {"q3": ("revenue",), "q18": ("SUM(l_quantity)",)}
+
+
+def run_staged(ctx, sql: str, work_dir: str, plan_cache: dict, k: int = STAGED_K, job_id: str = "job"):
+    """One query as stages, in the scheduler's part: plan it for the
+    distributed tier (K partitions), split it into stages, send each
+    stage's plan through proto bytes (its decoded display must equal the
+    encoded one's), resolve its inputs to the files the stages before it
+    wrote, and run one task an input partition on the card, each writing
+    its shuffle files under ``work_dir``. Returns the terminal stage's files
+    as one table, and (stages, tasks, files, bytes written)."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.columnar.arrow_interop import schema_to_arrow
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.distributed_plan import DistributedPlanner, remove_unresolved_shuffles
+    from ballista_tpu_torch.exec.base import run_with_capacity_retry
+    from ballista_tpu_torch.exec.planner import PhysicalPlanner
+    from ballista_tpu_torch.executor.reader import fetch_partition_table
+    from ballista_tpu_torch.plan.optimizer import optimize
+    from ballista_tpu_torch.proto import pb
+    from ballista_tpu_torch.scheduler_types import PartitionLocation, PartitionStats
+    from ballista_tpu_torch.serde import BallistaCodec
+
+    cfg = BallistaConfig({"ballista.shuffle.partitions": str(k)})
+    plan = PhysicalPlanner(ctx, k, config=cfg, distributed=True).plan(optimize(ctx.sql_to_logical(sql)))
+    stages = DistributedPlanner().plan_query_stages(job_id, plan)
+    codec = BallistaCodec(provider=ctx)
+    locations: dict = {}
+    tasks = files = nbytes = 0
+    for stage in stages:
+        wire = codec.physical_to_proto(stage.plan).SerializeToString()
+        decoded = codec.physical_from_proto(pb.PhysicalPlanNode.FromString(wire))
+        check(decoded.display() == stage.plan.display(), f"stage {stage.stage_id}: decoded plan differs")
+        task = remove_unresolved_shuffles(decoded, locations)
+        parts = [[] for _ in range(stage.output_partition_count)]
+        for p in range(stage.input_partition_count):
+            metas = run_with_capacity_retry(
+                cfg, lambda c: task.execute_shuffle_write(p, c), device="cuda",
+                plan_cache=plan_cache, work_dir=work_dir, job_id=job_id,
+            )
+            tasks += 1
+            for m in metas:
+                files += 1
+                nbytes += m.num_bytes
+                parts[m.partition_id].append(PartitionLocation(
+                    job_id, stage.stage_id, m.partition_id, "local", "localhost", 0, m.path,
+                    PartitionStats(m.num_rows, m.num_batches, m.num_bytes), map_partition=p,
+                ))
+        locations[stage.stage_id] = parts
+    tables = [fetch_partition_table(loc) for part in locations[stages[-1].stage_id] for loc in part]
+    result = pa.concat_tables(tables) if tables else schema_to_arrow(plan.schema()).empty_table()
+    return result, dict(stages=len(stages), tasks=tasks, files=files, bytes=nbytes)
+
+
+def staged_path(data: dict, oracles: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict:
+    """q1, q3, q5, q12 and q18 through the staged path on the card, one
+    cold and two warm runs each, held against collect mode on the card and
+    (q1, q3, q5, q18) against the numpy oracles of phases 4 and 5."""
+    import os
+    import tempfile
+
+    import torch
+
+    from ballista_tpu_torch.exec import spill
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.executor import reader, shuffle
+    from ballista_tpu_torch.ops import onehot_agg, partition
+
+    ctx = TorchContext(device="cuda")
+    for name, tab in data.items():
+        ctx.register_table(name, tab)
+    sqls = {q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in STAGED_QUERIES}
+    out: dict = {}
+    caches: dict = {}
+    launches = plaunches = glaunches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for q in STAGED_QUERIES:
+        tag = f"{q}-stages"
+        # collect mode on the same tables, cold and warm: the yardstick
+        rec.tag = prec.tag = None
+        collect_s = []
+        for _ in range(2):
+            t = time.perf_counter()
+            want = ctx.sql(sqls[q]).collect()
+            torch.cuda.synchronize()
+            collect_s.append(time.perf_counter() - t)
+        if q in oracles:
+            compare(f"{tag} collect", want, oracles[q])
+        rec.tag = prec.tag = tag
+        cache = caches[q] = {}  # the plan cache an executor keeps across its tasks
+        runs = []
+        for i in range(3):
+            # this run starts here
+            onehot_agg.launches = partition.launches = partition.group_launches = 0
+            spill.reset_stats(shuffle.stats)
+            reader.reset_stats()
+            with tempfile.TemporaryDirectory(prefix="ballista_stages-") as work:
+                t = time.perf_counter()
+                (res, info), syncs = count_syncs(lambda: run_staged(ctx, sqls[q], work, cache))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+            check(not os.path.exists(work), f"{tag}: work directory {work} left behind")
+            launches += onehot_agg.launches
+            plaunches += partition.launches
+            glaunches += partition.group_launches
+            runs.append(dict(
+                s=secs, table=res, syncs=syncs, launches=onehot_agg.launches,
+                plaunches=partition.launches, glaunches=partition.group_launches,
+                write=dict(shuffle.stats), read=dict(reader.stats), **info,
+            ))
+            compare_tables(f"{tag} run {i}", res, want)
+            for c in STAGED_EXACT.get(q, ()):
+                check(res.column(c).equals(want.column(c)), f"{tag} run {i}: {c} not bit for bit")
+            if q in oracles:
+                compare(f"{tag} run {i}", res, oracles[q])
+            check(
+                shuffle.stats["waits"] == shuffle.stats["batches"] == partition.group_launches > 0,
+                f"{tag} run {i}: {shuffle.stats['waits']} waits, {partition.group_launches} grouped "
+                f"launches for {shuffle.stats['batches']} hash-partitioned batches",
+            )
+        check(runs[1]["table"].equals(runs[2]["table"]), f"{tag}: two warm runs differ")
+        warm = runs[1:]
+        out[tag] = dict(
+            stages=runs[0]["stages"], tasks=runs[0]["tasks"], files=[r["files"] for r in runs],
+            shuffle_mb=[r["bytes"] / 2**20 for r in runs], rows=want.num_rows,
+            cold_s=runs[0]["s"], warm_s=[r["s"] for r in warm],
+            collect_cold_s=collect_s[0], collect_warm_s=collect_s[1],
+            grouped_launches=[r["glaunches"] for r in runs],
+            partition_launches=[r["plaunches"] for r in runs],
+            onehot_launches=[r["launches"] for r in runs],
+            partition_shapes=sorted(set(prec.shapes.get(tag, []))),
+            onehot_shapes=sorted(set(rec.shapes.get(tag, []))),
+            host_syncs=[r["syncs"] for r in runs],
+            # the write split: device ms of the grouping and gathers and of
+            # the copy (CUDA events), host s of the Arrow build and of the
+            # IPC writes (with the unpartitioned stages' copies); waits on
+            # the card, one a hash-partitioned batch
+            write=[{k: r["write"][k] for k in ("batches", "waits", "group_ms", "copy_ms", "arrow_s", "ipc_s")}
+                   for r in warm],
+            # the read split: host s of the IPC reads and of the uploads
+            read=[r["read"] for r in warm],
+        )
+        log(f"{tag}: ok  {json.dumps(out[tag])}")
+    rec.tag = prec.tag = None
+    peak = torch.cuda.max_memory_allocated()
+    for q in STAGED_QUERIES:
+        check(min(out[f"{q}-stages"]["grouped_launches"]) > 0, f"{q}-stages: no grouped launch")
+    check(min(out["q1-stages"]["onehot_launches"]) > 0, "q1-stages did not launch the one-hot kernel")
+    log(f"stages: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+
+    def capture(q):
+        with tempfile.TemporaryDirectory(prefix="ballista_stages-") as work:
+            run_staged(ctx, sqls[q], work, caches[q])
+
+    capture_runs([rec, prec], {f"{q}-stages": (lambda q=q: capture(q)) for q in STAGED_QUERIES})
+    out["launches"] = launches
+    out["partition_launches"] = plaunches
+    out["grouped_launches"] = glaunches
+    out["peak_bytes"] = peak
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -2023,14 +2233,14 @@ def main() -> int:
     # 3. kernel vs plain; the sort on the card vs the CPU
     t0 = time.perf_counter()
     cases = [
-        kernel_case(1 << 21, 9, 5, 12, seed=1),   # q1 partial, full batch
+        kernel_case(1 << 21, 9, 5, 12, seed=1, profiled=True),   # q1 partial, full batch
         kernel_case(1 << 20, 9, 5, 12, seed=2),   # q1 partial, tail batch
         kernel_case(1 << 20, 9, 5, 2048, seed=3),  # the old 2048-slot gate
         kernel_case(1_000_003, 9, 5, 12, seed=4),  # ragged n
         kernel_case(300_001, 16, 48, 37, seed=5),  # R = 64, ragged
         kernel_case(1 << 20, 9, 5, 4096, seed=7),  # several slot chunks
         kernel_case(1 << 21, 9, 5, 65536, seed=8),  # the largest dense space
-        kernel_case(1 << 21, 1, 5, 12, seed=9),   # q1 now: one shared count row
+        kernel_case(1 << 21, 1, 5, 12, seed=9, profiled=True),   # q1 now: one shared count row
         kernel_case(1 << 20, 1, 5, 12, seed=11),  # q1 now, tail batch (padded)
     ]
     sweep = crossover(
@@ -2086,21 +2296,43 @@ def main() -> int:
         grace_replays = replay_partition_launches(prec)
         preplays += grace_replays
         log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
+
+        # 8. the staged path: plans across the wire, shuffle files
+        t0 = time.perf_counter()
+        oracles = {"q1": mp["oracles"]["q1"], **{q: jp["oracles"][q] for q in ("q3", "q5", "q18")}}
+        sp = staged_path(data, oracles, rec, prec)
+        replays += replay_launches(rec)
+        staged_replays = replay_partition_launches(prec)
+        preplays += staged_replays
+        log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
     for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
-    for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist"):
+    for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist") + tuple(
+        f"{q}-stages" for q in STAGED_QUERIES
+    ):
         check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
+    for q in STAGED_QUERIES:
+        check(
+            any(m == "grouped" for _, _, _, m in prec.shapes[f"{q}-stages"]),
+            f"{q}-stages: no grouped launch recorded",
+        )
+    check(bool(rec.shapes.get("q1-stages")), "q1-stages: no one-hot launch recorded")
     q1, q1_now = cases[0], cases[7]
     # the partition kernel's modes at the spills' shape (2^21 rows, one
     # int32 key, K = 64), from phase 3's timing
     ids, grouped = (
         next(r for r in ptiming if r["n"] == 1 << 21 and r["mode"] == m) for m in ("ids", "grouped")
     )
-    # launches of the main path (phases 5-7): the ids and hash-only modes
-    # (repartitions, hash-packed join keys) and the grouped mode (spills)
-    plaunches = jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
+    # launches of the main path (phases 5-8): the ids and hash-only modes
+    # (repartitions, hash-packed join keys) and the grouped mode (spills,
+    # the shuffle writes)
+    plaunches = (
+        jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
+        + sp["partition_launches"]
+    )
+    glaunches = gp["grouped_launches"] + sp["grouped_launches"]
 
-    # 8. results
+    # 9. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -2108,10 +2340,12 @@ def main() -> int:
         "replaces": "ballista_tpu/ops/pallas_agg.py:66",
         # the paths' runs: q1, q6 and wide; q3-q18 (q4, q5 launch it); the
         # rest of TPC-H (q12, q22 and others), the window and the percentile;
-        # the budgeted q3, q5, q18 and the distributed q1, q12, q3
-        "launches": mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"],
+        # the budgeted q3, q5, q18 and the distributed q1, q12, q3; the
+        # staged q1, q3, q5, q12, q18
+        "launches": mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
+        "device_ms": q1["device_ms"],
         "plain_ms": q1["plain_ms"],
         "bound_ms": q1["bound_ms"],
         "bound_by": q1["bound_by"],
@@ -2119,6 +2353,7 @@ def main() -> int:
         "bound_share": q1["bound_ms"] / q1["ms"],
         # q1's shape now (R = 6: columns without nulls share a count row)
         "ms_at_q1_now": q1_now["ms"],
+        "device_ms_at_q1_now": q1_now["device_ms"],
         "bound_ms_at_q1_now": q1_now["bound_ms"],
         "bound_share_at_q1_now": q1_now["bound_ms"] / q1_now["ms"],
     }] + [{
@@ -2127,7 +2362,7 @@ def main() -> int:
         "source": "ballista_tpu_torch/csrc/partition_hash.cu",
         "replaces": "ballista_tpu/ops/partition.py:59",
         "launches": launches,
-        # every comparison of phases 3 and 5-7 is bit for bit
+        # every comparison of phases 3 and 5-8 is bit for bit
         "max_abs_err": max([pkernel["max_abs_err"]] + [r["max_abs_err"] for r in preplays]),
         "ms": r["ms"],
         "device_ms": r["device_ms"],
@@ -2140,10 +2375,11 @@ def main() -> int:
         "shape": [r["n"], 1, r["K"]],
     } for name, r, launches in (
         # the ids and hash-only modes: phase 7's repartitions and the
-        # hash-packed join keys of phases 5 and 6; ids at the spills' shape
-        ("partition_hash", ids, plaunches - gp["grouped_launches"]),
-        # the grouped mode: every spilled batch of phase 7
-        ("partition_groups", grouped, gp["grouped_launches"]),
+        # hash-packed join keys of phases 5, 6 and 8; ids at the spills' shape
+        ("partition_hash", ids, plaunches - glaunches),
+        # the grouped mode: every spilled batch of phase 7, every
+        # hash-partitioned batch phase 8 writes
+        ("partition_groups", grouped, glaunches),
     )]
     log(json.dumps({
         "cases": cases,
@@ -2166,6 +2402,8 @@ def main() -> int:
         "grace_queries": {q: v for q, v in gp.items() if q.endswith(("-budget", "-dist"))},
         "grace_peak_bytes": gp["peak_bytes"],
         "dist_peak_bytes": gp["dist_peak_bytes"],
+        "staged_queries": {q: v for q, v in sp.items() if q.endswith("-stages")},
+        "staged_peak_bytes": sp["peak_bytes"],
         "sf": args.sf,
     }))
     log(smi)

@@ -48,6 +48,9 @@ def test_no_forbidden_imports_in_source(target):
         assert {
             "exec/window.py", "exec/percentile.py", "exec/joins.py", "exec/spill.py",
             "exec/repartition.py", "ops/partition.py", "ops/cuda_build.py",
+            "serde.py", "distributed_plan.py", "scheduler_types.py", "proto/__init__.py",
+            "proto/ballista_tpu_pb2.py", "columnar/coalesce.py", "executor/shuffle.py",
+            "executor/reader.py",
         } <= names
     bad = [
         f"{f.relative_to(ROOT)}: {m}"
