@@ -7,13 +7,15 @@ executor, so the port knows all of them, also those whose feature it does
 not have yet. Such a key keeps its default behaviour, and a non-default
 value raises at the point of use (``check_ported``), naming the ROADMAP
 item that ports the feature; it is never silently ignored. Keys read only
-by the scheduler and the executor daemons (task retries, stragglers, skew,
-AQE, the result cache, grant batching, metrics shipping, history) are
-accepted here and read when those parts are ported (ROADMAP queue 1, items
-9c and 9d).
+by the scheduler (task retries, stragglers, skew, AQE, the result cache,
+grant batching, history) are accepted here and read when the scheduler is
+ported (ROADMAP queue 1, item 9d). The executor reads the fetch, shuffle,
+trace, metrics and cost keys (``executor/``).
 """
 
 from __future__ import annotations
+
+from enum import Enum
 
 from ballista_tpu_torch.columnar.batch import MIN_CAPACITY
 from ballista_tpu_torch.errors import ConfigError
@@ -219,19 +221,35 @@ UNPORTED: dict[str, str] = {
     BALLISTA_PLUGIN_DIR: "ROADMAP queue 1, item 10a (UDF plugins)",
     BALLISTA_WITH_INFORMATION_SCHEMA: "ROADMAP queue 1, item 3 (SHOW statements)",
     BALLISTA_CAPACITY_BUCKETS: "ROADMAP queue 1, item 3 (the capacity ladder)",
-    BALLISTA_COST_ACCOUNTING: "ROADMAP queue 1, item 3 (history and system tables)",
+    # executors ship cost vectors; the history store they feed is missing
+    BALLISTA_COST_ACCOUNTING: "ROADMAP queue 1, item 3 (the history store)",
     BALLISTA_HISTORY_RETENTION_JOBS: "ROADMAP queue 1, item 3 (history and system tables)",
     BALLISTA_PARQUET_PRUNING: "ROADMAP queue 1, item 3 (file scans)",
     BALLISTA_SCAN_STREAM_MB: "ROADMAP queue 1, item 3 (file scans)",
     BALLISTA_PREFETCH_DEPTH: "ROADMAP queue 1, item 3 (file scans)",
     BALLISTA_BUILD_CACHE_MB: "ROADMAP queue 1, item 6 (the build-table cache)",
     BALLISTA_PROFILE_DIR: "ROADMAP queue 1, item 10b (trace hooks)",
+    # executors record and ship task and fetch spans; the local context
+    # does not trace
     BALLISTA_TRACE: "ROADMAP queue 1, item 10b (trace hooks)",
     BALLISTA_PREWARM: "ROADMAP queue 1, item 10b (kernel registry)",
     BALLISTA_VERIFY_PLANS: "ROADMAP queue 1, item 10b (plan verifier)",
     BALLISTA_COLLECTIVE_SHUFFLE: "ROADMAP queue 1, item 10b (multi-device)",
-    BALLISTA_SHUFFLE_LOCAL_FASTPATH: "ROADMAP queue 1, item 9c (Flight fetch)",
 }
+
+
+class TaskSchedulingPolicy(Enum):
+    """Pull vs push task dispatch (ref config.rs:264-281)."""
+
+    PULL_STAGED = "pull-staged"
+    PUSH_STAGED = "push-staged"
+
+    @classmethod
+    def parse(cls, s: str) -> "TaskSchedulingPolicy":
+        for p in cls:
+            if p.value == s.lower():
+                return p
+        raise ConfigError(f"invalid task scheduling policy: {s!r}")
 
 
 class BallistaConfig:
@@ -318,6 +336,36 @@ class BallistaConfig:
 
     def shuffle_target_batch_mb(self) -> int:
         return max(0, self._get(BALLISTA_SHUFFLE_TARGET_BATCH_MB))
+
+    def verify_plans(self) -> bool:
+        return self._get(BALLISTA_VERIFY_PLANS)
+
+    def fetch_retries(self) -> int:
+        return max(1, self._get(BALLISTA_FETCH_RETRIES))
+
+    def fetch_backoff_ms(self) -> int:
+        return max(0, self._get(BALLISTA_FETCH_BACKOFF_MS))
+
+    def fetch_timeout_s(self) -> float:
+        return max(0.0, self._get(BALLISTA_FETCH_TIMEOUT_S))
+
+    def shuffle_local_fastpath(self) -> bool:
+        return self._get(BALLISTA_SHUFFLE_LOCAL_FASTPATH)
+
+    def eager_poll_ms(self) -> int:
+        return max(1, self._get(BALLISTA_EAGER_POLL_MS))
+
+    def eager_wait_s(self) -> float:
+        return max(0.0, self._get(BALLISTA_EAGER_WAIT_S))
+
+    def trace(self) -> str:
+        return self._get(BALLISTA_TRACE)
+
+    def metrics_collector(self) -> str:
+        return self._get(BALLISTA_METRICS_COLLECTOR)
+
+    def cost_accounting(self) -> bool:
+        return self._get(BALLISTA_COST_ACCOUNTING)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, BallistaConfig) and other._settings == self._settings

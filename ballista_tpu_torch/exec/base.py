@@ -15,6 +15,7 @@ JAX profiler branch (``ballista.tpu.profile_dir``, ROADMAP queue 1, item
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Iterator
 
@@ -83,8 +84,9 @@ class TaskContext:
     # first spill; run_with_capacity_retry closes it (deleting its files)
     # at every attempt boundary, so a retry never reads stale buckets.
     spill: object | None = None
-    # An executor's poller of published shuffle locations, which eager
-    # shuffle and push shuffle need (ROADMAP queue 1, item 9c); None here.
+    # A scheduler-connected executor's poller of published shuffle
+    # locations (executor/executor.Executor.shuffle_locations), which eager
+    # shuffle and push shuffle need; None elsewhere.
     shuffle_locations: object | None = None
 
     def __post_init__(self) -> None:
@@ -258,6 +260,27 @@ def evict_plan_cache(plan_cache: dict, pinned=(), max_entries: int = PLAN_CACHE_
     return evicted
 
 
+# An executor's task threads share its hint dict: what one task learned
+# is merged into it under this lock, never replaced by another task's view.
+_hint_lock = threading.Lock()
+
+
+def _remember(hint: dict, agg_capacity: int | None, sites: dict) -> None:
+    """Merge one successful run's capacities into ``hint``: the larger
+    aggregate capacity, and each site's larger capacity (a hint past
+    ``PLAN_CACHE_MAX_ENTRIES`` sites keeps only this run's)."""
+    with _hint_lock:
+        if agg_capacity is not None:
+            hint["agg_capacity"] = max(hint.get("agg_capacity", 0), agg_capacity)
+        if sites:
+            learned = dict(hint.get("site_capacity", {}))
+            if len(learned) + len(sites) > PLAN_CACHE_MAX_ENTRIES:
+                learned = {}
+            for site, cap in sites.items():
+                learned[site] = max(learned.get(site, 0), cap)
+            hint["site_capacity"] = learned
+
+
 def run_with_capacity_retry(
     config: BallistaConfig,
     fn,
@@ -269,6 +292,7 @@ def run_with_capacity_retry(
     work_dir: str = "",
     job_id: str = "",
     session_id: str = "",
+    shuffle_locations=None,
 ):
     """The execution loop: build a TaskContext, run ``fn(ctx)``, raise
     the deferred device checks, and retry on two faults:
@@ -286,13 +310,15 @@ def run_with_capacity_retry(
 
     ``hint`` is a caller-owned dict that remembers the capacities a run
     grew to (keys ``"agg_capacity"`` and ``"site_capacity"``), so warm
-    re-runs start there instead of overflowing again. ``stats``, when
+    re-runs start there instead of overflowing again; concurrent runs
+    sharing it (an executor's tasks) merge what they learned. ``stats``, when
     given, counts the retries
     (``"capacity_retries"``, ``"speculation_misses"``). A ``plan_cache``
     grown past ``PLAN_CACHE_MAX_ENTRIES`` is first cut back by
     ``evict_plan_cache``, which keeps ``pinned_cache_keys``. ``work_dir``,
-    ``job_id`` and ``session_id`` go to every attempt's TaskContext (a
-    shuffle-writing task's files)."""
+    ``job_id``, ``session_id`` and ``shuffle_locations`` go to every
+    attempt's TaskContext (a shuffle-writing task's files, an executor's
+    poller of published shuffle locations)."""
     from ballista_tpu_torch.columnar.batch import round_capacity
     from ballista_tpu_torch.config import BALLISTA_BUILD_CACHE_MB, BALLISTA_PROFILE_DIR
     from ballista_tpu_torch.errors import CapacityError, SpeculationMiss
@@ -313,6 +339,7 @@ def run_with_capacity_retry(
             config=config, device=device, agg_capacity_override=override,
             site_capacity=dict(sites), plan_cache=plan_cache,
             work_dir=work_dir, job_id=job_id, session_id=session_id,
+            shuffle_locations=shuffle_locations,
         )
         # operators write some plan-cache entries during the run (join
         # build flags, probe-table sizes); a failed attempt may have taken
@@ -324,10 +351,7 @@ def run_with_capacity_retry(
             out = fn(ctx)
             ctx.raise_deferred()
             if hint is not None:
-                if override is not None:
-                    hint["agg_capacity"] = max(hint.get("agg_capacity", 0), override)
-                if sites:
-                    hint["site_capacity"] = sites
+                _remember(hint, override, sites)
             return out
         except (SpeculationMiss, CapacityError) as e:
             ctx._clear_deferred()

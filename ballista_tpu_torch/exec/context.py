@@ -38,7 +38,6 @@ from ballista_tpu_torch.columnar.batch import resolve_device
 from ballista_tpu_torch.config import (
     BALLISTA_BUILD_CACHE_MB,
     BALLISTA_PROFILE_DIR,
-    BALLISTA_SHUFFLE_LOCAL_FASTPATH,
     UNPORTED,
     BallistaConfig,
 )
@@ -73,7 +72,7 @@ def plan_fingerprint(obj):
 
 _CONTEXT_UNPORTED = tuple(
     k for k in UNPORTED
-    if k not in (BALLISTA_PROFILE_DIR, BALLISTA_BUILD_CACHE_MB, BALLISTA_SHUFFLE_LOCAL_FASTPATH)
+    if k not in (BALLISTA_PROFILE_DIR, BALLISTA_BUILD_CACHE_MB)
 )
 
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
+import threading
 import time
 import uuid
 
@@ -67,11 +68,23 @@ def new_write_stats() -> dict:
 # the spill's writes
 stats = new_write_stats()
 
+# Concurrent tasks (an executor's task threads) add to the same stats
+# dicts: every update of this module's and of executor/shuffle.py's takes
+# this lock, so no increment is lost.
+_stats_lock = threading.Lock()
+
+
+def add_stats(which: dict, **kv) -> None:
+    with _stats_lock:
+        for k, v in kv.items():
+            which[k] += v
+
 
 def reset_stats(which: dict | None = None) -> None:
     which = stats if which is None else which
-    for k in which:
-        which[k] = type(which[k])()
+    with _stats_lock:
+        for k in which:
+            which[k] = type(which[k])()
 
 # Shared temp root of spills without a ballista.tpu.spill_dir; every
 # attempt's directory is removed by SpillManager.close(). Per user (uid
@@ -173,8 +186,7 @@ class SpillSet:
             t1 = time.perf_counter()
             for b in np.flatnonzero(lens):
                 self.write(int(b), rb.slice(int(starts[b]), int(lens[b])), int(charged[b]))
-            stats["arrow_s"] += t1 - t
-            stats["ipc_s"] += time.perf_counter() - t1
+            add_stats(stats, arrow_s=t1 - t, ipc_s=time.perf_counter() - t1)
         return self.manager.total_bytes - before
 
     def finish_writes(self) -> None:
@@ -229,7 +241,7 @@ def grouped_arrow(staging: HostStaging, batch: DeviceBatch, order, offsets, stat
     go to ``stats["arrow_s"]``. On the card the batch's numeric columns
     alias ``staging``'s buffer, which the next call overwrites: a caller
     that keeps the batch longer passes a staging of its own."""
-    stats["batches"] += 1
+    add_stats(stats, batches=1)
     cols, nulls, offs = _grouped_to_host(staging, batch, order, offsets, stats)
     live = int(offs[-2])
     starts, lens = offs[:-2], np.diff(offs[:-1])
@@ -240,7 +252,7 @@ def grouped_arrow(staging: HostStaging, batch: DeviceBatch, order, offsets, stat
         batch.schema, [c[:live] for c in cols],
         [None if m is None else m[:live] for m in nulls], batch.dictionaries,
     )
-    stats["arrow_s"] += time.perf_counter() - t
+    add_stats(stats, arrow_s=time.perf_counter() - t)
     return rb, starts, lens
 
 
@@ -270,11 +282,10 @@ def _grouped_to_host(staging: HostStaging, batch: DeviceBatch, order, offsets, s
         ev[2].record()
         t1 = time.perf_counter()
         ev[2].synchronize()
-        stats["waits"] += 1
-        stats["wait_s"] += time.perf_counter() - t1
-        stats["group_ms"] += ev[0].elapsed_time(ev[1])
-        stats["copy_ms"] += ev[1].elapsed_time(ev[2])
-        stats["queue_s"] += t1 - t
+        add_stats(
+            stats, waits=1, wait_s=time.perf_counter() - t1, group_ms=ev[0].elapsed_time(ev[1]),
+            copy_ms=ev[1].elapsed_time(ev[2]), queue_s=t1 - t,
+        )
     masks = iter(host[len(batch.columns) : -1])
     nulls = [None if m is None else next(masks) for m in batch.nulls]
     return host[: len(batch.columns)], nulls, host[-1]

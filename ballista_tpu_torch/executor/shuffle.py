@@ -22,9 +22,16 @@ argsort and Arrow ``take``) and its Arrow schema.
 As in the reference, slices are coalesced up to
 ``ballista.tpu.shuffle_target_batch_mb`` before they are written, and the
 file codec is ``ballista.tpu.shuffle_compression`` ("auto" writes
-uncompressed files). Push shuffle (the reference's ``_PushAppender``)
-needs a scheduler-connected executor and comes with ROADMAP queue 1, item
-9c: a task that would push raises.
+uncompressed files).
+
+Push shuffle (``ballista.tpu.push_shuffle``, with eager shuffle, on a
+scheduler-connected executor): each output partition is committed into the
+process's push registry (``executor/push.py``) instead of a file, and
+consumers stream it from there or over Flight ``do_exchange``. A batch
+enters the registry in memory of its own: the slices of a grouped batch
+alias that batch's pinned host buffer, which a stream would otherwise keep
+whole until its consumer came, past what the window
+(``ballista.tpu.push_shuffle_window_mb``) counts.
 
 A failed attempt leaves no file: the task's deferred device checks are
 raised before its files are sealed, and on any failure every file of the
@@ -53,7 +60,7 @@ from ballista_tpu_torch.exec.base import (
     TaskContext,
     UnknownPartitioning,
 )
-from ballista_tpu_torch.exec.spill import HostStaging, grouped_arrow, new_write_stats
+from ballista_tpu_torch.exec.spill import HostStaging, add_stats, grouped_arrow, new_write_stats
 from ballista_tpu_torch.expr import logical as L
 from ballista_tpu_torch.ops.partition import (
     MAX_GROUPS,
@@ -65,7 +72,8 @@ from ballista_tpu_torch.ops.partition import (
 from ballista_tpu_torch.scheduler_types import ShuffleWritePartitionMeta
 
 # What the shuffle writes cost, summed over the process (reset with
-# ``exec/spill.reset_stats(stats)``): the fields of
+# ``exec/spill.reset_stats(stats)``, updated with ``exec/spill.add_stats``):
+# the fields of
 # ``exec/spill.new_write_stats``, for hash-partitioned batches, plus the
 # host seconds of the unpartitioned batches' copies and Arrow builds
 # (``arrow_s``) and of every IPC write (``ipc_s``).
@@ -151,29 +159,34 @@ class ShuffleWriterExec(ExecutionPlan):
     ) -> list[ShuffleWritePartitionMeta]:
         if not ctx.work_dir:
             raise ExecutionError("shuffle write requires ctx.work_dir")
-        if self._push_eligible(ctx):
-            raise NotImplementedError(
-                "push shuffle is not ported yet (ROADMAP queue 1, item 9c); set "
-                "ballista.tpu.push_shuffle=false"
-            )
         schema = self.input.schema()
         key_idxs = [
             L.resolve_field_index(schema, k.cname) if isinstance(k, L.Column) else self._key_error(k)
             for k in self.partition_keys
         ]
-        writers: dict[int, _IpcAppender] = {}
+        writers: dict[int, _Appender] = {}
         ipc_options = _ipc_write_options(resolve_file_codec(ctx.config.shuffle_compression()))
         target_bytes = ctx.config.shuffle_target_batch_mb() << 20
+        push = self._push_eligible(ctx)
+        window_bytes = ctx.config.push_shuffle_window_mb() << 20
 
         def write(out_part: int, rb: pa.RecordBatch) -> None:
             w = writers.get(out_part)
             if w is None:
                 d = os.path.join(ctx.work_dir, self.job_id, str(self.stage_id), str(out_part))
-                os.makedirs(d, exist_ok=True)
-                w = _IpcAppender(
-                    os.path.join(d, f"data-{input_partition}.arrow"),
-                    options=ipc_options, target_bytes=target_bytes,
-                )
+                if push:
+                    w = _PushAppender(
+                        os.path.join(d, f"push-{input_partition}.arrow"),
+                        key=(self.job_id, self.stage_id, input_partition, out_part),
+                        owner=ctx.work_dir, options=ipc_options, window_bytes=window_bytes,
+                        target_bytes=target_bytes, metrics=self.metrics,
+                    )
+                else:
+                    os.makedirs(d, exist_ok=True)
+                    w = _IpcAppender(
+                        os.path.join(d, f"data-{input_partition}.arrow"),
+                        options=ipc_options, target_bytes=target_bytes,
+                    )
                 writers[out_part] = w
             w.write(rb)
 
@@ -186,8 +199,7 @@ class ShuffleWriterExec(ExecutionPlan):
                         t1 = time.perf_counter()
                         if rb.num_rows:
                             write(0, rb)
-                        stats["arrow_s"] += t1 - t
-                        stats["ipc_s"] += time.perf_counter() - t1
+                        add_stats(stats, arrow_s=t1 - t, ipc_s=time.perf_counter() - t1)
                         continue
                     with self.metrics.time("repart_time"):
                         order, offsets = group_rows(batch, key_idxs, self.output_partitions)
@@ -201,12 +213,12 @@ class ShuffleWriterExec(ExecutionPlan):
                     t = time.perf_counter()
                     for out_part in np.flatnonzero(lens):
                         write(int(out_part), rb.slice(int(starts[out_part]), int(lens[out_part])))
-                    stats["ipc_s"] += time.perf_counter() - t
+                    add_stats(stats, ipc_s=time.perf_counter() - t)
             # a check that fires fails the attempt before its files are sealed
             ctx.raise_deferred()
             t = time.perf_counter()
             closed = {p: w.close() for p, w in sorted(writers.items())}
-            stats["ipc_s"] += time.perf_counter() - t
+            add_stats(stats, ipc_s=time.perf_counter() - t)
         except BaseException:
             for w in writers.values():
                 w.discard()
@@ -251,7 +263,24 @@ def _ipc_write_options(codec: str) -> paipc.IpcWriteOptions | None:
         ) from e
 
 
-class _IpcAppender:
+class _Appender:
+    """Shared appender surface: ``write`` record batches in order,
+    ``close`` -> (rows, batches, bytes, pushed), ``discard`` on attempt
+    failure."""
+
+    path: str
+
+    def write(self, rb: pa.RecordBatch) -> None:  # pragma: no cover
+        raise NotImplementedError
+
+    def close(self) -> tuple[int, int, int, bool]:  # pragma: no cover
+        raise NotImplementedError
+
+    def discard(self) -> None:  # pragma: no cover
+        raise NotImplementedError
+
+
+class _IpcAppender(_Appender):
     """One Arrow IPC file appended batch by batch (the reference's
     IPCWriter, shuffle_writer.rs:162-199), coalescing batches below the
     target size before they reach the file. A lifetime with no writes
@@ -303,3 +332,54 @@ class _IpcAppender:
             self._writer = None
         if os.path.exists(self.path):
             os.remove(self.path)
+
+
+def _own_memory(rb: pa.RecordBatch) -> pa.RecordBatch:
+    """``rb`` with every column copied into memory of its own (dictionary
+    values are shared, they are never pinned): a slice of a grouped batch
+    otherwise keeps the batch's whole pinned host buffer alive."""
+    return pa.RecordBatch.from_arrays([pa.concat_arrays([c]) for c in rb.columns], schema=rb.schema)
+
+
+class _PushAppender(_Appender):
+    """One output partition committed into the push registry (the
+    reference's ``_PushAppender``): coalesced batches, each in memory of
+    its own (``_own_memory``), append to an in-memory stream; the
+    registry's window eviction may convert it to disk mid-write, and
+    ``close`` seals it, push=True when it committed in memory. Spill bytes
+    that this task's appends forced go to its ``push_spill_bytes``
+    metric."""
+
+    def __init__(self, path, key, owner, options, window_bytes, target_bytes, metrics):
+        from ballista_tpu_torch.executor.push import REGISTRY
+
+        self.path = path
+        self._registry = REGISTRY
+        # the registry owns the stream from its birth: seal() commits it
+        # for consumers, abort() and drop_owner() retire it
+        self._stream = REGISTRY.open(key, path, owner, options)
+        self._window_bytes = window_bytes
+        self._coalescer = BatchCoalescer(target_bytes)
+        self._metrics = metrics
+
+    def write(self, rb: pa.RecordBatch) -> None:
+        out = self._coalescer.add(rb)
+        if out is not None:
+            self._append_now(out)
+
+    def _append_now(self, rb: pa.RecordBatch) -> None:
+        spilled = self._registry.append(self._stream, _own_memory(rb), self._window_bytes)
+        if spilled:
+            self._metrics.add("push_spill_bytes", spilled)
+
+    def close(self) -> tuple[int, int, int, bool]:
+        tail = self._coalescer.flush()
+        if tail is not None:
+            self._append_now(tail)
+        num_rows, num_batches, num_bytes, pushed = self._registry.seal(self._stream)
+        if pushed:
+            self._metrics.add("pushed_bytes", num_bytes)
+        return num_rows, num_batches, num_bytes, pushed
+
+    def discard(self) -> None:
+        self._registry.abort(self._stream)

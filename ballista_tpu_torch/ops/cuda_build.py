@@ -31,6 +31,16 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _lock = threading.Lock()
 _libs: dict[pathlib.Path, ctypes.CDLL] = {}
 
+# nvcc seconds this process spent building kernels (each build's wall
+# time), the executor's compile seconds (obs/history.claim_compile_seconds)
+_stats_lock = threading.Lock()
+_build_seconds = 0.0
+
+
+def build_seconds() -> float:
+    with _stats_lock:
+        return _build_seconds
+
 
 def nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -68,6 +78,7 @@ def build_many(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
         started.append((src, out, tmp, proc, time.perf_counter()))
+    global _build_seconds
     results = []
     for src, out, tmp, proc, t0 in started:
         if proc is None:
@@ -80,6 +91,8 @@ def build_many(
                 f"nvcc failed on {src.name} ({proc.returncode}):\n{stdout}\n{stderr}"
             )
         os.replace(tmp, out)
+        with _stats_lock:
+            _build_seconds += secs
         results.append((out, secs, stdout + stderr))
     return results
 

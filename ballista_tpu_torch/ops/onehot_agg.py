@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import pathlib
+import threading
 
 import torch
 
@@ -79,7 +80,10 @@ def _ring_bytes(rw: int) -> int:
     of ``rw`` rows and 64 slot ids."""
     return _WARPS * _stages(rw) * (rw + 1) * 32 * 8
 
-launches = 0  # kernel launches (the plain version does not count)
+# kernel launches (the plain version does not count), counted under the
+# lock: task threads launch concurrently
+launches = 0
+_count_lock = threading.Lock()
 
 
 def _pow2_at_least(x: int) -> int:
@@ -289,5 +293,6 @@ def onehot_sums(rid: torch.Tensor, vals: torch.Tensor, P: int) -> torch.Tensor:
         if rc != 0:
             msg = lib.onehot_error_string(rc).decode()
             raise RuntimeError(f"onehot_sums kernel launch failed: {msg} ({rc})")
-        launches += 1
+        with _count_lock:
+            launches += 1
     return out

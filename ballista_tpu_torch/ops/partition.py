@@ -52,9 +52,11 @@ MAX_PARTITIONS = (1 << 31) - 1
 MAX_GROUPS = 1024  # K of the grouped mode (kMaxGroups)
 
 # Kernel launches of every mode, and of the grouped mode alone (calls;
-# the plain versions do not count)
+# the plain versions do not count). Task threads launch concurrently, so
+# each count is updated under the lock.
 launches = 0
 group_launches = 0
+_count_lock = threading.Lock()
 
 # the kernel's dtype codes
 _DTYPE_CODES = {
@@ -333,8 +335,9 @@ def partition_groups(
     if rc:
         lib.raise_for(rc, "partition_groups")
     global launches, group_launches
-    launches += 1
-    group_launches += 1
+    with _count_lock:
+        launches += 1
+        group_launches += 1
     return pid, order, offsets
 
 
@@ -388,7 +391,8 @@ def _launch_hash(cols, nulls, tables, h0, valid, num_partitions, out) -> None:
     if rc:
         lib.raise_for(rc, "partition_hash")
     global launches
-    launches += 1
+    with _count_lock:
+        launches += 1
 
 
 def partition_ids_for(

@@ -156,7 +156,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    IPC writes) and the read split (host s of the IPC reads and of the
    uploads), then the phase's peak device memory; then replays one launch
    per distinct shape of each kernel against its plain version.
-9. One JSON line of kernel results (the one-hot kernel, and the
+9. The executor fleet, on the tables of phase 5: two port executors in
+   this process (``executor/executor.Executor(device="cuda",
+   provider=ctx)``), each with its own work directory, its own Arrow
+   Flight service on 127.0.0.1 and a ``PollLoop`` of two task slots, poll
+   a scheduler stand-in written here (``StandInScheduler``, served through
+   ``scheduler/rpc.add_service``; ROADMAP 9d replaces it). It plans and
+   splits q1, q3, q5, q12 and q18 at K = 4 as ``run_staged`` does and hands
+   out each stage's TaskDefinitions, at most half a stage to one executor,
+   once the stages before it completed, with their inputs resolved to the
+   locations the statuses reported; the sessions turn off the local fast
+   path (every shuffle read crosses Flight), eager and push shuffle. One
+   cold and two warm runs each, held against collect mode and the numpy
+   oracles as phase 8; two warm runs bit-identical; each run: both
+   executors ran tasks, every task reported a cost vector and operator
+   metrics, the Arrow bytes fetched over Flight equal those of the files
+   later stages read (at least that when a task retried), every
+   hash-partitioned batch was grouped by the kernel's grouped mode with one
+   wait, q1 launched the one-hot kernel, and the executors' TTL sweep
+   (``executor/cleanup``) leaves their work directories empty. Prints per
+   query the tasks per executor, Flight MB and fetch seconds, cold and warm
+   seconds beside phase 8's staged and collect mode's seconds, the tasks'
+   cost vectors, then the phase's peak device memory; replays one launch
+   per distinct shape of each kernel against its plain version. Meanwhile
+   ``python -m ballista_tpu_torch.executor --device cuda`` runs as a
+   subprocess (push-staged): it must register with the stand-in, heartbeat,
+   and exit 0 within 10 s of a SIGTERM.
+10. One JSON line of kernel results (the one-hot kernel, and the
    partition-hash kernel's ids and grouped modes), the card's name and
    power limit, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -313,12 +339,14 @@ class LaunchRecorder:
     ``tag`` is set adds its (n, R, P) to ``shapes[tag]`` (unless
     ``counting`` is off); with ``keep`` set, the first call at each shape
     keeps a copy of its inputs for ``replay_launches`` (see
-    ``capture_runs``). The call itself goes to the wrapper as
-    before and counts its launch there."""
+    ``capture_runs``), in host memory with ``keep_on_host`` (so that a
+    counted run's peak device memory does not include it). The call itself
+    goes to the wrapper as before and counts its launch there."""
 
     def __init__(self) -> None:
         self.tag: str | None = None
         self.keep = False
+        self.keep_on_host = False
         self.counting = True
         self.shapes: dict = {}  # tag -> [(n, R, P), ...], one per launch
         self.inputs: dict = {}  # (n, R, P) -> (tag, rid, vals)
@@ -335,7 +363,8 @@ class LaunchRecorder:
                 if self.counting:
                     self.shapes.setdefault(self.tag, []).append(shape)
                 if self.keep and shape not in self.inputs:
-                    self.inputs[shape] = (self.tag, rid.clone(), vals.clone())
+                    copy = (lambda x: x.cpu()) if self.keep_on_host else (lambda x: x.clone())
+                    self.inputs[shape] = (self.tag, copy(rid), copy(vals))
             return out
 
         onehot_agg.onehot_sums = recorded
@@ -410,6 +439,7 @@ def replay_launches(rec: LaunchRecorder) -> list:
 
     out = []
     for (n, R, P), (tag, rid, vals) in sorted(rec.inputs.items()):
+        rid, vals = rid.cuda(), vals.cuda()  # kept on the host by phase 9
         got = onehot_agg.onehot_sums(rid, vals, P)
         again = onehot_agg.onehot_sums(rid, vals, P)
         want = onehot_agg.onehot_sums_plain(rid, vals, P)
@@ -473,11 +503,12 @@ class PartitionRecorder:
     the card made while ``tag`` is set adds its (n, key columns, K, mode)
     to ``shapes[tag]`` (mode ``ids``, K = 0 for the hash-only mode, or
     ``grouped``); with ``keep`` set, the first call at each shape keeps its
-    inputs."""
+    inputs (in host memory with ``keep_on_host``)."""
 
     def __init__(self) -> None:
         self.tag: str | None = None
         self.keep = False
+        self.keep_on_host = False
         self.counting = True
         self.shapes: dict = {}
         self.inputs: dict = {}  # (n, cols, K, mode) -> (tag, cols, nulls, tables, valid)
@@ -490,10 +521,11 @@ class PartitionRecorder:
                 if self.counting:
                     self.shapes.setdefault(self.tag, []).append(shape)
                 if self.keep and shape not in self.inputs:
-                    clone = lambda xs: [None if x is None else x.clone() for x in xs]  # noqa: E731
+                    one = (lambda x: x.cpu()) if self.keep_on_host else (lambda x: x.clone())
+                    clone = lambda xs: [None if x is None else one(x) for x in xs]  # noqa: E731
                     self.inputs[shape] = (
                         self.tag, clone(cols), clone(nulls), clone(tables),
-                        None if valid is None else valid.clone(),
+                        None if valid is None else one(valid),
                     )
             return out
 
@@ -614,6 +646,9 @@ def replay_partition_launches(prec: PartitionRecorder) -> list:
 
     out = []
     for (n, ncols, k, mode), (tag, cols, nulls, tables, valid) in sorted(prec.inputs.items()):
+        # kept on the host by phase 9
+        cols, nulls, tables = ([None if x is None else x.cuda() for x in xs] for xs in (cols, nulls, tables))
+        valid = None if valid is None else valid.cuda()
         args = (cols, nulls, tables, valid, k)
         if mode == "grouped":
             kernel, plain = partition.partition_groups, partition.partition_groups_plain
@@ -2175,6 +2210,435 @@ def staged_path(data: dict, oracles: dict, rec: LaunchRecorder, prec: PartitionR
     out["peak_bytes"] = peak
     return out
 
+# -- phase 9: the executor fleet (task runner, Flight, the process entry) ------
+
+FLEET_QUERIES = STAGED_QUERIES
+FLEET_K = STAGED_K
+# the session of the fleet's jobs: every shuffle read crosses Flight; eager
+# and push shuffle need a scheduler that publishes locations (ROADMAP 9d)
+FLEET_SETTINGS = {
+    "ballista.shuffle.partitions": str(FLEET_K),
+    "ballista.tpu.shuffle_local_fastpath": "false",
+    "ballista.tpu.eager_shuffle": "false",
+    "ballista.tpu.push_shuffle": "false",
+}
+FLEET_METHODS = ("RegisterExecutor", "HeartBeatFromExecutor", "PollWork", "UpdateTaskStatus")
+
+
+class StandInScheduler:
+    """The scheduler's part in phase 9, small on purpose: the port's
+    scheduler (ROADMAP queue 1, item 9d) replaces it. Registered through
+    the port's ``scheduler/rpc.add_service``, it answers RegisterExecutor,
+    HeartBeatFromExecutor, PollWork and UpdateTaskStatus. ``run_job`` plans
+    a query for the distributed tier (K partitions) and splits it into
+    stages as ``run_staged`` does; it hands out a stage's TaskDefinitions
+    (proto bytes of the stage plan, its inputs resolved to the locations
+    the earlier stages' statuses reported) once the stages before it have
+    completed. Each executor that polls may take at most its share of a
+    stage's tasks, so that every multi-task stage runs on both."""
+
+    def __init__(self) -> None:
+        import collections
+        import threading
+
+        self.cond = threading.Condition()
+        self.pending = collections.deque()  # TaskDefinitions not handed out yet
+        self.taken: dict = {}  # (job, stage, executor id) -> tasks taken
+        self.done: dict = {}  # (job, stage, partition) -> (executor id, CompletedTask)
+        self.failed: list = []
+        self.executors: dict = {}  # id -> ExecutorMetadata of polling executors
+        self.registered: dict = {}  # id -> ExecutorMetadata of RegisterExecutor
+        self.heartbeats = collections.Counter()
+        self.polls = collections.Counter()
+        self.stage_tasks: dict = {}  # (job, stage) -> tasks
+        self.server = None
+        self.port = 0
+
+    def start(self) -> int:
+        from concurrent.futures import ThreadPoolExecutor
+
+        import grpc
+
+        from ballista_tpu_torch.scheduler.rpc import SCHEDULER_METHODS, SCHEDULER_SERVICE, add_service
+
+        self.server = grpc.server(ThreadPoolExecutor(max_workers=8))
+        add_service(self.server, SCHEDULER_SERVICE, {m: SCHEDULER_METHODS[m] for m in FLEET_METHODS}, self)
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        self.server.start()
+        return self.port
+
+    def stop(self) -> None:
+        if self.server is not None:
+            self.server.stop(grace=None).wait(timeout=10)
+
+    # -- the four methods -----------------------------------------------------
+    def RegisterExecutor(self, request, context):
+        from ballista_tpu_torch.proto import pb
+
+        with self.cond:
+            self.registered[request.metadata.id] = request.metadata
+        return pb.RegisterExecutorResult(success=True)
+
+    def HeartBeatFromExecutor(self, request, context):
+        from ballista_tpu_torch.proto import pb
+
+        with self.cond:
+            self.heartbeats[request.executor_id] += 1
+            known = request.executor_id in self.registered or request.executor_id in self.executors
+        return pb.HeartBeatResult(reregister=not known)
+
+    def UpdateTaskStatus(self, request, context):
+        from ballista_tpu_torch.proto import pb
+
+        self._statuses(request.executor_id, request.task_status)
+        return pb.UpdateTaskStatusResult(success=True)
+
+    def PollWork(self, request, context):
+        from ballista_tpu_torch.proto import pb
+
+        meta = request.metadata
+        with self.cond:
+            self.executors[meta.id] = meta
+            self.polls[meta.id] += 1
+        self._statuses(meta.id, request.task_status)
+        out = pb.PollWorkResult()
+        if not request.can_accept_task:
+            return out
+        grants = []
+        with self.cond:
+            budget = max(1, request.free_slots)
+            for td in list(self.pending):
+                if len(grants) >= budget:
+                    break
+                t = td.task_id
+                key = (t.job_id, t.stage_id, meta.id)
+                share = -(-self.stage_tasks[(t.job_id, t.stage_id)] // len(self.executors))
+                if self.taken.get(key, 0) < share:
+                    self.taken[key] = self.taken.get(key, 0) + 1
+                    self.pending.remove(td)
+                    grants.append(td)
+        if grants:
+            out.tasks.extend(grants)
+            out.task.CopyFrom(grants[0])
+        return out
+
+    def _statuses(self, executor_id: str, statuses) -> None:
+        with self.cond:
+            for st in statuses:
+                t = st.task_id
+                if st.WhichOneof("status") == "completed":
+                    self.done[(t.job_id, t.stage_id, t.partition_id)] = (executor_id, st.completed)
+                else:
+                    self.failed.append(((t.job_id, t.stage_id, t.partition_id), st.failed.error))
+            self.cond.notify_all()
+
+    # -- one job --------------------------------------------------------------
+    def run_job(self, ctx, sql: str, job_id: str, query_class: str, timeout_s: float = 600.0):
+        """Run one query on the fleet: returns the terminal stage's output
+        (fetched over Flight) as one table, the completed tasks
+        ``(stage, executor id, CompletedTask)``, the stages, and the Arrow
+        bytes of the batches in the files that later stages read."""
+        import pyarrow as pa
+
+        from ballista_tpu_torch.client.flight import fetch_partition
+        from ballista_tpu_torch.columnar.arrow_interop import schema_to_arrow
+        from ballista_tpu_torch.config import (
+            BALLISTA_INTERNAL_QUERY_CLASS,
+            BALLISTA_INTERNAL_TASK_ATTEMPT,
+            BallistaConfig,
+        )
+        from ballista_tpu_torch.distributed_plan import DistributedPlanner, remove_unresolved_shuffles
+        from ballista_tpu_torch.exec.planner import PhysicalPlanner
+        from ballista_tpu_torch.plan.optimizer import optimize
+        from ballista_tpu_torch.proto import pb
+        from ballista_tpu_torch.scheduler_types import PartitionLocation, PartitionStats
+        from ballista_tpu_torch.serde import BallistaCodec
+
+        cfg = BallistaConfig(FLEET_SETTINGS)
+        plan = PhysicalPlanner(ctx, FLEET_K, config=cfg, distributed=True).plan(optimize(ctx.sql_to_logical(sql)))
+        stages = DistributedPlanner().plan_query_stages(job_id, plan)
+        codec = BallistaCodec(provider=ctx)
+        props = [pb.KeyValuePair(key=k, value=v) for k, v in FLEET_SETTINGS.items()] + [
+            pb.KeyValuePair(key=BALLISTA_INTERNAL_TASK_ATTEMPT, value="0"),
+            pb.KeyValuePair(key=BALLISTA_INTERNAL_QUERY_CLASS, value=query_class),
+        ]
+        locations: dict = {}
+        completed = []
+        read_paths = []
+        for stage in stages:
+            wire = codec.physical_to_proto(remove_unresolved_shuffles(stage.plan, locations)).SerializeToString()
+            n = stage.input_partition_count
+            keys = [(job_id, stage.stage_id, p) for p in range(n)]
+            with self.cond:
+                self.stage_tasks[(job_id, stage.stage_id)] = n
+                self.pending.extend(
+                    pb.TaskDefinition(
+                        task_id=pb.PartitionId(job_id=job_id, stage_id=stage.stage_id, partition_id=p),
+                        plan=wire, props=props, session_id="fleet",
+                    )
+                    for p in range(n)
+                )
+                ok = self.cond.wait_for(lambda: self.failed or all(k in self.done for k in keys), timeout_s)
+                failed, results = list(self.failed), [self.done.get(k) for k in keys]
+            check(ok and not failed, f"{job_id} stage {stage.stage_id}: {failed or 'timed out'}")
+            parts = [[] for _ in range(stage.output_partition_count)]
+            for p, (executor_id, task) in enumerate(results):
+                completed.append((stage.stage_id, executor_id, task))
+                meta = self.executors[executor_id]
+                for m in task.partitions:
+                    parts[m.partition_id].append(PartitionLocation(
+                        job_id, stage.stage_id, m.partition_id, executor_id, meta.host, meta.port, m.path,
+                        PartitionStats(m.num_rows, m.num_batches, m.num_bytes), map_partition=p,
+                    ))
+            locations[stage.stage_id] = parts
+            if stage is not stages[-1]:
+                read_paths += [loc.path for part in parts for loc in part]
+        tables = [fetch_partition(loc) for part in locations[stages[-1].stage_id] for loc in part]
+        result = pa.concat_tables(tables) if tables else schema_to_arrow(plan.schema()).empty_table()
+        return result, completed, stages, sum(arrow_bytes(p) for p in read_paths)
+
+
+def arrow_bytes(path: str) -> int:
+    """The Arrow bytes of the record batches of one shuffle file."""
+    import pyarrow as pa
+    import pyarrow.ipc as paipc
+
+    with pa.memory_map(path) as src:
+        r = paipc.open_file(src)
+        return sum(r.get_batch(i).nbytes for i in range(r.num_record_batches))
+
+
+class RetryCounter:
+    """While active, the executors' task attempts count their capacity
+    retries and speculation misses here (a ``stats`` dict per task,
+    summed under a lock into ``counts``): a retried task reads its inputs
+    again."""
+
+    def __enter__(self) -> "RetryCounter":
+        import collections
+        import threading
+
+        from ballista_tpu_torch.executor import executor as executor_mod
+
+        self.lock = threading.Lock()
+        self.counts: collections.Counter = collections.Counter()
+        self._mod, self._real = executor_mod, executor_mod.run_with_capacity_retry
+
+        def counted(*a, **kw):
+            stats: dict = {}
+            try:
+                return self._real(*a, stats=stats, **kw)
+            finally:
+                with self.lock:
+                    self.counts.update(stats)
+
+        executor_mod.run_with_capacity_retry = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.run_with_capacity_retry = self._real
+
+
+def process_executor(sched_port: int, pkg_root: pathlib.Path):
+    """``python -m ballista_tpu_torch.executor --device cuda`` against the
+    stand-in, push-staged (it registers at start and heartbeats)."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="ballista_fleet_proc-")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ballista_tpu_torch.executor", "--device", "cuda",
+         "--bind-host", "127.0.0.1", "--external-host", "127.0.0.1", "--bind-port", "0",
+         "--bind-grpc-port", "0", "--scheduler-host", "127.0.0.1", "--scheduler-port", str(sched_port),
+         "--task-scheduling-policy", "push-staged", "--concurrent-tasks", "1", "--work-dir", work],
+        cwd=pkg_root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    return proc, work
+
+
+def fleet_path(data: dict, oracles: dict, staged: dict, rec: LaunchRecorder, prec: PartitionRecorder,
+               pkg_root: pathlib.Path) -> dict:
+    """q1, q3, q5, q12 and q18 on two port executors over Flight, one cold
+    and two warm runs each, held against collect mode and the numpy
+    oracles as phase 8; then the executor process's start and stop."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import torch
+
+    from ballista_tpu_torch.exec import spill
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.executor import cleanup, reader, shuffle
+    from ballista_tpu_torch.executor.executor import Executor, PollLoop, new_executor_id
+    from ballista_tpu_torch.executor.flight_service import start_flight_server
+    from ballista_tpu_torch.ops import onehot_agg, partition
+
+    ctx = TorchContext(device="cuda")
+    for name, tab in data.items():
+        ctx.register_table(name, tab)
+    sqls = {q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in FLEET_QUERIES}
+    sched = StandInScheduler()
+    sched_port = sched.start()
+    proc, proc_work = process_executor(sched_port, pkg_root)
+    proc_out: list = []
+    pump = threading.Thread(target=lambda: proc_out.extend(proc.stdout), daemon=True)
+    pump.start()
+    fleet = []
+    out: dict = {}
+    launches = plaunches = glaunches = 0
+    try:
+        for _ in range(2):
+            work = tempfile.mkdtemp(prefix="ballista_fleet-")
+            ex = Executor(new_executor_id(), work, provider=ctx, device="cuda")
+            svc, fport, fthread = start_flight_server("127.0.0.1", 0, work)
+            loop = PollLoop(ex, f"127.0.0.1:{sched_port}", "127.0.0.1", fport, task_slots=2)
+            loop.start()
+            fleet.append((ex, loop, svc, fthread, work))
+        ids = {ex.executor_id for ex, *_ in fleet}
+        deadline = time.time() + 30
+        while set(sched.executors) != ids and time.time() < deadline:
+            time.sleep(0.05)
+        check(set(sched.executors) == ids, f"fleet: executors polling {sorted(sched.executors)}, started {sorted(ids)}")
+        torch.cuda.reset_peak_memory_stats()
+        with RetryCounter() as retries:
+            for q in FLEET_QUERIES:
+                tag = f"{q}-fleet"
+                rec.tag = prec.tag = None
+                want = ctx.sql(sqls[q]).collect()
+                runs = []
+                # the first launch at each shape keeps its inputs on the
+                # host for the replay: the shapes of a run depend on which
+                # tasks retried, so a later capture run could miss some
+                rec.tag = prec.tag = tag
+                rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = True
+                for i in range(3):
+                    # this run starts here
+                    onehot_agg.launches = partition.launches = partition.group_launches = 0
+                    spill.reset_stats(shuffle.stats)
+                    reader.reset_stats()
+                    retries.counts.clear()
+                    job = f"{q}-fleet-{i}"
+                    t = time.perf_counter()
+                    res, tasks, stages, written = sched.run_job(ctx, sqls[q], job, q)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t
+                    launches += onehot_agg.launches
+                    plaunches += partition.launches
+                    glaunches += partition.group_launches
+                    compare_tables(f"{tag} run {i}", res, want)
+                    for c in STAGED_EXACT.get(q, ()):
+                        check(res.column(c).equals(want.column(c)), f"{tag} run {i}: {c} not bit for bit")
+                    if q in oracles:
+                        compare(f"{tag} run {i}", res, oracles[q])
+                    per_exec = {e: sum(1 for _, x, _ in tasks if x == e) for e in ids}
+                    check(min(per_exec.values()) > 0, f"{tag} run {i}: tasks per executor {per_exec}")
+                    check(
+                        all(task.HasField("cost") and len(task.operator_metrics) for _, _, task in tasks),
+                        f"{tag} run {i}: a task reported no cost vector or no operator metrics",
+                    )
+                    fetched = reader.stats["flight_bytes"]
+                    retried = dict(retries.counts)
+                    check(
+                        fetched == written if not any(retried.values()) else fetched >= written,
+                        f"{tag} run {i}: {fetched} bytes fetched over Flight, {written} written "
+                        f"(task retries {retried})",
+                    )
+                    check(
+                        shuffle.stats["waits"] == shuffle.stats["batches"] == partition.group_launches > 0,
+                        f"{tag} run {i}: {shuffle.stats['waits']} waits, {partition.group_launches} grouped "
+                        f"launches for {shuffle.stats['batches']} hash-partitioned batches",
+                    )
+                    fetch_s = sum(
+                        float(kv.value)
+                        for _, _, task in tasks for m in task.operator_metrics
+                        if m.operator == "ShuffleReaderExec" for kv in m.counters if kv.key == "fetch_time"
+                    )
+                    for *_, work in fleet:
+                        check(cleanup.clean_shuffle_data(work, -1) == [job], f"{tag} run {i}: job dir of {work}")
+                        check(not os.listdir(work), f"{tag} run {i}: {work} not empty after the run")
+                    runs.append(dict(
+                        s=secs, table=res, tasks=per_exec, stages=len(stages), retries=retried,
+                        flight_mb=fetched / 2**20, flight_batches=reader.stats["flight_batches"],
+                        written_mb=written / 2**20, fetch_s=fetch_s,
+                        cost=dict(
+                            wall_s=sum(t.cost.wall_seconds for _, _, t in tasks),
+                            compile_s=sum(t.cost.compile_seconds for _, _, t in tasks),
+                            read_mb=sum(t.cost.shuffle_read_bytes for _, _, t in tasks) / 2**20,
+                            write_mb=sum(t.cost.shuffle_write_bytes for _, _, t in tasks) / 2**20,
+                        ),
+                        launches=onehot_agg.launches, plaunches=partition.launches,
+                        glaunches=partition.group_launches,
+                    ))
+                check(runs[1]["table"].equals(runs[2]["table"]), f"{tag}: two warm runs differ")
+                st = staged[f"{q}-stages"]
+                out[tag] = dict(
+                    stages=runs[0]["stages"], rows=want.num_rows,
+                    tasks_per_executor=[sorted(r["tasks"].values()) for r in runs],
+                    flight_mb=[r["flight_mb"] for r in runs], flight_batches=[r["flight_batches"] for r in runs],
+                    fetch_s=[r["fetch_s"] for r in runs], retries=[r["retries"] for r in runs],
+                    cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]],
+                    staged_cold_s=st["cold_s"], staged_warm_s=st["warm_s"],
+                    collect_cold_s=st["collect_cold_s"], collect_warm_s=st["collect_warm_s"],
+                    cost=[r["cost"] for r in runs],
+                    onehot_launches=[r["launches"] for r in runs],
+                    partition_launches=[r["plaunches"] for r in runs],
+                    grouped_launches=[r["glaunches"] for r in runs],
+                    partition_shapes=sorted(set(prec.shapes.get(tag, []))),
+                    onehot_shapes=sorted(set(rec.shapes.get(tag, []))),
+                )
+                log(f"{tag}: ok  {json.dumps(out[tag])}")
+        rec.tag = prec.tag = None
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
+        peak = torch.cuda.max_memory_allocated()
+        log(f"fleet: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+        for q in FLEET_QUERIES:
+            check(min(out[f"{q}-fleet"]["grouped_launches"]) > 0, f"{q}-fleet: no grouped launch")
+        check(min(out["q1-fleet"]["onehot_launches"]) > 0, "q1-fleet did not launch the one-hot kernel")
+        for r in (rec, prec):
+            for q in FLEET_QUERIES:
+                missing = set(r.shapes.get(f"{q}-fleet", [])) - set(r.inputs)
+                check(not missing, f"{q}-fleet: no inputs kept for launch shapes {sorted(missing)}")
+
+        # the process entry: registered at its start, heartbeats every 15 s
+        deadline = time.time() + 60
+        while not sched.heartbeats and time.time() < deadline and proc.poll() is None:
+            time.sleep(0.2)
+        check(proc.poll() is None, "executor process exited early:\n" + "".join(proc_out[-40:]))
+        check(len(sched.registered) == 1 and sum(sched.heartbeats.values()) >= 1,
+              f"executor process: registered {list(sched.registered)}, heartbeats {dict(sched.heartbeats)}")
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=10)
+        stop_s = time.perf_counter() - t
+        check(rc == 0, f"executor process exited {rc} on SIGTERM:\n" + "".join(proc_out[-40:]))
+        out["process"] = dict(
+            registered=list(sched.registered), heartbeats=sum(sched.heartbeats.values()), stop_s=stop_s,
+            device_line=next((line.strip() for line in proc_out if "device=cuda" in line), ""),
+        )
+        log(f"fleet process: ok  {json.dumps(out['process'])}")
+    finally:
+        rec.tag = prec.tag = None
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        for ex, loop, svc, fthread, work in fleet:
+            loop.stop()
+            svc.shutdown()
+            fthread.join(timeout=10)
+            shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(proc_work, ignore_errors=True)
+        sched.stop()
+    for *_, work in fleet:
+        check(not os.path.exists(work), f"fleet: work directory {work} left behind")
+    out["launches"] = launches
+    out["partition_launches"] = plaunches
+    out["grouped_launches"] = glaunches
+    out["peak_bytes"] = peak
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2305,18 +2769,28 @@ def main() -> int:
         staged_replays = replay_partition_launches(prec)
         preplays += staged_replays
         log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
+
+        # 9. the executor fleet: two executors over Flight, the process entry
+        t0 = time.perf_counter()
+        fp = fleet_path(data, oracles, sp, rec, prec, pkg_root)
+        replays += replay_launches(rec)
+        fleet_replays = replay_partition_launches(prec)
+        preplays += fleet_replays
+        log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
     for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
     for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist") + tuple(
-        f"{q}-stages" for q in STAGED_QUERIES
+        f"{q}-{path}" for q in STAGED_QUERIES for path in ("stages", "fleet")
     ):
         check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
     for q in STAGED_QUERIES:
-        check(
-            any(m == "grouped" for _, _, _, m in prec.shapes[f"{q}-stages"]),
-            f"{q}-stages: no grouped launch recorded",
-        )
+        for path in ("stages", "fleet"):
+            check(
+                any(m == "grouped" for _, _, _, m in prec.shapes[f"{q}-{path}"]),
+                f"{q}-{path}: no grouped launch recorded",
+            )
     check(bool(rec.shapes.get("q1-stages")), "q1-stages: no one-hot launch recorded")
+    check(bool(rec.shapes.get("q1-fleet")), "q1-fleet: no one-hot launch recorded")
     q1, q1_now = cases[0], cases[7]
     # the partition kernel's modes at the spills' shape (2^21 rows, one
     # int32 key, K = 64), from phase 3's timing
@@ -2328,11 +2802,11 @@ def main() -> int:
     # the shuffle writes)
     plaunches = (
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
-        + sp["partition_launches"]
+        + sp["partition_launches"] + fp["partition_launches"]
     )
-    glaunches = gp["grouped_launches"] + sp["grouped_launches"]
+    glaunches = gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
 
-    # 9. results
+    # 10. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -2341,8 +2815,11 @@ def main() -> int:
         # the paths' runs: q1, q6 and wide; q3-q18 (q4, q5 launch it); the
         # rest of TPC-H (q12, q22 and others), the window and the percentile;
         # the budgeted q3, q5, q18 and the distributed q1, q12, q3; the
-        # staged q1, q3, q5, q12, q18
-        "launches": mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"],
+        # staged q1, q3, q5, q12, q18; the same on the executor fleet
+        "launches": (
+            mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
+            + fp["launches"]
+        ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
         "device_ms": q1["device_ms"],
@@ -2375,10 +2852,11 @@ def main() -> int:
         "shape": [r["n"], 1, r["K"]],
     } for name, r, launches in (
         # the ids and hash-only modes: phase 7's repartitions and the
-        # hash-packed join keys of phases 5, 6 and 8; ids at the spills' shape
+        # hash-packed join keys of phases 5, 6, 8 and 9; ids at the spills'
+        # shape
         ("partition_hash", ids, plaunches - glaunches),
         # the grouped mode: every spilled batch of phase 7, every
-        # hash-partitioned batch phase 8 writes
+        # hash-partitioned batch phases 8 and 9 write
         ("partition_groups", grouped, glaunches),
     )]
     log(json.dumps({
@@ -2404,6 +2882,9 @@ def main() -> int:
         "dist_peak_bytes": gp["dist_peak_bytes"],
         "staged_queries": {q: v for q, v in sp.items() if q.endswith("-stages")},
         "staged_peak_bytes": sp["peak_bytes"],
+        "fleet_queries": {q: v for q, v in fp.items() if q.endswith("-fleet")},
+        "fleet_process": fp["process"],
+        "fleet_peak_bytes": fp["peak_bytes"],
         "sf": args.sf,
     }))
     log(smi)

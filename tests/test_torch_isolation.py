@@ -50,7 +50,12 @@ def test_no_forbidden_imports_in_source(target):
             "exec/repartition.py", "ops/partition.py", "ops/cuda_build.py",
             "serde.py", "distributed_plan.py", "scheduler_types.py", "proto/__init__.py",
             "proto/ballista_tpu_pb2.py", "columnar/coalesce.py", "executor/shuffle.py",
-            "executor/reader.py",
+            "executor/reader.py", "executor/executor.py", "executor/executor_server.py",
+            "executor/__main__.py", "executor/flight_service.py", "executor/push.py",
+            "executor/metrics.py", "executor/cleanup.py", "client/flight.py",
+            "scheduler/rpc.py", "analysis/witness.py", "analysis/reswitness.py",
+            "analysis/replay.py", "testing/faults.py", "obs/trace.py", "obs/hist.py",
+            "obs/profile.py", "obs/history.py",
         } <= names
     bad = [
         f"{f.relative_to(ROOT)}: {m}"
@@ -101,12 +106,14 @@ def _no_device_calls():
     from ballista_tpu_torch.columnar.bridge import batch_from_numpy
     from ballista_tpu_torch.datatypes import DataType, Field, Schema
     from ballista_tpu_torch.exec.base import TaskContext
+    from ballista_tpu_torch.executor.executor import Executor
 
     schema = Schema([Field("x", DataType.INT64, False)])
     table = pa.table({"x": pa.array([1, 2, 3], pa.int64())})
     x = np.arange(2048, dtype=np.int64)
     return {
         "TaskContext": lambda **kw: TaskContext(**kw).device,
+        "Executor": lambda **kw: Executor("e", "/nonexistent/work", **kw).device,
         "batch_from_numpy": lambda **kw: batch_from_numpy(
             [("x", "int64", False)], [x], np.ones(2048, bool), [None], {}, **kw
         ).device,
@@ -123,7 +130,7 @@ def _no_device_calls():
 
 @pytest.mark.parametrize(
     "entry",
-    ["TaskContext", "batch_from_numpy", "from_host", "empty", "batch_from_arrow",
+    ["TaskContext", "Executor", "batch_from_numpy", "from_host", "empty", "batch_from_arrow",
      "table_from_arrow"],
 )
 def test_batches_and_tasks_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
@@ -134,6 +141,54 @@ def test_batches_and_tasks_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     assert call(device="cpu") == torch.device("cpu")
+
+
+def test_executor_process_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``python -m ballista_tpu_torch.executor`` raises without a card
+    before it binds a port, unless started with ``--device cpu``."""
+    from ballista_tpu_torch.executor import __main__ as executor_main
+
+    def no_bind(*a, **kw):
+        raise AssertionError("bound a port without a device")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(executor_main, "start_flight_server", no_bind)
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            executor_main.main(["--bind-port", "0", *argv])
+
+
+def test_executor_process_on_the_cpu_stops_on_sigterm(tmp_path):
+    """With ``--device cpu`` the process starts its Flight service and poll
+    loop (here against a scheduler port nobody listens on) and exits 0
+    within 10 s of a SIGTERM."""
+    import os
+    import signal
+    import socket
+    import time
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        closed = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BALLISTA_EXECUTOR_")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ballista_tpu_torch.executor", "--device", "cpu",
+         "--bind-host", "127.0.0.1", "--bind-port", "0", "--scheduler-host", "127.0.0.1",
+         "--scheduler-port", str(closed), "--work-dir", str(tmp_path / "work")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        deadline = time.time() + 60
+        started = ""
+        while "Flight on" not in started and time.time() < deadline and proc.poll() is None:
+            started += proc.stdout.readline()
+        assert "Flight on" in started and "device=cpu" in started, started
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=10) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
 
 
 def test_config_rejects_unknown_keys():

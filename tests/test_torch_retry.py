@@ -158,3 +158,41 @@ def test_fired_site_and_aggregate_checks_each_carry_their_need():
         ctx.raise_deferred()
     assert e.value.required == 70_000
     assert e.value.sites == {"a": 12_000, "b": 5}
+
+
+def test_concurrent_runs_merge_what_they_learned():
+    """An executor's task threads share one hint: two runs that grow
+    different sites at once both leave their site in it (the later one
+    must not replace the earlier one's view), and a warm run of either
+    starts grown."""
+    import threading
+
+    hint: dict = {}
+    both_started = threading.Barrier(2, timeout=30)
+
+    def runner(site: str, need: int):
+        def run(ctx):
+            if not ctx.site_capacity:
+                both_started.wait()  # both copied the hint before either learned
+            cap = ctx.site_capacity.get(site, 4096)
+            ctx.defer_check(torch.tensor(cap < need), site, required=torch.tensor(need), site=site)
+            return cap
+
+        return run
+
+    cfg = BallistaConfig()
+    threads = [
+        threading.Thread(target=run_with_capacity_retry, args=(cfg, runner(site, need)),
+                         kwargs=dict(device="cpu", hint=hint))
+        for site, need in (("a", 10_000), ("b", 20_000))
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(hint["site_capacity"]) == ["a", "b"]
+    stats: dict = {}
+    for site, need in (("a", 10_000), ("b", 20_000)):
+        assert run_with_capacity_retry(cfg, runner(site, need), device="cpu", hint=hint, stats=stats) >= need
+    assert stats == {}

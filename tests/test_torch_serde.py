@@ -39,7 +39,7 @@ from ballista_tpu_torch.distributed_plan import (
     remove_unresolved_shuffles,
     resolve_shuffles_eager,
 )
-from ballista_tpu_torch.errors import InternalError, PlanError
+from ballista_tpu_torch.errors import ExecutionError, InternalError, PlanError
 from ballista_tpu_torch.exec.base import TaskContext, execute_to_batches
 from ballista_tpu_torch.exec.context import TorchContext
 from ballista_tpu_torch.exec.planner import PhysicalPlanner
@@ -247,8 +247,9 @@ def test_remove_unresolved_shuffles_copies_on_write(tpch):
 
 
 def test_eager_resolution_matches_reference(tpch):
-    """An eager reader plan encodes as the reference's; executing it raises
-    (its location feed comes with the executor)."""
+    """An eager reader plan encodes as the reference's; executing it outside
+    a scheduler-connected executor raises, as the reference's does (its
+    locations come from the scheduler's feed)."""
     data, ref, port = tpch
     rstages, pstages = stages_of(ref, port, query_sql("q12", data))
     r = ref_resolve_eager(rstages[-1].plan, "job")
@@ -262,7 +263,7 @@ def test_eager_resolution_matches_reference(tpch):
     while not isinstance(reader, ShuffleReaderExec):
         reader = reader.children()[0]
     assert reader.eager
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(ExecutionError, match="requires a scheduler-connected executor"):
         list(reader.execute(0, TaskContext(device="cpu")))
 
 

@@ -252,16 +252,24 @@ def test_writer_needs_a_work_dir_and_column_keys():
 
 
 def test_push_shuffle_raises_naming_its_item(tmp_path):
-    """Where the reference would push (a scheduler-connected executor and
-    the session's push and eager keys on), the port raises."""
+    """Where the reference pushes (a scheduler-connected executor and the
+    session's push and eager keys on), the port pushes too: push metas and
+    no file; with push off it writes files. (Push shuffle is ported; the
+    writer no longer raises.)"""
+    from ballista_tpu_torch.executor.push import REGISTRY
+
     b = _one_batch()
     w = ShuffleWriterExec("job", 1, _Source([b], b.schema), [L.Column("k")], 4)
     ctx = TaskContext(device="cpu", work_dir=str(tmp_path))
     ctx.shuffle_locations = lambda *a: None
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        w.execute_shuffle_write(0, ctx)
+    try:
+        metas = w.execute_shuffle_write(0, ctx)
+        assert metas and all(m.push and not os.path.exists(m.path) for m in metas)
+    finally:
+        REGISTRY.drop_owner(str(tmp_path))
     ctx.config = BallistaConfig({"ballista.tpu.push_shuffle": "false"})
-    assert w.execute_shuffle_write(0, ctx)
+    metas = w.execute_shuffle_write(0, ctx)
+    assert metas and all(not m.push and os.path.exists(m.path) for m in metas)
 
 
 # -- the reader: tests/test_shuffle_pipeline.py's cases ----------------------
@@ -280,8 +288,8 @@ def _write_file(path, start, rows, codec=None, n_batches=1):
             ))
 
 
-def _loc(path, partition=0, host="127.0.0.1", push=False):
-    return PartitionLocation("job", 1, partition, "e1", host, 0, path, push=push)
+def _loc(path, partition=0, host="127.0.0.1", push=False, port=0):
+    return PartitionLocation("job", 1, partition, "e1", host, port, path, push=push)
 
 
 def _ctx(**settings):
@@ -419,18 +427,39 @@ def test_reader_rechunks_without_narrowing(tmp_path):
 
 
 def test_remote_and_push_locations_raise_naming_their_item(tmp_path):
-    ctx = _ctx()
-    for loc in (_loc(str(tmp_path / "elsewhere.arrow"), host="10.0.0.7"), _loc(str(tmp_path / "x.arrow"), push=True)):
-        with pytest.raises(NotImplementedError, match="item 9c"):
+    """Locations that are not local files go over Flight now (the Flight
+    fetch and push shuffle are ported): a file whose producer is
+    unreachable, or a push stream that is neither in this process nor on
+    disk, is a ShuffleFetchError naming the producer; with the local fast
+    path off, a local file is read through its producer's Flight
+    service."""
+    import socket
+
+    from ballista_tpu_torch.executor.flight_service import start_flight_server
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        closed_port = sock.getsockname()[1]
+    ctx = _ctx(**{"ballista.tpu.fetch_retries": "1"})
+    for loc in (
+        _loc(str(tmp_path / "elsewhere.arrow"), port=closed_port),
+        _loc(str(tmp_path / "x.arrow"), port=closed_port, push=True),
+    ):
+        with pytest.raises(ShuffleFetchError, match=f"127.0.0.1:{closed_port}"):
             list(ShuffleReaderExec([[loc]], SCHEMA2).execute(0, ctx))
-        with pytest.raises(NotImplementedError, match="item 9c"):
+        with pytest.raises(ShuffleFetchError, match=f"127.0.0.1:{closed_port}"):
             fetch_partition_table(loc)
     p = str(tmp_path / "data-0.arrow")
     _write_file(p, 0, 3)
-    with pytest.raises(ConfigError, match="item 9c"):
-        list(ShuffleReaderExec([[_loc(p)]], SCHEMA2).execute(
+    svc, port, t = start_flight_server("127.0.0.1", 0, str(tmp_path))
+    try:
+        got = list(ShuffleReaderExec([[_loc(p, port=port)]], SCHEMA2).execute(
             0, _ctx(**{"ballista.tpu.shuffle_local_fastpath": "false"})
         ))
+        assert got[0].columns[0][got[0].valid].tolist() == [0, 1, 2]
+    finally:
+        svc.shutdown()
+        t.join(timeout=10)
 
 
 # -- configuration ----------------------------------------------------------
@@ -493,7 +522,6 @@ NON_DEFAULT = {
     "ballista.tpu.prewarm": "on",
     "ballista.tpu.verify_plans": "false",
     "ballista.tpu.collective_shuffle": "false",
-    "ballista.tpu.shuffle_local_fastpath": "false",
 }
 
 
@@ -505,11 +533,7 @@ def test_unported_feature_key_raises_at_its_point_of_use(key, tmp_path):
     cfg = BallistaConfig({key: NON_DEFAULT[key]})
     item = UNPORTED[key].split(" (")[0]
     with pytest.raises(ConfigError, match=item):
-        if key == "ballista.tpu.shuffle_local_fastpath":
-            p = str(tmp_path / "data-0.arrow")
-            _write_file(p, 0, 3)
-            list(ShuffleReaderExec([[_loc(p)]], SCHEMA2).execute(0, TaskContext(cfg, device="cpu")))
-        elif key in ("ballista.tpu.profile_dir", "ballista.tpu.build_cache_mb"):
+        if key in ("ballista.tpu.profile_dir", "ballista.tpu.build_cache_mb"):
             run_with_capacity_retry(cfg, lambda ctx: None, device="cpu")
         else:
             TorchContext(cfg, device="cpu")
