@@ -2,7 +2,7 @@
 
 The fault-tolerance story promises "bit-exact under fault injection"
 (docs/fault_tolerance.md), and the certified-rewrite API promises
-semantics preservation (the reference's ``rewrite.py``, ROADMAP 9d) — but until now both
+semantics preservation (the reference's ``rewrite.py``, ROADMAP 9e) — but until now both
 were only ASSERTED by individual chaos tests comparing final tables.
 This witness turns the promise into a first-class runtime invariant, the
 replay analogue of the lock witness and the resource witness:

@@ -6,11 +6,10 @@ contract as the reference's. A job ships its session keys to every
 executor, so the port knows all of them, also those whose feature it does
 not have yet. Such a key keeps its default behaviour, and a non-default
 value raises at the point of use (``check_ported``), naming the ROADMAP
-item that ports the feature; it is never silently ignored. Keys read only
-by the scheduler (task retries, stragglers, skew, AQE, the result cache,
-grant batching, history) are accepted here and read when the scheduler is
-ported (ROADMAP queue 1, item 9d). The executor reads the fetch, shuffle,
-trace, metrics and cost keys (``executor/``).
+item that ports the feature; it is never silently ignored. The scheduler
+(``scheduler/``) reads the task-retry, straggler, skew, result-cache,
+grant-batch, history and verification keys; the executor reads the
+fetch, shuffle, trace, metrics and cost keys (``executor/``).
 """
 
 from __future__ import annotations
@@ -221,9 +220,6 @@ UNPORTED: dict[str, str] = {
     BALLISTA_PLUGIN_DIR: "ROADMAP queue 1, item 10a (UDF plugins)",
     BALLISTA_WITH_INFORMATION_SCHEMA: "ROADMAP queue 1, item 3 (SHOW statements)",
     BALLISTA_CAPACITY_BUCKETS: "ROADMAP queue 1, item 3 (the capacity ladder)",
-    # executors ship cost vectors; the history store they feed is missing
-    BALLISTA_COST_ACCOUNTING: "ROADMAP queue 1, item 3 (the history store)",
-    BALLISTA_HISTORY_RETENTION_JOBS: "ROADMAP queue 1, item 3 (history and system tables)",
     BALLISTA_PARQUET_PRUNING: "ROADMAP queue 1, item 3 (file scans)",
     BALLISTA_SCAN_STREAM_MB: "ROADMAP queue 1, item 3 (file scans)",
     BALLISTA_PREFETCH_DEPTH: "ROADMAP queue 1, item 3 (file scans)",
@@ -233,7 +229,9 @@ UNPORTED: dict[str, str] = {
     # does not trace
     BALLISTA_TRACE: "ROADMAP queue 1, item 10b (trace hooks)",
     BALLISTA_PREWARM: "ROADMAP queue 1, item 10b (kernel registry)",
-    BALLISTA_VERIFY_PLANS: "ROADMAP queue 1, item 10b (plan verifier)",
+    # the scheduler's adaptive query execution (``BALLISTA_AQE=1`` in the
+    # environment too, see scheduler/aqe.enabled)
+    BALLISTA_AQE: "ROADMAP queue 1, item 9e (adaptive query execution)",
     BALLISTA_COLLECTIVE_SHUFFLE: "ROADMAP queue 1, item 10b (multi-device)",
 }
 
@@ -366,6 +364,42 @@ class BallistaConfig:
 
     def cost_accounting(self) -> bool:
         return self._get(BALLISTA_COST_ACCOUNTING)
+
+    def plugin_dir(self) -> str:
+        return self._get(BALLISTA_PLUGIN_DIR)
+
+    def task_max_attempts(self) -> int:
+        return max(1, self._get(BALLISTA_TASK_MAX_ATTEMPTS))
+
+    def straggler_factor(self) -> float:
+        return self._get(BALLISTA_STRAGGLER_FACTOR)
+
+    def straggler_min_s(self) -> float:
+        return max(0.0, self._get(BALLISTA_STRAGGLER_MIN_S))
+
+    def skew_ratio(self) -> float:
+        return self._get(BALLISTA_SKEW_RATIO)
+
+    def skew_min_rows(self) -> int:
+        return max(0, self._get(BALLISTA_SKEW_MIN_ROWS))
+
+    def scaler_queue_wait_target_s(self) -> float:
+        return self._get(BALLISTA_SCALER_QUEUE_WAIT_TARGET_S)
+
+    def aqe(self) -> bool:
+        return self._get(BALLISTA_AQE)
+
+    def history_retention_jobs(self) -> int:
+        return max(1, self._get(BALLISTA_HISTORY_RETENTION_JOBS))
+
+    def result_cache_mb(self) -> int:
+        return max(0, self._get(BALLISTA_RESULT_CACHE_MB))
+
+    def single_stage_bypass(self) -> bool:
+        return self._get(BALLISTA_SINGLE_STAGE_BYPASS)
+
+    def task_grant_batch(self) -> int:
+        return max(1, self._get(BALLISTA_TASK_GRANT_BATCH))
 
     def __eq__(self, other) -> bool:
         return isinstance(other, BallistaConfig) and other._settings == self._settings

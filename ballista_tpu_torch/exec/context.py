@@ -14,8 +14,11 @@ device batches for warm queries. Every run goes through
 runs again with the capacity grown, and a stale plan-cache speculation runs
 again without it. The context keeps the plan cache (join build flags,
 probe-table sizes, decimal scales) and the grown capacity across runs, as
-``TpuContext`` does. Not ported: history and system tables, the staleness
-witness, plan verification, file registration, DDL statements, the
+``TpuContext`` does. With ``ballista.tpu.verify_plans`` on (the default)
+the optimized logical plan and a newly planned physical plan are verified
+(``analysis.verifier``) before they run. Not ported: the system tables (a
+query over ``system.*`` raises ``PlanError`` naming ROADMAP queue 1, item
+3), the staleness witness, file registration, DDL statements, the
 persisted capacity hints. A session key whose feature is not ported
 (``config.UNPORTED``) raises here when it is set to another value than
 its default.
@@ -51,6 +54,19 @@ from ballista_tpu_torch.plan.optimizer import optimize
 from ballista_tpu_torch.sql import ast
 from ballista_tpu_torch.sql.parser import parse_sql
 from ballista_tpu_torch.sql.planner import Catalog, SqlPlanner
+
+
+def _scans_system_table(logical) -> bool:
+    """Does this logical plan reference any system.* table?"""
+    from ballista_tpu_torch.obs.history import SYSTEM_TABLE_SCHEMAS
+    from ballista_tpu_torch.plan.logical import TableScan
+
+    def walk(p) -> bool:
+        if isinstance(p, TableScan) and p.table_name in SYSTEM_TABLE_SCHEMAS:
+            return True
+        return any(walk(c) for c in p.children())
+
+    return walk(logical)
 
 
 def plan_fingerprint(obj):
@@ -106,6 +122,11 @@ class TorchContext(Catalog, TableProvider):
         self._physical_cache.clear()
 
     def schema_of(self, table: str) -> Schema:
+        if table not in self.tables and table.startswith("system."):
+            raise PlanError(
+                f"system table {table!r} is not ported yet (ROADMAP queue 1, "
+                "item 3)"
+            )
         if table not in self.tables:
             raise PlanError(f"table {table!r} not found")
         return self.tables[table][0]
@@ -135,6 +156,12 @@ class TorchContext(Catalog, TableProvider):
 
     def create_physical_plan(self, logical: LogicalPlan) -> ExecutionPlan:
         optimized = optimize(logical)
+        verify = self.config.verify_plans()
+        if verify:
+            # cached physical plans were verified when first planned
+            from ballista_tpu_torch.analysis import verify_logical
+
+            verify_logical(optimized)
         key = (
             plan_fingerprint(optimized),
             tuple(sorted(self.config.settings().items())),
@@ -155,6 +182,10 @@ class TorchContext(Catalog, TableProvider):
         phys = PhysicalPlanner(
             self, self.config.default_shuffle_partitions()
         ).plan(optimized)
+        if verify:
+            from ballista_tpu_torch.analysis import verify_physical
+
+            verify_physical(phys)
         self._physical_cache[key] = phys
         return phys
 

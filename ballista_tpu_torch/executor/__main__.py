@@ -102,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=int(_env("metrics_port", 0)),
         help="serve Prometheus text metrics on this port; 0 disables, the "
-        "only value this engine supports yet (ROADMAP queue 1, item 9d)",
+        "only value this engine supports yet (ROADMAP queue 1, item 9e)",
     )
     p.add_argument("--log-level", default=_env("log_level", "INFO"))
     p.add_argument(
@@ -124,8 +124,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.metrics_port:
         raise ConfigError(
             "--metrics-port is not supported by this engine yet: the "
-            "Prometheus exposition comes with the scheduler (ROADMAP queue "
-            "1, item 9d)"
+            "Prometheus exposition is ROADMAP queue 1, item 9e"
         )
     # the device first: without a card (and without --device cpu) the
     # process raises here, before it makes a directory or binds a port

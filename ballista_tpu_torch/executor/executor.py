@@ -17,9 +17,6 @@ Where the port differs from the reference:
 - **The capacity ladder and UDF plugins** are not ported: a task whose
   session sets ``ballista.tpu.capacity_buckets`` or ``ballista.plugin_dir``
   fails with ``ConfigError`` (reported as a failed task).
-- **No plan verifier** (ROADMAP queue 1, item 10b): with
-  ``ballista.tpu.verify_plans`` on, the default, a decoded plan runs
-  unverified, and the executor logs that once per process.
 - **Prewarm**: ``PollLoop(prewarm=...)`` accepts only ``off``.
 - **Compile metrics** shipped on the poll are the nvcc build seconds of
   ``ops/cuda_build``.
@@ -60,8 +57,6 @@ from ballista_tpu_torch.serde import BallistaCodec
 log = logging.getLogger(__name__)
 
 POLL_INTERVAL = 0.1  # ref execution_loop.rs:110-112 (100ms idle sleep)
-
-_unverified_logged = threading.Event()
 
 
 def check_prewarm(prewarm: str | None) -> str:
@@ -115,8 +110,10 @@ class Executor:
         self._locations_stub = None
         self._locations_closed = False
         self._locations_token = None  # reswitness entry for the channel
-        # the reference re-verifies decoded stage plans here; the port has
-        # no verifier (ROADMAP queue 1, item 10b) and runs them unverified
+        # re-verify decoded stage plans before running them (catches serde
+        # drift between scheduler and executor builds). StandaloneCluster
+        # turns this off: in-proc, the scheduler just verified the same
+        # bytes it hands over, so the second walk buys nothing.
         self.verify_decoded_plans = True
         # adaptive-capacity memory across tasks (run_with_capacity_retry),
         # for the executor's life: nothing is persisted (ROADMAP queue 1,
@@ -332,15 +329,10 @@ class Executor:
             )
         props = props_early
         config = BallistaConfig(props) if props else BallistaConfig()
-        if (
-            self.verify_decoded_plans and config.verify_plans()
-            and not _unverified_logged.is_set()
-        ):
-            _unverified_logged.set()
-            log.warning(
-                "decoded stage plans run unverified: the plan verifier is "
-                "not ported (ROADMAP queue 1, item 10b)"
-            )
+        if self.verify_decoded_plans and config.verify_plans():
+            from ballista_tpu_torch.analysis import verify_physical
+
+            verify_physical(plan)
         from ballista_tpu_torch.executor.metrics import collector_for
 
         collector = collector_for(config, self.metrics_collector)

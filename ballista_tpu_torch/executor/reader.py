@@ -24,6 +24,10 @@ batches in flight.
   ShuffleFetchError.
 - ``ballista.tpu.shuffle_local_fastpath=false`` sends every read, local
   or not, through Flight.
+- **In-task retries**: a reader keeps the push batches its task took out
+  of the registry, so a capacity retry of the task reads them again even
+  after the registry dropped the consumed stream (the reference leaves
+  that case to lineage recompute).
 
 Per-location retries and backoff live in the Flight client; what escapes
 is a typed :class:`ShuffleFetchError` naming the producing (executor,
@@ -205,6 +209,7 @@ def fetch_partition_batches(
     local_fastpath: bool = True,
     trace_ctx: tuple[str, str] | None = None,
     on_push_fallback=None,
+    held: dict | None = None,
 ) -> Iterator[pa.RecordBatch]:
     """One shuffle file -> record-batch stream; peak memory is a batch,
     not the partition (ref shuffle_reader.rs streams batches through the
@@ -228,7 +233,14 @@ def fetch_partition_batches(
     local spilled/committed file, then a remote DoExchange stream that
     itself serves memory-or-file. ``on_push_fallback`` fires when a push
     location ended up served from disk — the backpressure/lag signal the
-    push_fallbacks counter reads."""
+    push_fallbacks counter reads.
+
+    ``held`` (the port's addition): the push batches the calling task
+    took from the in-process registry, by stream key. The task's in-task
+    retries (``run_with_capacity_retry``) read its inputs again, and by
+    then the registry may have dropped the consumed stream to hold its
+    window; with ``held`` the retry reads what the task already took
+    instead of failing the task on a gone stream."""
     compression = resolve_link_codec(compression, loc)
     if loc.push:
         if local_fastpath:
@@ -243,10 +255,14 @@ def fetch_partition_batches(
             from ballista_tpu_torch.executor.push import REGISTRY, stream_key
 
             _inject_local_fetch_faults(loc, retries, backoff_ms)
-            batches = REGISTRY.take_batches(
-                stream_key(loc.job_id, loc.stage_id, loc.map_partition,
-                           loc.partition)
+            key = stream_key(
+                loc.job_id, loc.stage_id, loc.map_partition, loc.partition
             )
+            batches = None if held is None else held.get(key)
+            if batches is None:
+                batches = REGISTRY.take_batches(key)
+                if batches is not None and held is not None:
+                    held[key] = batches
             if batches is not None:
                 yield from _local_push_batches(loc, batches)
                 return
@@ -786,6 +802,10 @@ class ShuffleReaderExec(ExecutionPlan):
         self.job_id = job_id
         self.stage_id = stage_id
         self.eager = eager
+        # push batches taken from the in-process registry, kept for the
+        # task's in-task retries (see fetch_partition_batches' ``held``);
+        # a decoded stage plan lives for one task
+        self._held_push: dict = {}
 
     def schema(self) -> Schema:
         return self._schema
@@ -834,7 +854,7 @@ class ShuffleReaderExec(ExecutionPlan):
             it = fetch_partition_batches(
                 loc, retries, backoff_ms, timeout_s, compression,
                 local_fastpath, trace_ctx=trace_parent,
-                on_push_fallback=on_push_fallback,
+                on_push_fallback=on_push_fallback, held=self._held_push,
             )
             if trace_parent is None:
                 return it

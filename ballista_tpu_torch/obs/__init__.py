@@ -1,6 +1,6 @@
-"""The executor's observability (port of ``ballista_tpu/obs``): task and
-fetch spans shipped home on the poll (``trace``), the executor's latency
-histograms and their deltas (``hist``), per-operator metrics
-(``profile``) and the task attempt's cost vector (``history``). The
-reference's Prometheus exposition, query classes and history store come
-with the scheduler (ROADMAP queue 1, item 9d)."""
+"""Observability (port of ``ballista_tpu/obs``): task and fetch spans
+shipped home on the poll (``trace``), the latency histograms, their
+deltas and the scheduler's merge of them (``hist``), per-operator metrics
+(``profile``), the task attempt's cost vector and the scheduler's history
+store (``history``), and query-class fingerprints (``qclass``). The
+Prometheus exposition is ROADMAP queue 1, item 9e."""

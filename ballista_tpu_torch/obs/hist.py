@@ -1,5 +1,5 @@
-"""Mergeable, thread-safe, log-bucketed histograms: the executor's half of
-the fleet-level latency plane (port of ``ballista_tpu/obs/hist.py``,
+"""Mergeable, thread-safe, log-bucketed histograms: the fleet-level
+latency plane (port of ``ballista_tpu/obs/hist.py``,
 docs/observability.md).
 
 - :class:`Histogram` — fixed log-spaced bucket bounds, per-bucket counts
@@ -14,8 +14,12 @@ docs/observability.md).
   the module-level :data:`REGISTRY` (task-run and shuffle-fetch-wait
   durations), whose deltas ride the poll and the heartbeat home.
 
-The scheduler's half (``ingest``, quantiles, the Prometheus exposition)
-comes with the scheduler (ROADMAP queue 1, item 9d).
+``Registry.ingest`` merges shipped deltas into a registry: the
+scheduler keeps an INSTANCE registry (its own latency observations plus
+everything executors ship), distinct from the module-level one, so an
+in-process standalone cluster never counts a shipped observation twice.
+``Histogram.quantile`` interpolates inside the landing bucket. The
+Prometheus exposition comes with ROADMAP queue 1, item 9e.
 """
 
 from __future__ import annotations
@@ -55,9 +59,47 @@ class Histogram:
             self.sum += v
             self.count += 1
 
+    def merge(self, counts, total_sum: float, total_count: int) -> None:
+        """Add per-bucket (non-cumulative) deltas — the ingest path.
+        Extra trailing counts (a caller with MORE buckets than this
+        child) fold into the +Inf slot rather than vanishing: dropping
+        them while still adding ``total_count`` would leave cumulative
+        buckets that never reach ``_count`` — silently corrupt
+        quantiles. Registry.ingest rejects layout mismatches up front;
+        this is the defensive floor for direct callers."""
+        with self._lock:
+            last = len(self.counts) - 1
+            for i, c in enumerate(counts):
+                self.counts[min(i, last)] += int(c)
+            self.sum += float(total_sum)
+            self.count += int(total_count)
+
     def snapshot(self) -> tuple[list[int], float, int]:
         with self._lock:
             return list(self.counts), self.sum, self.count
+
+    def quantile(self, q: float) -> float:
+        """Estimated q-quantile (0..1) with linear interpolation inside
+        the landing bucket; 0.0 with no observations. The +Inf bucket
+        clamps to the top finite bound (nothing better is knowable)."""
+        counts, _s, total = self.snapshot()
+        if total <= 0:
+            return 0.0
+        rank = q * total
+        cum = 0
+        for i, c in enumerate(counts):
+            if not c:
+                continue
+            prev_cum = cum
+            cum += c
+            if cum >= rank:
+                if i >= len(self.buckets):
+                    return self.buckets[-1]
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                hi = self.buckets[i]
+                frac = (rank - prev_cum) / c
+                return lo + (hi - lo) * frac
+        return self.buckets[-1]
 
 class HistogramVec:
     """Named family with label dimensions; children by label values."""
@@ -210,6 +252,42 @@ class Registry:
 
 
 
+    def ingest(self, deltas: list[dict]) -> None:
+        """Merge shipped deltas (the scheduler side of the seam). Unknown
+        families are created with the delta's bounds and label names; a
+        delta whose bucket layout disagrees with the registered family
+        (a version-skewed executor after a ladder change) raises rather
+        than merging counts into the wrong bounds — the caller
+        (SchedulerServer.ingest_hists) drops the batch LOUDLY."""
+        # two-phase so the batch is all-or-nothing: resolve + validate
+        # EVERY record before merging ANY — a mid-batch mismatch must
+        # not leave earlier records merged while the caller logs the
+        # whole batch as dropped
+        resolved = []
+        for d in deltas:
+            labels = dict(d.get("labels") or {})
+            buckets = tuple(d.get("buckets") or DEFAULT_BUCKETS)
+            vec = self.histogram(
+                d["name"],
+                d.get("help") or d["name"],
+                tuple(sorted(labels)),
+                buckets,
+            )
+            if vec.buckets != buckets:
+                raise ValueError(
+                    f"{d['name']}: shipped bucket layout "
+                    f"({len(buckets)} bounds) != registered "
+                    f"({len(vec.buckets)}) — version-skewed sender?"
+                )
+            resolved.append(
+                (vec.labels(*[labels[k] for k in sorted(labels)]), d)
+            )
+        for child, d in resolved:
+            child.merge(
+                d.get("counts") or [], d.get("sum", 0.0),
+                d.get("count", 0),
+            )
+
 # Module-level registry: executor-process observations (task-run and
 # shuffle-fetch-wait durations), served by --metrics-port and drained
 # home on the poll/heartbeat RPCs. The scheduler's own registry is an
@@ -239,3 +317,17 @@ def deltas_to_proto(deltas: list[dict]):
             )
         )
     return out
+
+
+def deltas_from_proto(protos) -> list[dict]:
+    return [
+        {
+            "name": p.name,
+            "labels": {kv.key: kv.value for kv in p.labels},
+            "buckets": list(p.le),
+            "counts": list(p.counts),
+            "sum": p.sum,
+            "count": p.count,
+        }
+        for p in protos
+    ]

@@ -18,9 +18,9 @@ batch) to meter, per operator:
 
 The executor's ShippingMetricsCollector serializes
 :func:`operator_metrics` into ``CompletedTask`` so that a scheduler
-aggregates them per (job, stage, partition). The reference's EXPLAIN
-ANALYZE rendering and the scheduler's decode of these records come with
-the scheduler (ROADMAP queue 1, item 9d).
+aggregates them per (job, stage, partition) (``metrics_from_proto``,
+which the scheduler decodes them with). The reference's EXPLAIN ANALYZE
+rendering comes with the statements of ROADMAP queue 1, item 3.
 """
 
 from __future__ import annotations
@@ -181,3 +181,25 @@ def metrics_to_proto(records: list[dict]):
             )
         )
     return out
+
+
+def _num(s: str):
+    try:
+        return int(s)
+    except ValueError:
+        try:
+            return float(s)
+        except ValueError:
+            return 0
+
+
+def metrics_from_proto(protos) -> list[dict]:
+    return [
+        {
+            "path": p.path,
+            "operator": p.operator,
+            "describe": p.describe,
+            "counters": {kv.key: _num(kv.value) for kv in p.counters},
+        }
+        for p in protos
+    ]

@@ -326,3 +326,16 @@ def span_to_proto(s: Span):
             for k, v in sorted(s.attrs.items())
         ],
     )
+
+
+def span_from_proto(p) -> Span:
+    return Span(
+        trace_id=p.trace_id,
+        span_id=p.span_id,
+        parent_id=p.parent_id,
+        name=p.name,
+        start_s=p.start_s,
+        end_s=p.end_s,
+        outcome=p.status or "ok",
+        attrs={kv.key: kv.value for kv in p.attrs},
+    )

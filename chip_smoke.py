@@ -161,7 +161,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    provider=ctx)``), each with its own work directory, its own Arrow
    Flight service on 127.0.0.1 and a ``PollLoop`` of two task slots, poll
    a scheduler stand-in written here (``StandInScheduler``, served through
-   ``scheduler/rpc.add_service``; ROADMAP 9d replaces it). It plans and
+   ``scheduler/rpc.add_service``; it isolates the executors from the
+   port's scheduler, which phase 10 runs). It plans and
    splits q1, q3, q5, q12 and q18 at K = 4 as ``run_staged`` does and hands
    out each stage's TaskDefinitions, at most half a stage to one executor,
    once the stages before it completed, with their inputs resolved to the
@@ -182,7 +183,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``python -m ballista_tpu_torch.executor --device cuda`` runs as a
    subprocess (push-staged): it must register with the stand-in, heartbeat,
    and exit 0 within 10 s of a SIGTERM.
-10. One JSON line of kernel results (the one-hot kernel, and the
+10. The port's own cluster, on the tables of phase 5: the scheduler
+   (``scheduler/server.SchedulerServer``), the in-process cluster
+   (``standalone.StandaloneCluster``) and the client
+   (``client/context.BallistaContext``), every query sent as proto bytes
+   of its logical plan and its result fetched back.
+   (a) ``BallistaContext.standalone(device="cuda", n_executors=2,
+   concurrent_tasks=2)``, pull-staged, at K = 4 and every other setting at
+   its default (eager shuffle, push shuffle, the local fast path, the plan
+   verifier and the skew monitor on): q1, q3, q5, q12 and q18 one cold and
+   two warm runs each, held against phase 9's collect-mode results and the
+   numpy oracles as phase 8 (money sums of q3 and q18 bit for bit); two
+   warm runs bit-identical; each run recorded eager-fed or pushed reads
+   (the readers' shipped ``eager_polls``, the executors' push registry),
+   every hash-partitioned batch was grouped by the kernel's grouped mode
+   with one wait, and q1 launched the one-hot kernel. (b) The same five
+   push-staged, one run each, held the same way. (c) The
+   other seventeen TPC-H queries once each through cluster (a), held
+   against the card's collect-mode results of phases 4-6 (the same SQL,
+   spec constants that select nothing replaced from the data as in phase
+   6; rows sorted). (d) A fresh two-executor cluster with tight liveness
+   knobs (an executor expires after 5 s without a heartbeat, swept every
+   second; an eager reader waits 5 s for its producer) loses executor 1
+   when q3's first stage finishes: q3 still equals collect mode and the
+   scheduler reports the lost executor. (e) ``python -m
+   ballista_tpu_torch.scheduler`` and ``python -m
+   ballista_tpu_torch.executor --device cuda`` as subprocesses
+   (push-staged): the executor registers and heartbeats (the scheduler's
+   executor roster, ``GetHistory``), ``BallistaContext.remote(...,
+   device="cuda")`` opens a session, and both exit 0 within 10 s of a
+   SIGTERM. Prints per query the stages and tasks per executor, Flight MB
+   and fetch seconds, eager polls and pushed MB, cold and warm seconds
+   beside phase 9's fleet seconds and collect mode's, retries, then the
+   scheduler's queue-wait and job-latency histograms, the phase's peak
+   device memory, and replays one launch per distinct shape of each kernel
+   against its plain version.
+11. One JSON line of kernel results (the one-hot kernel, and the
    partition-hash kernel's ids and grouped modes), the card's name and
    power limit, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -1236,6 +1272,7 @@ def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -
     }
     queries["wide"] = WIDE_SQL
     out = {}
+    results: dict = {}  # query -> (SQL, last card result), for phase 10
     torch.cuda.reset_peak_memory_stats()
     onehot_agg.launches = 0  # main path starts here
     for q, sql in queries.items():
@@ -1257,6 +1294,7 @@ def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -
             cold_s=cold, warm_s=warm_s, rows=res.num_rows,
             kernel_launches_cold_run=cold_launches,
         )
+        results[q] = (sql, res)
         log(f"{q}: ok  {json.dumps(out[q])}")
     launches = onehot_agg.launches  # main path ends here
     rec.tag = None
@@ -1276,6 +1314,7 @@ def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -
     log(f"main path: kernel launches {launches}, peak device memory "
         f"{peak} bytes ({peak / 2**30:.3f} GiB)")
     out["oracles"] = oracles
+    out["results"] = results
     out["launches"] = launches
     out["peak_bytes"] = peak
     return out
@@ -1603,6 +1642,7 @@ def joins_path(
     for name, t in data.items():
         ctx.register_table(name, t)
     out = {}
+    results: dict = {}  # query -> (SQL, last card result), for phase 10
     torch.cuda.reset_peak_memory_stats()
     launches = plaunches = 0
     for q in JOIN_QUERIES:
@@ -1630,6 +1670,7 @@ def joins_path(
                 runs[-1]["table"].equals(runs[-2]["table"]),
                 f"{q}: two warm runs differ",
             )
+        results[q] = (sql, runs[-1]["table"])
         out[q] = dict(
             cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]],
             rows=runs[0]["table"].num_rows,
@@ -1658,6 +1699,7 @@ def joins_path(
             sql = (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()
             out[q]["profile"] = profile_query(ctx, q, sql)
     out["oracles"] = oracles
+    out["results"] = results
     out["launches"] = launches
     out["partition_launches"] = plaunches
     out["peak_bytes"] = peak
@@ -1757,6 +1799,7 @@ def rest_path(
     jobs += [("window", WINDOW_SQL, card, cpu), ("percentile", PERCENTILE_SQL, card_nn, cpu_nn)]
     out: dict = {}
     sqls: dict = {}
+    results: dict = {}  # query -> (SQL, the card's third run), for phase 10
     torch.cuda.reset_peak_memory_stats()
     launches = plaunches = 0
     for q, sql, on_card, on_cpu in jobs:
@@ -1810,6 +1853,7 @@ def rest_path(
                 third.column(c).equals(want.column(c)),
                 f"{q}.{c}: the card's third run differs from the CPU's",
             )
+        results[q] = (sql, third)
         out[q] = dict(
             cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]], cpu_s=cpu_s,
             rows=want.num_rows, substituted=subst,
@@ -1839,6 +1883,7 @@ def rest_path(
     if profile:
         for q, (sql, on_card) in sqls.items():
             out[q]["profile"] = profile_query(on_card, q, sql)
+    out["results"] = results
     out["launches"] = launches
     out["partition_launches"] = plaunches
     out["peak_bytes"] = peak
@@ -2487,6 +2532,7 @@ def fleet_path(data: dict, oracles: dict, staged: dict, rec: LaunchRecorder, pre
     pump.start()
     fleet = []
     out: dict = {}
+    collected: dict = {}  # query -> collect mode's result, for phase 10
     launches = plaunches = glaunches = 0
     try:
         for _ in range(2):
@@ -2572,6 +2618,7 @@ def fleet_path(data: dict, oracles: dict, staged: dict, rec: LaunchRecorder, pre
                         glaunches=partition.group_launches,
                     ))
                 check(runs[1]["table"].equals(runs[2]["table"]), f"{tag}: two warm runs differ")
+                collected[q] = want
                 st = staged[f"{q}-stages"]
                 out[tag] = dict(
                     stages=runs[0]["stages"], rows=want.num_rows,
@@ -2633,10 +2680,359 @@ def fleet_path(data: dict, oracles: dict, staged: dict, rec: LaunchRecorder, pre
         sched.stop()
     for *_, work in fleet:
         check(not os.path.exists(work), f"fleet: work directory {work} left behind")
+    out["collect"] = collected
     out["launches"] = launches
     out["partition_launches"] = plaunches
     out["grouped_launches"] = glaunches
     out["peak_bytes"] = peak
+    return out
+
+
+# -- phase 10: the port's own cluster (scheduler, standalone, client) --------
+
+CLUSTER_QUERIES = STAGED_QUERIES
+# every session of phase 10 at K = 4; all else at its default
+CLUSTER_SETTINGS = {"ballista.shuffle.partitions": str(STAGED_K)}
+# (c): the TPC-H queries (a) does not run
+CLUSTER_OTHER = tuple(f"q{i}" for i in range(1, 23) if f"q{i}" not in CLUSTER_QUERIES)
+# (d)'s liveness knobs: the executor timeout and the expiry sweep of the
+# reference's chaos tests, and an eager wait of 5 s (by default 60 s): eager
+# consumers may hold every slot of the surviving executor while the
+# producers they wait for are requeued, and only the eager-wait deadline
+# frees one
+LOSS_SETTINGS = {**CLUSTER_SETTINGS, "ballista.tpu.eager_wait_s": "5"}
+
+
+def job_readers(job) -> dict:
+    """The job's shuffle readers' counters, summed over the operator
+    metrics its tasks shipped home."""
+    out: dict = {}
+    for records in job.op_metrics.values():
+        for r in records:
+            if r["operator"] == "ShuffleReaderExec":
+                for k, v in r["counters"].items():
+                    out[k] = out.get(k, 0) + v
+    return out
+
+
+def hist_summary(vec) -> dict:
+    """One histogram family of the scheduler by label: count, sum, p50, p90."""
+    out = {}
+    for labels, h in vec.children():
+        _, total, count = h.snapshot()
+        out["/".join(labels) or "-"] = dict(
+            count=count, sum_s=total, p50_s=h.quantile(0.5), p90_s=h.quantile(0.9)
+        )
+    return out
+
+
+def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, fleet: dict,
+                 rec: LaunchRecorder, prec: PartitionRecorder, pkg_root: pathlib.Path) -> dict:
+    """(a)-(e) of phase 10: the port's scheduler, cluster and client.
+    ``collected``: phase 9's collect-mode results of the five queries;
+    ``earlier``: query -> (SQL, the card's collect-mode result) of phases
+    4-6 for the other seventeen. Every launch of the phase keeps the inputs
+    of the first launch at its shape, on the host, for the replay."""
+    import torch
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig, TaskSchedulingPolicy
+    from ballista_tpu_torch.exec import spill
+    from ballista_tpu_torch.executor import push, reader, shuffle
+    from ballista_tpu_torch.ops import onehot_agg, partition
+
+    sqls = {q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in CLUSTER_QUERIES}
+    out: dict = {}
+    launches = plaunches = glaunches = 0
+
+    def cluster(settings: dict, **kw) -> BallistaContext:
+        ctx = BallistaContext.standalone(
+            BallistaConfig(settings), device="cuda", n_executors=2, concurrent_tasks=2, **kw
+        )
+        for name, tab in data.items():
+            ctx.register_table(name, tab)
+        return ctx
+
+    def one_run(ctx, sql: str) -> dict:
+        """One query through the cluster, its counts set to 0 just before
+        and read just after."""
+        nonlocal launches, plaunches, glaunches
+        sched = ctx._standalone_cluster.scheduler
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        spill.reset_stats(shuffle.stats)
+        reader.reset_stats()
+        retries.counts.clear()
+        pushed0 = push.REGISTRY.total_pushed
+        jobs0 = set(sched.jobs)
+        t = time.perf_counter()
+        res = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches += onehot_agg.launches
+        plaunches += partition.launches
+        glaunches += partition.group_launches
+        (job_id,) = set(sched.jobs) - jobs0
+        job = sched.jobs[job_id]
+        check(job.status == "completed", f"job {job_id}: {job.status} {job.error}")
+        rd = job_readers(job)
+        per_exec: dict = {}
+        for st in job.stage_stats or []:
+            for task in st["tasks"]:
+                per_exec[task["executor_id"]] = per_exec.get(task["executor_id"], 0) + 1
+        return dict(
+            s=secs, table=res, stages=len(job.stages), tasks=per_exec,
+            launches=onehot_agg.launches, plaunches=partition.launches,
+            glaunches=partition.group_launches, write=dict(shuffle.stats),
+            flight_mb=reader.stats["flight_bytes"] / 2**20, fetch_s=rd.get("fetch_time", 0.0),
+            eager_polls=int(rd.get("eager_polls", 0)), eager_waits=int(rd.get("eager_waits", 0)),
+            pushed_mb=(push.REGISTRY.total_pushed - pushed0) / 2**20,
+            task_retries=job.total_retries, recomputes=job.total_recomputes,
+            capacity_retries=dict(retries.counts),
+        )
+
+    def held(tag: str, q: str, r: dict) -> None:
+        """(a) and (b): against collect mode and the oracles as phase 8,
+        every hash-partitioned batch grouped with one wait, and reads that
+        were eager-fed or pushed."""
+        res, want = r["table"], collected[q]
+        compare_tables(tag, res, want)
+        for c in STAGED_EXACT.get(q, ()):
+            check(res.column(c).equals(want.column(c)), f"{tag}: {c} not bit for bit")
+        if q in oracles:
+            compare(tag, res, oracles[q])
+        check(
+            r["write"]["waits"] == r["write"]["batches"] == r["glaunches"] > 0,
+            f"{tag}: {r['write']['waits']} waits, {r['glaunches']} grouped launches for "
+            f"{r['write']['batches']} hash-partitioned batches",
+        )
+        check(r["eager_polls"] > 0 or r["pushed_mb"] > 0, f"{tag}: no eager-fed or pushed read")
+
+    def summary(q: str, runs: list) -> dict:
+        fl = fleet[f"{q}-fleet"]
+        return dict(
+            stages=runs[0]["stages"], tasks_per_executor=[sorted(r["tasks"].values()) for r in runs],
+            flight_mb=[r["flight_mb"] for r in runs], fetch_s=[r["fetch_s"] for r in runs],
+            eager_polls=[r["eager_polls"] for r in runs], eager_waits=[r["eager_waits"] for r in runs],
+            pushed_mb=[r["pushed_mb"] for r in runs],
+            cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]],
+            fleet_cold_s=fl["cold_s"], fleet_warm_s=fl["warm_s"],
+            collect_cold_s=fl["collect_cold_s"], collect_warm_s=fl["collect_warm_s"],
+            task_retries=[r["task_retries"] for r in runs], recomputes=[r["recomputes"] for r in runs],
+            capacity_retries=[r["capacity_retries"] for r in runs],
+            onehot_launches=[r["launches"] for r in runs],
+            partition_launches=[r["plaunches"] for r in runs],
+            grouped_launches=[r["glaunches"] for r in runs],
+        )
+
+    torch.cuda.reset_peak_memory_stats()
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = True
+    try:
+        with RetryCounter() as retries:
+            # (a) default settings, pull-staged, then (c) on the same
+            # cluster; (b) push-staged
+            for part, policy, n_runs in (
+                ("cluster", TaskSchedulingPolicy.PULL_STAGED, 3),
+                # one run: the phase's time went over two minutes with a
+                # warm one (its aim), and (a) holds the warm runs
+                ("cluster-push", TaskSchedulingPolicy.PUSH_STAGED, 1),
+            ):
+                t0 = time.perf_counter()
+                ctx = cluster(CLUSTER_SETTINGS, policy=policy)
+                try:
+                    for q in CLUSTER_QUERIES:
+                        tag = f"{q}-{part}"
+                        rec.tag = prec.tag = tag
+                        runs = []
+                        for i in range(n_runs):
+                            runs.append(one_run(ctx, sqls[q]))
+                            held(f"{tag} run {i}", q, runs[-1])
+                        if part == "cluster":
+                            check(runs[1]["table"].equals(runs[2]["table"]), f"{tag}: two warm runs differ")
+                        out[tag] = summary(q, runs)
+                        log(f"{tag}: ok  {json.dumps(out[tag])}")
+                    check(min(out[f"q1-{part}"]["onehot_launches"]) > 0, f"q1-{part}: no one-hot launch")
+                    for q in CLUSTER_OTHER if part == "cluster" else ():
+                        sql, want = earlier[q]
+                        rec.tag = prec.tag = f"{q}-cluster"
+                        r = one_run(ctx, sql)
+                        key = [(c, "ascending") for c in want.column_names]
+                        compare_tables(f"{q}-cluster", r["table"].sort_by(key), want.sort_by(key))
+                        out[f"{q}-cluster"] = dict(
+                            rows=want.num_rows, stages=r["stages"],
+                            tasks_per_executor=sorted(r["tasks"].values()), s=r["s"],
+                            eager_polls=r["eager_polls"], pushed_mb=r["pushed_mb"],
+                            task_retries=r["task_retries"], capacity_retries=r["capacity_retries"],
+                            onehot_launches=r["launches"], partition_launches=r["plaunches"],
+                            grouped_launches=r["glaunches"],
+                        )
+                        log(f"{q}-cluster: ok  {json.dumps(out[f'{q}-cluster'])}")
+                    sched = ctx._standalone_cluster.scheduler
+                    out[f"{part}_hists"] = dict(
+                        queue_wait=hist_summary(sched._h_queue_wait),
+                        job_latency=hist_summary(sched._h_job_latency),
+                    )
+                    log(f"{part} scheduler histograms: {json.dumps(out[f'{part}_hists'])}")
+                finally:
+                    rec.tag = prec.tag = None
+                    ctx.close()
+                out[f"{part}_s"] = time.perf_counter() - t0
+
+            # (d) executor loss between q3's stages
+            t0 = time.perf_counter()
+            ctx = cluster(LOSS_SETTINGS, executor_timeout_s=5.0, expiry_check_interval_s=1.0)
+            try:
+                cl = ctx._standalone_cluster
+                sched = cl.scheduler
+                killed: list = []
+                expired: list = []
+                finished, sweep = sched._on_stage_finished, sched.check_expired_executors
+
+                def on_stage_finished(job_id, stage_id):
+                    if not killed:
+                        killed.append(cl.kill_executor(1))
+                    finished(job_id, stage_id)
+
+                def check_expired():
+                    ids = sweep()
+                    expired.extend(ids)
+                    return ids
+
+                sched._on_stage_finished = on_stage_finished
+                sched.check_expired_executors = check_expired
+                rec.tag = prec.tag = "q3-loss"
+                r = one_run(ctx, sqls["q3"])
+                rec.tag = prec.tag = None
+                deadline = time.time() + 15
+                while not expired and time.time() < deadline:
+                    time.sleep(0.1)
+                check(bool(killed) and expired == killed, f"loss: killed {killed}, scheduler reported {expired}")
+                compare_tables("q3-loss", r["table"], collected["q3"])
+                if "q3" in oracles:
+                    compare("q3-loss", r["table"], oracles["q3"])
+                check(r["task_retries"] + r["recomputes"] > 0, "loss: nothing of the killed executor was recomputed")
+                out["q3-loss"] = dict(
+                    s=r["s"], killed=killed, reported=expired, task_retries=r["task_retries"],
+                    recomputes=r["recomputes"], tasks_per_executor=r["tasks"],
+                    eager_polls=r["eager_polls"], eager_waits=r["eager_waits"],
+                    onehot_launches=r["launches"], grouped_launches=r["glaunches"],
+                )
+                log(f"q3-loss: ok  {json.dumps(out['q3-loss'])}")
+            finally:
+                rec.tag = prec.tag = None
+                ctx.close()
+            out["loss_s"] = time.perf_counter() - t0
+    finally:
+        rec.tag = prec.tag = None
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
+    peak = torch.cuda.max_memory_allocated()
+    log(f"cluster: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    for r in (rec, prec):
+        for tag in r.shapes:
+            if tag.endswith(("-cluster", "-cluster-push", "-loss")):
+                missing = set(r.shapes[tag]) - set(r.inputs)
+                check(not missing, f"{tag}: no inputs kept for launch shapes {sorted(missing)}")
+
+    # (e) the scheduler and executor processes
+    t0 = time.perf_counter()
+    out["processes"] = process_cluster(pkg_root)
+    out["processes_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    out["partition_launches"] = plaunches
+    out["grouped_launches"] = glaunches
+    out["peak_bytes"] = peak
+    return out
+
+
+def process_cluster(pkg_root: pathlib.Path) -> dict:
+    """``python -m ballista_tpu_torch.scheduler`` and ``python -m
+    ballista_tpu_torch.executor --device cuda``, push-staged: the executor
+    registers and heartbeats, a remote client opens a session, and both
+    processes exit 0 within 10 s of a SIGTERM."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import grpc
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.proto import pb
+    from ballista_tpu_torch.scheduler.rpc import scheduler_stub
+
+    def start(args: list):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=pkg_root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        lines: list = []
+        threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True).start()
+        return proc, lines
+
+    work = tempfile.mkdtemp(prefix="ballista_cluster_proc-")
+    sched, sched_out = start([
+        "ballista_tpu_torch.scheduler", "--bind-host", "127.0.0.1", "--bind-port", "0",
+        "--scheduler-policy", "push-staged", "--executor-timeout-seconds", "30",
+    ])
+    ex = None
+    out: dict = {}
+    try:
+        deadline = time.time() + 60
+        port = None
+        while port is None and time.time() < deadline and sched.poll() is None:
+            m = re.search(r"gRPC on 127\.0\.0\.1:(\d+)", "".join(sched_out))
+            port = int(m.group(1)) if m else None
+            time.sleep(0.1)
+        check(port is not None, "scheduler process did not start:\n" + "".join(sched_out[-40:]))
+        ex, ex_out = start([
+            "ballista_tpu_torch.executor", "--device", "cuda", "--bind-host", "127.0.0.1",
+            "--external-host", "127.0.0.1", "--bind-port", "0", "--bind-grpc-port", "0",
+            "--scheduler-host", "127.0.0.1", "--scheduler-port", str(port),
+            "--task-scheduling-policy", "push-staged", "--concurrent-tasks", "1", "--work-dir", work,
+        ])
+        roster: list = []
+        first = beat = None
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            stub = scheduler_stub(ch)
+            deadline = time.time() + 60
+            # registered (the roster's first sighting), then a heartbeat
+            # (its last sighting moves on; the executor beats every 15 s)
+            while beat is None and time.time() < deadline and ex.poll() is None:
+                roster = json.loads(stub.GetHistory(pb.GetHistoryParams(kind="executors")).payload or b"[]")
+                if roster and roster[0]["alive"]:
+                    seen = time.time() - roster[0]["last_heartbeat_age_s"]
+                    if first is None:
+                        first = seen
+                    elif seen > first + 1.0:
+                        beat = seen - first
+                time.sleep(0.5)
+        check(ex.poll() is None, "executor process exited early:\n" + "".join(ex_out[-40:]))
+        check(len(roster) == 1 and beat is not None,
+              f"executor process: roster {roster}, heartbeat after registration {beat}")
+        client = BallistaContext.remote("127.0.0.1", port, device="cuda")
+        try:
+            check(bool(client.session_id), "remote client: no session")
+            out["session"] = client.session_id
+        finally:
+            client.close()
+        stops = {}
+        for name, proc, lines in (("executor", ex, ex_out), ("scheduler", sched, sched_out)):
+            t = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=10)
+            stops[name] = time.perf_counter() - t
+            check(rc == 0, f"{name} process exited {rc} on SIGTERM:\n" + "".join(lines[-40:]))
+        out.update(
+            roster=roster, heartbeat_after_s=beat, stop_s=stops,
+            device_line=next((line.strip() for line in ex_out if "device=cuda" in line), ""),
+        )
+        log(f"cluster processes: ok  {json.dumps(out)}")
+    finally:
+        for proc in (ex, sched):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -2777,6 +3173,17 @@ def main() -> int:
         fleet_replays = replay_partition_launches(prec)
         preplays += fleet_replays
         log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
+
+        # 10. the port's own cluster: the scheduler, standalone, the client
+        t0 = time.perf_counter()
+        earlier = {**mp["results"], **jp["results"], **rp["results"]}
+        cp = cluster_path(
+            data, oracles, fp["collect"], {q: earlier[q] for q in CLUSTER_OTHER}, fp, rec, prec, pkg_root
+        )
+        replays += replay_launches(rec)
+        cluster_replays = replay_partition_launches(prec)
+        preplays += cluster_replays
+        log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
     for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
     for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist") + tuple(
@@ -2784,27 +3191,30 @@ def main() -> int:
     ):
         check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
     for q in STAGED_QUERIES:
-        for path in ("stages", "fleet"):
+        for path in ("stages", "fleet", "cluster", "cluster-push"):
             check(
-                any(m == "grouped" for _, _, _, m in prec.shapes[f"{q}-{path}"]),
+                any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-{path}", [])),
                 f"{q}-{path}: no grouped launch recorded",
             )
-    check(bool(rec.shapes.get("q1-stages")), "q1-stages: no one-hot launch recorded")
-    check(bool(rec.shapes.get("q1-fleet")), "q1-fleet: no one-hot launch recorded")
+    for path in ("stages", "fleet", "cluster", "cluster-push"):
+        check(bool(rec.shapes.get(f"q1-{path}")), f"q1-{path}: no one-hot launch recorded")
     q1, q1_now = cases[0], cases[7]
     # the partition kernel's modes at the spills' shape (2^21 rows, one
     # int32 key, K = 64), from phase 3's timing
     ids, grouped = (
         next(r for r in ptiming if r["n"] == 1 << 21 and r["mode"] == m) for m in ("ids", "grouped")
     )
-    # launches of the main path (phases 5-8): the ids and hash-only modes
+    # launches of the main path (phases 5-10): the ids and hash-only modes
     # (repartitions, hash-packed join keys) and the grouped mode (spills,
     # the shuffle writes)
     plaunches = (
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
-        + sp["partition_launches"] + fp["partition_launches"]
+        + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
     )
-    glaunches = gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
+    glaunches = (
+        gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
+        + cp["grouped_launches"]
+    )
 
     # 10. results
     kernels = [{
@@ -2815,10 +3225,11 @@ def main() -> int:
         # the paths' runs: q1, q6 and wide; q3-q18 (q4, q5 launch it); the
         # rest of TPC-H (q12, q22 and others), the window and the percentile;
         # the budgeted q3, q5, q18 and the distributed q1, q12, q3; the
-        # staged q1, q3, q5, q12, q18; the same on the executor fleet
+        # staged q1, q3, q5, q12, q18; the same on the executor fleet and on
+        # the port's cluster, with the other TPC-H queries there
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
-            + fp["launches"]
+            + fp["launches"] + cp["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -2839,7 +3250,7 @@ def main() -> int:
         "source": "ballista_tpu_torch/csrc/partition_hash.cu",
         "replaces": "ballista_tpu/ops/partition.py:59",
         "launches": launches,
-        # every comparison of phases 3 and 5-8 is bit for bit
+        # every comparison of phases 3 and 5-10 is bit for bit
         "max_abs_err": max([pkernel["max_abs_err"]] + [r["max_abs_err"] for r in preplays]),
         "ms": r["ms"],
         "device_ms": r["device_ms"],
@@ -2852,11 +3263,11 @@ def main() -> int:
         "shape": [r["n"], 1, r["K"]],
     } for name, r, launches in (
         # the ids and hash-only modes: phase 7's repartitions and the
-        # hash-packed join keys of phases 5, 6, 8 and 9; ids at the spills'
-        # shape
+        # hash-packed join keys of phases 5, 6, 8, 9 and 10; ids at the
+        # spills' shape
         ("partition_hash", ids, plaunches - glaunches),
         # the grouped mode: every spilled batch of phase 7, every
-        # hash-partitioned batch phases 8 and 9 write
+        # hash-partitioned batch phases 8, 9 and 10 write
         ("partition_groups", grouped, glaunches),
     )]
     log(json.dumps({
@@ -2885,6 +3296,11 @@ def main() -> int:
         "fleet_queries": {q: v for q, v in fp.items() if q.endswith("-fleet")},
         "fleet_process": fp["process"],
         "fleet_peak_bytes": fp["peak_bytes"],
+        "cluster_queries": {q: v for q, v in cp.items() if q.endswith(("-cluster", "-cluster-push", "-loss"))},
+        "cluster_hists": {k: v for k, v in cp.items() if k.endswith("_hists")},
+        "cluster_seconds": {k: v for k, v in cp.items() if k.endswith("_s")},
+        "cluster_processes": cp["processes"],
+        "cluster_peak_bytes": cp["peak_bytes"],
         "sf": args.sf,
     }))
     log(smi)

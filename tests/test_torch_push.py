@@ -300,6 +300,41 @@ def test_reader_fetch_uses_local_registry_then_file(tmp_path):
     assert got[0].equals(rb) and hits == [1]
 
 
+def test_reader_keeps_taken_push_batches_for_in_task_retries(tmp_path):
+    """A task's in-task capacity retry reads its inputs again: the reader
+    serves the push batches its task took even after the registry dropped
+    the consumed stream to hold its window, while another task's reader
+    (a new decoded plan) finds the stream gone and fails for lineage
+    recompute."""
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.datatypes import DataType, Field, Schema
+    from ballista_tpu_torch.exec.base import TaskContext
+    from ballista_tpu_torch.executor.push import REGISTRY
+    from ballista_tpu_torch.executor.reader import ShuffleReaderExec
+
+    key = stream_key("jheld", 3, 0, 0)
+    loc = push_loc(str(tmp_path), 1, key)
+    s = REGISTRY.open(key, loc.path, str(tmp_path), None)
+    REGISTRY.append(s, rb_of(40), 1 << 30)
+    REGISTRY.seal(s)
+    schema = Schema([Field("k", DataType.INT64, True), Field("v", DataType.FLOAT64, True)])
+    cfg = BallistaConfig({"ballista.tpu.fetch_retries": "1"})
+
+    def rows(reader):
+        ctx = TaskContext(config=cfg, device="cpu")
+        return sum(int(b.count_valid()) for b in reader.execute(0, ctx))
+
+    reader = ShuffleReaderExec([[loc]], schema, job_id="jheld", stage_id=3)
+    try:
+        assert rows(reader) == 40
+    finally:
+        REGISTRY.drop_owner(str(tmp_path))
+    assert REGISTRY.take_batches(key) is None
+    assert rows(reader) == 40  # the retry of the same task
+    with pytest.raises(ShuffleFetchError):
+        rows(ShuffleReaderExec([[loc]], schema, job_id="jheld", stage_id=3))
+
+
 # -- codecs, serde of the push fields -----------------------------------------
 
 

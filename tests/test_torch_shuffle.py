@@ -511,8 +511,6 @@ NON_DEFAULT = {
     "ballista.plugin_dir": "/plugins",
     "ballista.with_information_schema": "true",
     "ballista.tpu.capacity_buckets": "4096:2",
-    "ballista.tpu.cost_accounting": "false",
-    "ballista.tpu.history_retention_jobs": "8",
     "ballista.parquet.pruning": "false",
     "ballista.tpu.scan_stream_mb": "0",
     "ballista.tpu.prefetch_depth": "0",
@@ -520,8 +518,8 @@ NON_DEFAULT = {
     "ballista.tpu.profile_dir": "/tmp/prof",
     "ballista.tpu.trace": "on",
     "ballista.tpu.prewarm": "on",
-    "ballista.tpu.verify_plans": "false",
     "ballista.tpu.collective_shuffle": "false",
+    "ballista.tpu.aqe": "true",
 }
 
 
