@@ -13,10 +13,13 @@ Port of ``ballista_tpu/client/context.py`` over :class:`TorchContext`. The
 client plans logically and never runs an operator, but it is a
 ``TorchContext``, so ``device`` (default ``"cuda"``) follows the port's
 rule: without a card it raises unless asked for the CPU. ``standalone``
-passes the device down to its executors. Where the port differs: a query
-over ``system.*`` raises ``PlanError`` (the system tables are ROADMAP
-queue 1, item 3), and a statement other than SELECT goes to
-``TorchContext.sql``, which raises naming the same item.
+passes the device down to its executors. Statements (``CREATE EXTERNAL
+TABLE``, ``DROP TABLE``, ``SHOW``, ``EXPLAIN``) run client-side through
+``TorchContext.sql``; a file table's source travels in the logical plan,
+so the executors open the file themselves. ``table()`` and ``read_*``
+return remote frames, and every frame derived from one stays remote.
+Where the port differs: a query over ``system.*`` raises ``PlanError``
+(the system tables are ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -139,6 +142,9 @@ class BallistaContext(TorchContext):
         reswitness.release(self._channel_token)
         self._channel_token = None
 
+    def _frame(self, logical: LogicalPlan) -> DataFrame:
+        return RemoteDataFrame(self, logical)
+
     # -- query execution ------------------------------------------------------
     def sql(self, sql: str) -> DataFrame:
         stmt = parse_sql(sql)
@@ -146,7 +152,7 @@ class BallistaContext(TorchContext):
         if not isinstance(stmt, (ast.Select, ast.SetOp)):
             return super().sql(sql)
         logical = SqlPlanner(self).plan(stmt)
-        frame = RemoteDataFrame(self, logical)
+        frame = self._frame(logical)
         frame._sql = sql  # verifier diagnostics carry a source span
         return frame
 
@@ -277,9 +283,11 @@ class BallistaContext(TorchContext):
 
 
 class RemoteDataFrame(DataFrame):
-    """DataFrame whose collect() submits to the scheduler."""
-
-    _sql: str | None = None
+    """DataFrame whose collect() submits to the scheduler. The builder
+    methods are inherited: each derives another RemoteDataFrame, so a
+    chain started from ``table()`` or ``read_*()`` runs remotely."""
 
     def collect(self) -> pa.Table:
+        if self._const is not None:
+            return self._const
         return self.ctx.collect_logical(self.logical, sql=self._sql)

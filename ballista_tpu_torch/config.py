@@ -218,11 +218,7 @@ _ENTRIES: dict[str, tuple[str, object]] = {
 # A non-default value raises where the reference would use it.
 UNPORTED: dict[str, str] = {
     BALLISTA_PLUGIN_DIR: "ROADMAP queue 1, item 10a (UDF plugins)",
-    BALLISTA_WITH_INFORMATION_SCHEMA: "ROADMAP queue 1, item 3 (SHOW statements)",
     BALLISTA_CAPACITY_BUCKETS: "ROADMAP queue 1, item 3 (the capacity ladder)",
-    BALLISTA_PARQUET_PRUNING: "ROADMAP queue 1, item 3 (file scans)",
-    BALLISTA_SCAN_STREAM_MB: "ROADMAP queue 1, item 3 (file scans)",
-    BALLISTA_PREFETCH_DEPTH: "ROADMAP queue 1, item 3 (file scans)",
     BALLISTA_BUILD_CACHE_MB: "ROADMAP queue 1, item 6 (the build-table cache)",
     BALLISTA_PROFILE_DIR: "ROADMAP queue 1, item 10b (trace hooks)",
     # executors record and ship task and fetch spans; the local context
@@ -307,6 +303,18 @@ class BallistaConfig:
 
     def repartition_aggregations(self) -> bool:
         return self._get(BALLISTA_REPARTITION_AGGREGATIONS)
+
+    def parquet_pruning(self) -> bool:
+        return self._get(BALLISTA_PARQUET_PRUNING)
+
+    def with_information_schema(self) -> bool:
+        return self._get(BALLISTA_WITH_INFORMATION_SCHEMA)
+
+    def scan_stream_mb(self) -> int:
+        return self._get(BALLISTA_SCAN_STREAM_MB)
+
+    def prefetch_depth(self) -> int:
+        return self._get(BALLISTA_PREFETCH_DEPTH)
 
     def hbm_budget_mb(self) -> int:
         return self._get(BALLISTA_HBM_BUDGET_MB)

@@ -1,17 +1,20 @@
-"""Row-pipeline operators: Filter, Projection, Coalesce, Rename (port of
-``ballista_tpu/exec/pipeline.py``).
+"""Row-pipeline operators: Filter, Projection, Coalesce, Rename, and the
+streamed scan's prefetch (port of ``ballista_tpu/exec/pipeline.py``).
 
 Filter and Projection are per-batch functions. As in the reference, the
 outermost operator of a Filter/Projection chain runs the whole chain on
 each batch of the chain's source; here that is a plain Python loop over the
-operators (eager torch has no program to fuse). RenameExec relabels a
-subquery's columns. The reference's adaptive capacity shrink
-(``exec/shrink.py``) does not change results and is ROADMAP queue 1,
-item 5.
+operators (eager torch has no program to fuse). Inside :func:`unfused`
+(EXPLAIN ANALYZE) every operator runs on its own, so each one meters its
+own rows. RenameExec relabels a subquery's columns. The reference's
+adaptive capacity shrink (``exec/shrink.py``) does not change results and
+is ROADMAP queue 1, item 5.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Iterator
 
 import torch
@@ -23,9 +26,78 @@ from ballista_tpu_torch.expr import logical as L
 from ballista_tpu_torch.expr.physical import compile_expr
 
 
+def prefetch_slices(load, items, depth: int, metrics=None):
+    """Run ``load(item)`` on one background host thread, keeping up to
+    ``depth`` results in flight beyond the one being consumed, and yield
+    the results in order (``depth`` <= 0: load each in turn, no thread).
+
+    The streamed Parquet scan's overlap of reads with compute: while the
+    card works through slice i's batches, the worker reads and decodes
+    slice i+1 and uploads it. The upload is a plain copy from pageable
+    host memory on the default stream, which orders it before any later
+    kernel that reads the batch, whichever thread launches it. One worker
+    keeps host memory at ``depth + 1`` slices and the read order.
+
+    ``metrics`` records ``prefetch_hits`` (the result was ready when the
+    consumer asked) and ``prefetch_misses`` (the consumer waited; the first
+    slice always misses)."""
+    items = list(items)
+    if depth <= 0 or len(items) <= 1:
+        for it in items:
+            yield load(it)
+        return
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ballista_tpu_torch.analysis import reswitness
+
+    ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="scan-prefetch")
+    pool_tok = reswitness.acquire("thread-pool", "scan-prefetch")
+    try:
+        pending: deque = deque()
+        idx = 0
+        # fill to depth, not depth+1: the consumer holds one result after
+        # the first yield, so depth+1 slices are resident
+        while idx < len(items) and len(pending) < depth:
+            pending.append(ex.submit(load, items[idx]))
+            idx += 1
+        while pending:
+            fut = pending.popleft()
+            if metrics is not None:
+                metrics.add("prefetch_hits" if fut.done() else "prefetch_misses")
+            out = fut.result()
+            if idx < len(items):
+                pending.append(ex.submit(load, items[idx]))
+                idx += 1
+            yield out
+    finally:
+        # an abandoned consumer (LIMIT) must not leave the worker reading
+        # a file the caller is about to close
+        ex.shutdown(wait=True, cancel_futures=True)
+        reswitness.release(pool_tok)
+
+
+_FUSION = threading.local()
+
+
+@contextlib.contextmanager
+def unfused():
+    """Within this block, on this thread, every Filter and Projection runs
+    on its own instead of as a chain (the reference's
+    ``BALLISTA_TPU_NO_FUSE``, scoped to the caller's thread)."""
+    prev = getattr(_FUSION, "off", False)
+    _FUSION.off = True
+    try:
+        yield
+    finally:
+        _FUSION.off = prev
+
+
 def fusable_chain(plan: ExecutionPlan):
     """(source, ops): the maximal Filter/Projection chain hanging off
     ``plan``, ops innermost-first; source is the first other input."""
+    if getattr(_FUSION, "off", False):
+        return plan.input, [plan]
     ops: list[ExecutionPlan] = []
     p = plan
     while isinstance(p, (FilterExec, ProjectionExec)):

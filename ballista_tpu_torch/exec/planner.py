@@ -9,8 +9,9 @@ collect-mode hash joins (RIGHT flipped to LEFT, FULL as LEFT UNION ALL a
 padded ANTI, the build side of a SEMI or ANTI join without a residual
 filter deduplicated on its keys), cross joins broadcast a one-row side, a
 subquery alias renames, and windows and percentiles gather their input.
-File scans raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+A file table describes itself (``TableScan.source``), so its scan needs no
+catalog; a provider that registered the same file lends the scan its
+registration-lifetime ``scan_cache`` (``file_scan_cache``).
 
 With ``distributed=True`` it plans for the multi-executor tier, as the
 reference does: a hash repartition on the group keys between a GROUP BY's
@@ -30,6 +31,7 @@ from ballista_tpu_torch.exec.base import ExecutionPlan
 from ballista_tpu_torch.exec.joins import CrossJoinExec, EmptyExec, HashJoinExec, UnionExec
 from ballista_tpu_torch.exec.percentile import PercentileExec
 from ballista_tpu_torch.exec.repartition import HashRepartitionExec
+from ballista_tpu_torch.exec.scan import AvroScanExec, CsvScanExec, ParquetScanExec
 from ballista_tpu_torch.exec.pipeline import (
     CoalescePartitionsExec,
     FilterExec,
@@ -88,13 +90,29 @@ class PhysicalPlanner:
 
     def _plan(self, node: P.LogicalPlan) -> ExecutionPlan:
         if isinstance(node, P.TableScan):
-            if node.source is not None:
-                raise NotImplementedError(
-                    f"file scans ({node.source[0]}) are not ported yet "
-                    "(ROADMAP queue 1, item 3)"
-                )
             projection = list(node.projection) if node.projection else None
-            scan = self.provider.scan(node.table_name, projection, self.partitions)
+            if node.source is not None and node.source[0] in ("csv", "parquet", "avro"):
+                kind, path, has_header, delimiter = node.source
+                lend = getattr(self.provider, "file_scan_cache", None)
+                cache = lend(node.table_name, node.source) if lend is not None else None
+                if kind == "csv":
+                    scan: ExecutionPlan = CsvScanExec(
+                        path, node.source_schema, has_header, delimiter,
+                        projection, self.partitions, scan_cache=cache,
+                    )
+                elif kind == "avro":
+                    scan = AvroScanExec(
+                        path, node.source_schema, projection, self.partitions, scan_cache=cache
+                    )
+                else:
+                    scan = ParquetScanExec(
+                        path, node.source_schema, projection, self.partitions,
+                        predicates=list(node.filters), scan_cache=cache,
+                    )
+            else:
+                scan = self.provider.scan(node.table_name, projection, self.partitions)
+                if isinstance(scan, ParquetScanExec):
+                    scan.predicates = list(node.filters)
             scan.table_name = node.table_name
             for f in node.filters:
                 scan = FilterExec(scan, f)

@@ -16,11 +16,11 @@ batch) to meter, per operator:
   iterator, i.e. cumulative over the operator and its inputs (the Spark
   UI convention; subtracting a child's elapsed gives self time).
 
-The executor's ShippingMetricsCollector serializes
-:func:`operator_metrics` into ``CompletedTask`` so that a scheduler
-aggregates them per (job, stage, partition) (``metrics_from_proto``,
-which the scheduler decodes them with). The reference's EXPLAIN ANALYZE
-rendering comes with the statements of ROADMAP queue 1, item 3.
+The same counters feed two consumers: ``EXPLAIN ANALYZE`` renders
+:func:`annotated_display`, and the executor's ShippingMetricsCollector
+serializes :func:`operator_metrics` into ``CompletedTask`` so that a
+scheduler aggregates them per (job, stage, partition)
+(``metrics_from_proto``, which the scheduler decodes them with).
 """
 
 from __future__ import annotations
@@ -203,3 +203,28 @@ def metrics_from_proto(protos) -> list[dict]:
         }
         for p in protos
     ]
+
+
+def annotated_display(plan) -> str:
+    """The physical plan's display with each operator's measured rows,
+    bytes and elapsed seconds (the EXPLAIN ANALYZE body)."""
+    resolve_device_counters(plan)
+    lines = []
+    for path, node in walk_paths(plan):
+        counters = dict(node.metrics.summary())
+        rows = counters.pop("output_rows", None)
+        nbytes = counters.pop("output_bytes", None)
+        elapsed = counters.pop("elapsed", None)
+        parts = []
+        if rows is not None:
+            parts.append(f"rows={int(rows)}")
+        if nbytes is not None:
+            parts.append(f"bytes={int(nbytes)}")
+        if elapsed is not None:
+            parts.append(f"elapsed={float(elapsed):.6f}s")
+        parts += [f"{k}={v}" for k, v in sorted(counters.items())]
+        line = "  " * path.count(".") + node.describe()
+        if parts:
+            line += "  [" + ", ".join(parts) + "]"
+        lines.append(line)
+    return "\n".join(lines)

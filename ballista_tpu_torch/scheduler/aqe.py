@@ -51,6 +51,17 @@ def enabled(cfg) -> bool:
     return False
 
 
+def narrate(ctx, optimized) -> str:
+    """EXPLAIN ANALYZE's AQE line. With AQE off and no strategy learned,
+    the only state the port has (the strategy store is item 9e), the
+    reference's line says so without planning anything."""
+    return (
+        "aqe=off: no learned strategies in this process (enable "
+        "ballista.tpu.aqe to adapt; the distributed query class "
+        "is computed when AQE is on or strategies exist)"
+    )
+
+
 # ---------------------------------------------------------------------------
 # runtime-stats gathering
 # ---------------------------------------------------------------------------

@@ -23,7 +23,10 @@ scheduler needs no card. Where the port differs:
   ``apply_certified_rewrite`` and the rewrites it applies are left out,
   and a session or process that turns AQE on is refused with
   ``ConfigError`` (ROADMAP queue 1, item 9e).
-- **GetFileMetadata** raises: file scans are ROADMAP queue 1, item 3.
+- **File tables**: a query's file scans are planned from the source in
+  its logical plan; the scheduler reads no row of the file (row groups are
+  pruned when an executor runs the task). ``GetFileMetadata`` reads a
+  Parquet footer only.
 - **No KEDA external scaler** on the gRPC port (ROADMAP queue 1, item
   9e); ``desired_executors`` still computes its signal.
 """
@@ -2940,15 +2943,21 @@ class SchedulerGrpcServicer:
         return pb.UpdateTaskStatusResult(success=True)
 
     def GetFileMetadata(self, request, context):
-        """Parquet schema inference (ref grpc.rs:279-326) needs file
-        scans, which are not ported: the call fails naming their item."""
+        """Parquet-only schema inference (ref grpc.rs:279-326): the footer
+        is read on the host; the card is not touched."""
         import grpc as _grpc
+        import pyarrow.parquet as papq
 
-        context.abort(
-            _grpc.StatusCode.UNIMPLEMENTED,
-            f"GetFileMetadata({request.path!r}): file scans are not "
-            "supported by this engine yet (ROADMAP queue 1, item 3)",
-        )
+        from ballista_tpu_torch.columnar.arrow_interop import schema_from_arrow
+        from ballista_tpu_torch.serde import schema_to_proto
+
+        if request.file_type not in ("parquet", ""):
+            context.abort(
+                _grpc.StatusCode.INVALID_ARGUMENT,
+                f"unsupported file type {request.file_type!r}",
+            )
+        schema = schema_from_arrow(papq.read_schema(request.path))
+        return pb.GetFileMetadataResult(schema=schema_to_proto(schema))
 
     def ExecuteQuery(self, request, context):
         settings = {kv.key: kv.value for kv in request.settings}

@@ -7,12 +7,14 @@ mod.rs:110-643). The messages are the reference's (``proto/``, a verbatim
 copy of its generated module), and every field is encoded from the port's
 operators as the reference encodes it from its own, so a plan's bytes are
 the reference's bytes. Memory scans travel by table name and are rebuilt
-through the decoding side's ``TableProvider``.
+through the decoding side's ``TableProvider``; file scans (CSV, Parquet
+with its pushed-down predicates, Avro) travel by path and schema, and the
+decoding process opens the file itself.
 
 Kinds the port has no operator for raise ``PlanError`` naming the ROADMAP
 item that ports them: the mesh operators (``Mesh*Exec``, queue 1, item
-10b), file scans (CSV, Parquet, Avro: item 3) and extension operators
-(``PhysicalExtensionCodec`` payloads: item 10a).
+10b) and extension operators (``PhysicalExtensionCodec`` payloads: item
+10a).
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ from ballista_tpu_torch.exec.pipeline import (
 )
 from ballista_tpu_torch.exec.planner import TableProvider
 from ballista_tpu_torch.exec.repartition import HashRepartitionExec
-from ballista_tpu_torch.exec.scan import MemoryScanExec
+from ballista_tpu_torch.exec.scan import (
+    AvroScanExec,
+    CsvScanExec,
+    MemoryScanExec,
+    ParquetScanExec,
+)
 from ballista_tpu_torch.exec.sort import GlobalLimitExec, SortExec
 from ballista_tpu_torch.exec.window import WindowExec
 from ballista_tpu_torch.executor.reader import ShuffleReaderExec
@@ -51,7 +58,6 @@ from ballista_tpu_torch.proto import pb
 from ballista_tpu_torch.scheduler_types import PartitionLocation
 
 _MESH = "ROADMAP queue 1, item 10b (multi-device)"
-_FILE_SCANS = "ROADMAP queue 1, item 3 (file scans)"
 _EXTENSIONS = "ROADMAP queue 1, item 10a (plugin operators)"
 
 # ----------------------------------------------------------------- types ----
@@ -618,7 +624,7 @@ class BallistaCodec:
 
     # -- encode --------------------------------------------------------------
     def physical_to_proto(self, plan: ExecutionPlan) -> pb.PhysicalPlanNode:
-        if isinstance(plan, MemoryScanExec):
+        if isinstance(plan, (MemoryScanExec, CsvScanExec, AvroScanExec, ParquetScanExec)):
             return self._scan_to_proto(plan)
         if isinstance(plan, FilterExec):
             return pb.PhysicalPlanNode(
@@ -793,19 +799,35 @@ class BallistaCodec:
             f"cannot serialize physical node {type(plan).__name__}"
         )
 
-    def _scan_to_proto(self, plan: MemoryScanExec) -> pb.PhysicalPlanNode:
-        node = pb.ScanExecNode(
+    def _scan_to_proto(self, plan: ExecutionPlan) -> pb.PhysicalPlanNode:
+        common = dict(
             table_name=getattr(plan, "table_name", ""),
-            kind="memory",
-            table_schema=schema_to_proto(plan.schema()),
             projection=plan.projection or [],
             has_projection=plan.projection is not None,
             partitions=plan.partitions,
         )
-        if not node.table_name:
-            raise PlanError(
-                "memory scan without a registered table name cannot "
-                "cross process boundaries"
+        if isinstance(plan, MemoryScanExec):
+            node = pb.ScanExecNode(
+                kind="memory", table_schema=schema_to_proto(plan.schema()), **common
+            )
+            if not node.table_name:
+                raise PlanError(
+                    "memory scan without a registered table name cannot "
+                    "cross process boundaries"
+                )
+            return pb.PhysicalPlanNode(scan=node)
+        file_schema = schema_to_proto(plan.table_schema)
+        if isinstance(plan, CsvScanExec):
+            node = pb.ScanExecNode(
+                kind="csv", path=plan.path, table_schema=file_schema,
+                has_header=plan.has_header, delimiter=plan.delimiter, **common,
+            )
+        elif isinstance(plan, AvroScanExec):
+            node = pb.ScanExecNode(kind="avro", path=plan.path, table_schema=file_schema, **common)
+        else:
+            node = pb.ScanExecNode(
+                kind="parquet", path=plan.path, table_schema=file_schema,
+                filters=[expr_to_proto(e) for e in plan.predicates], **common,
             )
         return pb.PhysicalPlanNode(scan=node)
 
@@ -950,12 +972,24 @@ class BallistaCodec:
         raise PlanError(f"cannot deserialize physical node kind {kind!r}")
 
     def _scan_from_proto(self, n: pb.ScanExecNode) -> ExecutionPlan:
-        if n.kind != "memory":
-            raise PlanError(f"cannot deserialize a {n.kind} scan of {n.path!r} ({_FILE_SCANS})")
-        if self.provider is None:
-            raise InternalError("memory scan decode requires a provider")
         projection = list(n.projection) if n.has_projection else None
-        plan = self.provider.scan(n.table_name, projection, n.partitions or 1)
+        if n.kind == "memory":
+            if self.provider is None:
+                raise InternalError("memory scan decode requires a provider")
+            plan = self.provider.scan(n.table_name, projection, n.partitions or 1)
+        else:
+            schema = schema_from_proto(n.table_schema)
+            if n.kind == "csv":
+                plan = CsvScanExec(
+                    n.path, schema, n.has_header, n.delimiter or ",", projection, n.partitions or 1
+                )
+            elif n.kind == "avro":
+                plan = AvroScanExec(n.path, schema, projection, n.partitions or 1)
+            else:
+                plan = ParquetScanExec(
+                    n.path, schema, projection, n.partitions or 1,
+                    predicates=[expr_from_proto(e) for e in n.filters],
+                )
         # a decoded plan must re-encode (a stage reloaded from a scheduler's
         # state is dispatched again), and memory scans encode by name
         plan.table_name = n.table_name

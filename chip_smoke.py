@@ -218,7 +218,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scheduler's queue-wait and job-latency histograms, the phase's peak
    device memory, and replays one launch per distinct shape of each kernel
    against its plain version.
-11. One JSON line of kernel results (the one-hot kernel, and the
+11. File tables, on the tables of phase 5 written as Parquet files (row
+   groups of 2^20 rows: lineitem 6, orders 2) into a temporary directory
+   that is deleted at the end, every table registered by ``CREATE
+   EXTERNAL TABLE``. (a) ``TorchContext(device="cuda")``: all 22 TPC-H
+   queries (the SQL of phases 4-6) one cold and two warm runs each, held
+   against the card's memory-table results of phases 4-6 (rows sorted:
+   keys and counts exactly, floats within rtol 1e-9, the sort path's money
+   sums of the third run bit for bit), two warm runs bit-identical and not
+   retrying; q1 launches the one-hot kernel. (f) On the same context:
+   ``SHOW TABLES``, ``SHOW COLUMNS FROM lineitem`` (against the file's
+   schema), ``EXPLAIN VERBOSE`` (the physical plan the context plans),
+   ``EXPLAIN VERIFY`` (no failure), ``EXPLAIN ANALYZE`` of q1 (its rows,
+   the filter's rows against numpy, the scan's elapsed time) and ``DROP
+   TABLE``. (b) A copy of lineitem sorted by l_shipdate: q6 and q1 with
+   ``ballista.parquet.pruning`` on and off, equal to (a)'s; q6 prunes at
+   least one row group when it is on and none when it is off. (c) Every
+   row group its own streamed slice (``ParquetScanExec.STREAM_SLICE_BYTES``
+   lowered, ``ballista.tpu.scan_stream_mb`` ``STREAM_MB``): q1, q6 and q18
+   at ``ballista.tpu.prefetch_depth`` 0 and 1, each at least 3 slices,
+   prefetches only at depth 1, equal to (a)'s and the two depths bit for
+   bit. (d) nation, region and supplier as CSV (``WITH HEADER ROW``) and as
+   Avro (the port's ``write_avro``), the rest Parquet: q5 and q7 cold and
+   warm, equal to (a)'s. (e) ``BallistaContext.standalone(device="cuda",
+   n_executors=2, concurrent_tasks=2)`` at K = 4, the eight tables created
+   by DDL through the client (the executors open the files): q1, q3, q5,
+   q12 and q18 cold and twice warm, equal to (a)'s (money sums of q3 and
+   q18 bit for bit) and the numpy oracles, every run launching the grouped
+   mode, two warm runs bit-identical; ``GetFileMetadata`` of lineitem's
+   file through the scheduler's stub returns its columns. Prints per query
+   the cold and warm seconds and the scans' ``read_time``, pruned row
+   groups, stream slices and prefetch hits and misses, the peak device
+   memory of (a), (c) and (e), the phase's time with the ``nvidia-smi``
+   line, and replays one launch per distinct shape of each kernel of the
+   phase against its plain version.
+12. One JSON line of kernel results (the one-hot kernel, and the
    partition-hash kernel's ids and grouped modes), the card's name and
    power limit, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -2943,6 +2977,341 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
     return out
 
 
+# -- phase 11: file tables on the card -----------------------------------------
+
+# rows in a Parquet row group: at SF=1 lineitem has 6 groups, orders 2
+FILE_GROUP_ROWS = 1 << 20
+# the sort path's money sums, bit for bit against the memory tables' runs
+FILE_EXACT = {**MONEY_SUMS, **STAGED_EXACT}
+STREAM_QUERIES = ("q1", "q6", "q18")
+# (c)'s ballista.tpu.scan_stream_mb: a partition's three lineitem row groups
+# hold 16 (q18) to 38 (q1) MB of the projected columns as the file encodes
+# them, so a threshold of 64 MB would stream none of the three
+STREAM_MB = "8"
+TEXT_QUERIES = ("q5", "q7")
+TEXT_TABLES = ("nation", "region", "supplier")
+SCAN_COUNTERS = ("row_groups_pruned", "stream_slices", "prefetch_hits", "prefetch_misses")
+
+
+def plan_read_s(plan) -> float:
+    """The file scans' summed ``read_time`` in one run's plan."""
+    total = plan.metrics.timers.get("read_time", 0.0)
+    return total + sum(plan_read_s(c) for c in plan.children())
+
+
+def sorted_rows(t):
+    return t.sort_by([(c, "ascending") for c in t.column_names])
+
+
+def held_as(tag: str, q: str, got, want, exact: bool) -> None:
+    """Rows sorted (file scans partition by row groups, so ties may come in
+    another order): keys and counts exactly, floats within rtol 1e-9, and
+    with ``exact`` the sort path's money sums bit for bit."""
+    g, w = sorted_rows(got), sorted_rows(want)
+    compare_tables(tag, g, w)
+    for c in FILE_EXACT.get(q, ()) if exact else ():
+        check(g.column(c).equals(w.column(c)), f"{tag}: {c} not bit for bit")
+
+
+def files_path(data: dict, oracles: dict, earlier: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict:
+    """(a)-(f) of phase 11: the TPC-H tables of phase 5 as Parquet files
+    (row groups of 2^20 rows), CSV and Avro files in a temporary directory
+    that is deleted at the end, registered by ``CREATE EXTERNAL TABLE``.
+    ``earlier``: query -> (SQL, the card's memory-table result) of phases
+    4-6. Every launch keeps the inputs of the first launch at its shape,
+    on the host, for the replay."""
+    import gc
+    import shutil
+    import tempfile
+
+    import pyarrow.csv as pacsv
+    import pyarrow.parquet as papq
+    import torch
+
+    from ballista_tpu_torch.avro import write_avro
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.columnar.arrow_interop import schema_from_arrow
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.base import plan_counters
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.exec.scan import ParquetScanExec
+    from ballista_tpu_torch.ops import onehot_agg, partition
+    from ballista_tpu_torch.proto import pb
+
+    out: dict = {}
+    launches = plaunches = glaunches = 0
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_files-"))
+
+    def ddl(name: str, fmt: str = "parquet", path=None) -> str:
+        stored = {"parquet": "PARQUET", "csv": "CSV WITH HEADER ROW", "avro": "AVRO"}[fmt]
+        return f"CREATE EXTERNAL TABLE {name} STORED AS {stored} LOCATION '{path or tmp / f'{name}.{fmt}'}'"
+
+    def context(settings: dict | None = None, text: str | None = None, names=None) -> TorchContext:
+        ctx = TorchContext(BallistaConfig(settings or {}), device="cuda")
+        for name in names or data:
+            ctx.sql(ddl(name, text if text and name in TEXT_TABLES else "parquet"))
+        return ctx
+
+    def release(*ctxs) -> None:
+        for c in ctxs:
+            c.tables.clear()
+            c._physical_cache.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def one(ctx, sql: str) -> dict:
+        """One collect run, the kernels' counts set to 0 just before it and
+        read just after."""
+        nonlocal launches, plaunches, glaunches
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        t = time.perf_counter()
+        df = ctx.sql(sql)
+        res, plan = df.collect_with_plan()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches += onehot_agg.launches
+        plaunches += partition.launches
+        glaunches += partition.group_launches
+        return dict(
+            s=secs, table=res, read_s=plan_read_s(plan), launches=onehot_agg.launches,
+            plaunches=partition.launches, retries=df.stats.get("capacity_retries", 0)
+            + df.stats.get("speculation_misses", 0), **plan_counters(plan, SCAN_COUNTERS),
+        )
+
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = True
+    try:
+        t0 = time.perf_counter()
+        for name, tab in data.items():
+            papq.write_table(tab, tmp / f"{name}.parquet", row_group_size=FILE_GROUP_ROWS)
+        groups = {n: papq.ParquetFile(tmp / f"{n}.parquet").num_row_groups for n in ("lineitem", "orders")}
+        out["write_parquet_s"] = time.perf_counter() - t0
+        log(f"files: Parquet written in {out['write_parquet_s']:.2f}s, row groups {groups}")
+
+        # (a) all 22 queries over Parquet tables created by DDL
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = context()
+        results: dict = {}
+        for i in range(1, 23):
+            q = f"q{i}"
+            sql, want = earlier[q]
+            tag = f"{q}-files"
+            rec.tag = prec.tag = tag
+            runs = [one(ctx, sql) for _ in range(3)]
+            rec.tag = prec.tag = None
+            for j, r in enumerate(runs):
+                held_as(f"{tag} run {j}", q, r["table"], want, exact=j == 2)
+            check(runs[1]["table"].equals(runs[2]["table"]), f"{tag}: two warm runs differ")
+            check(all(r["retries"] == 0 for r in runs[1:]), f"{tag}: a warm run retried")
+            results[q] = runs[2]["table"]
+            out[tag] = dict(
+                rows=want.num_rows, cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]],
+                read_s=[r["read_s"] for r in runs], row_groups_pruned=runs[0]["row_groups_pruned"],
+                capacity_retries=[r["retries"] for r in runs], onehot_launches=[r["launches"] for r in runs],
+                partition_launches=[r["plaunches"] for r in runs],
+            )
+            log(f"{tag}: ok  {json.dumps(out[tag])}")
+        check(min(out["q1-files"]["onehot_launches"]) > 0, "q1 over Parquet did not launch the one-hot kernel")
+        out["collect_peak_bytes"] = torch.cuda.max_memory_allocated()
+
+        # (f) the statements, on (a)'s context
+        q1 = earlier["q1"][0]
+        names = ctx.sql("SHOW TABLES").collect().column("table_name").to_pylist()
+        check(names == sorted(data), f"SHOW TABLES: {names}")
+        cols = ctx.sql("SHOW COLUMNS FROM lineitem").collect()
+        li = schema_from_arrow(papq.read_schema(tmp / "lineitem.parquet"))
+        check(
+            cols.to_pydict() == {
+                "column_name": [f.name for f in li], "data_type": [f.dtype.value for f in li],
+                "nullable": [f.nullable for f in li],
+            },
+            f"SHOW COLUMNS FROM lineitem: {cols.to_pydict()}",
+        )
+        verbose = ctx.sql(f"EXPLAIN VERBOSE {q1}").collect().to_pydict()
+        check(verbose["plan_type"] == ["logical_plan", "optimized_plan", "physical_plan"], f"EXPLAIN VERBOSE: {verbose['plan_type']}")
+        check(
+            verbose["plan"][2] == ctx.create_physical_plan(ctx.sql_to_logical(q1)).display()
+            and "ParquetScanExec" in verbose["plan"][2],
+            f"EXPLAIN VERBOSE's physical plan: {verbose['plan'][2]}",
+        )
+        verify = ctx.sql(f"EXPLAIN VERIFY {q1}").collect().to_pydict()
+        check(
+            verify["plan_type"] == ["logical_plan", "optimized_plan", "verification"]
+            and "FAILED" not in verify["plan"][2],
+            f"EXPLAIN VERIFY: {verify}",
+        )
+        rec.tag = prec.tag = "q1-analyze"
+        analyzed = ctx.sql(f"EXPLAIN ANALYZE {q1}").collect().to_pydict()
+        rec.tag = prec.tag = None
+        lines = analyzed["plan"][0].split("\n")
+        rows = {ln.strip().split("  [")[0].split(":")[0]: ln for ln in lines}
+        # q1's filter: l_shipdate <= date '1998-12-01' - interval '90' day
+        last_day = _day(1998, 9, 2)
+        shipped = int((data["lineitem"].column("l_shipdate").cast("int32").to_numpy() <= last_day).sum())
+        check(
+            analyzed["plan_type"] == ["physical_plan (analyzed)", "analyze_summary", "aqe"]
+            and f"rows={results['q1'].num_rows}," in lines[0]
+            and f"rows={shipped}," in rows.get("FilterExec", "")
+            and "ParquetScanExec" in rows and "elapsed=" in rows["ParquetScanExec"],
+            f"EXPLAIN ANALYZE: {analyzed}",
+        )
+        check(ctx.sql("DROP TABLE region").collect().to_pydict() == {"result": ["ok"]}, "DROP TABLE")
+        check("region" not in ctx.sql("SHOW TABLES").collect().column("table_name").to_pylist(), "DROP TABLE kept region")
+        out["statements"] = dict(
+            show_tables=names, analyzed=analyzed["plan"][0], summary=analyzed["plan"][1],
+        )
+        log(f"statements: ok  EXPLAIN ANALYZE of q1:\n{analyzed['plan'][0]}\n{analyzed['plan'][1]}")
+        release(ctx)
+        out["collect_s"] = time.perf_counter() - t0
+
+        # (b) pruning: lineitem sorted by l_shipdate
+        t0 = time.perf_counter()
+        sorted_path = tmp / "lineitem_sorted.parquet"
+        papq.write_table(data["lineitem"].sort_by("l_shipdate"), sorted_path, row_group_size=FILE_GROUP_ROWS)
+        for pruning in ("true", "false"):
+            c = TorchContext(BallistaConfig({"ballista.parquet.pruning": pruning}), device="cuda")
+            c.sql(ddl("lineitem", path=sorted_path))
+            for q in ("q6", "q1"):
+                tag = f"{q}-pruned-{pruning}"
+                rec.tag = prec.tag = tag
+                r = one(c, earlier[q][0])
+                rec.tag = prec.tag = None
+                held_as(tag, q, r["table"], results[q], exact=False)
+                out[tag] = dict(s=r["s"], read_s=r["read_s"], row_groups_pruned=r["row_groups_pruned"])
+                log(f"{tag}: ok  {json.dumps(out[tag])}")
+            release(c)
+        check(out["q6-pruned-true"]["row_groups_pruned"] >= 1, "q6 over the sorted lineitem pruned no row group")
+        check(out["q6-pruned-false"]["row_groups_pruned"] == 0, "q6 pruned with ballista.parquet.pruning=false")
+        out["pruning_s"] = time.perf_counter() - t0
+
+        # (c) streaming: every row group its own slice
+        t0 = time.perf_counter()
+        old_slice = ParquetScanExec.STREAM_SLICE_BYTES
+        ParquetScanExec.STREAM_SLICE_BYTES = 1
+        try:
+            streamed: dict = {}
+            for depth in (0, 1):
+                torch.cuda.reset_peak_memory_stats()
+                c = context({"ballista.tpu.scan_stream_mb": STREAM_MB, "ballista.tpu.prefetch_depth": str(depth)})
+                for q in STREAM_QUERIES:
+                    tag = f"{q}-stream{depth}"
+                    rec.tag = prec.tag = tag
+                    r = one(c, earlier[q][0])
+                    rec.tag = prec.tag = None
+                    held_as(tag, q, r["table"], results[q], exact=False)
+                    check(r["stream_slices"] >= 3, f"{tag}: {r['stream_slices']} stream slices")
+                    # a partition of one slice has nothing to prefetch
+                    fetched = r["prefetch_hits"] + r["prefetch_misses"]
+                    check(
+                        0 < fetched <= r["stream_slices"] if depth else fetched == 0,
+                        f"{tag}: {fetched} prefetches of {r['stream_slices']} slices",
+                    )
+                    streamed[tag] = r["table"]
+                    out[tag] = dict(
+                        s=r["s"], read_s=r["read_s"], stream_slices=r["stream_slices"],
+                        prefetch_hits=r["prefetch_hits"], prefetch_misses=r["prefetch_misses"],
+                        capacity_retries=r["retries"],
+                    )
+                    log(f"{tag}: ok  {json.dumps(out[tag])}")
+                out[f"stream{depth}_peak_bytes"] = torch.cuda.max_memory_allocated()
+                release(c)
+        finally:
+            ParquetScanExec.STREAM_SLICE_BYTES = old_slice
+        for q in STREAM_QUERIES:
+            check(streamed[f"{q}-stream0"].equals(streamed[f"{q}-stream1"]), f"{q}: depths 0 and 1 differ")
+        out["stream_s"] = time.perf_counter() - t0
+
+        # (d) nation, region and supplier as CSV and as Avro files
+        t0 = time.perf_counter()
+        for name in TEXT_TABLES:
+            pacsv.write_csv(data[name], tmp / f"{name}.csv")
+            write_avro(str(tmp / f"{name}.avro"), data[name])
+        for fmt in ("csv", "avro"):
+            c = context(text=fmt)
+            for q in TEXT_QUERIES:
+                tag = f"{q}-{fmt}"
+                rec.tag = prec.tag = tag
+                runs = [one(c, earlier[q][0]) for _ in range(2)]
+                rec.tag = prec.tag = None
+                for j, r in enumerate(runs):
+                    held_as(f"{tag} run {j}", q, r["table"], results[q], exact=j == 1)
+                out[tag] = dict(cold_s=runs[0]["s"], warm_s=runs[1]["s"], read_s=[r["read_s"] for r in runs])
+                log(f"{tag}: ok  {json.dumps(out[tag])}")
+            release(c)
+        out["text_s"] = time.perf_counter() - t0
+
+        # (e) the port's cluster, the tables created by DDL through the client
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cl = BallistaContext.standalone(
+            BallistaConfig(CLUSTER_SETTINGS), device="cuda", n_executors=2, concurrent_tasks=2
+        )
+        try:
+            for name in data:
+                check(cl.sql(ddl(name)).collect().to_pydict() == {"result": ["ok"]}, f"DDL of {name}")
+            sched = cl._standalone_cluster.scheduler
+            for q in CLUSTER_QUERIES:
+                tag = f"{q}-files-cluster"
+                runs = []
+                rec.tag = prec.tag = tag
+                for j in range(3):
+                    onehot_agg.launches = partition.launches = partition.group_launches = 0
+                    jobs0 = set(sched.jobs)
+                    t = time.perf_counter()
+                    res = cl.sql(earlier[q][0]).collect()
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t
+                    launches += onehot_agg.launches
+                    plaunches += partition.launches
+                    glaunches += partition.group_launches
+                    (job_id,) = set(sched.jobs) - jobs0
+                    job = sched.jobs[job_id]
+                    check(job.status == "completed", f"{tag}: job {job.status} {job.error}")
+                    held_as(f"{tag} run {j}", q, res, results[q], exact=True)
+                    if q in oracles:
+                        compare(f"{tag} run {j}", res, oracles[q])
+                    check(partition.group_launches > 0, f"{tag} run {j}: no grouped launch")
+                    runs.append(dict(
+                        s=secs, table=res, stages=len(job.stages), launches=onehot_agg.launches,
+                        glaunches=partition.group_launches, task_retries=job.total_retries,
+                    ))
+                rec.tag = prec.tag = None
+                check(runs[1]["table"].equals(runs[2]["table"]), f"{tag}: two warm runs differ")
+                out[tag] = dict(
+                    stages=runs[0]["stages"], cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]],
+                    onehot_launches=[r["launches"] for r in runs], grouped_launches=[r["glaunches"] for r in runs],
+                    task_retries=[r["task_retries"] for r in runs],
+                )
+                log(f"{tag}: ok  {json.dumps(out[tag])}")
+            meta = cl._stub.GetFileMetadata(
+                pb.GetFileMetadataParams(path=str(tmp / "lineitem.parquet"), file_type="parquet")
+            )
+            got = [f.name for f in meta.schema.fields]
+            check(got == data["lineitem"].column_names, f"GetFileMetadata: {got}")
+            out["get_file_metadata"] = got
+        finally:
+            rec.tag = prec.tag = None
+            cl.close()
+        out["cluster_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["cluster_s"] = time.perf_counter() - t0
+    finally:
+        rec.tag = prec.tag = None
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in (rec, prec):
+        for tag in r.shapes:
+            if tag.endswith(("-files", "-files-cluster", "-csv", "-avro", "-analyze")) or "-stream" in tag or "-pruned-" in tag:
+                missing = set(r.shapes[tag]) - set(r.inputs)
+                check(not missing, f"{tag}: no inputs kept for launch shapes {sorted(missing)}")
+    log(f"files: peak device memory {out['collect_peak_bytes']} bytes (collect), "
+        f"{out['stream0_peak_bytes']} / {out['stream1_peak_bytes']} (streamed, depth 0 / 1), "
+        f"{out['cluster_peak_bytes']} (cluster)")
+    out["launches"] = launches
+    out["partition_launches"] = plaunches
+    out["grouped_launches"] = glaunches
+    return out
+
+
 def process_cluster(pkg_root: pathlib.Path) -> dict:
     """``python -m ballista_tpu_torch.scheduler`` and ``python -m
     ballista_tpu_torch.executor --device cuda``, push-staged: the executor
@@ -3184,7 +3553,17 @@ def main() -> int:
         cluster_replays = replay_partition_launches(prec)
         preplays += cluster_replays
         log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
-    for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget"):
+
+        # 11. file tables: Parquet, CSV and Avro through CREATE EXTERNAL TABLE
+        t0 = time.perf_counter()
+        fl = files_path(data, oracles, earlier, rec, prec)
+        file_replays = replay_launches(rec)
+        replays += file_replays
+        file_preplays = replay_partition_launches(prec)
+        preplays += file_preplays
+        check(bool(file_replays) and bool(file_preplays), "phase 11: no launch replayed")
+        log(f"phase 11 took {time.perf_counter() - t0:.1f}s; {smi}")
+    for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget", "q1-files"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
     for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist") + tuple(
         f"{q}-{path}" for q in STAGED_QUERIES for path in ("stages", "fleet")
@@ -3196,8 +3575,13 @@ def main() -> int:
                 any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-{path}", [])),
                 f"{q}-{path}: no grouped launch recorded",
             )
-    for path in ("stages", "fleet", "cluster", "cluster-push"):
+    for path in ("stages", "fleet", "cluster", "cluster-push", "files-cluster"):
         check(bool(rec.shapes.get(f"q1-{path}")), f"q1-{path}: no one-hot launch recorded")
+    for q in STAGED_QUERIES:
+        check(
+            any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-files-cluster", [])),
+            f"{q}-files-cluster: no grouped launch recorded",
+        )
     q1, q1_now = cases[0], cases[7]
     # the partition kernel's modes at the spills' shape (2^21 rows, one
     # int32 key, K = 64), from phase 3's timing
@@ -3210,13 +3594,14 @@ def main() -> int:
     plaunches = (
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
+        + fl["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
-        + cp["grouped_launches"]
+        + cp["grouped_launches"] + fl["grouped_launches"]
     )
 
-    # 10. results
+    # 12. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -3229,7 +3614,7 @@ def main() -> int:
         # the port's cluster, with the other TPC-H queries there
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
-            + fp["launches"] + cp["launches"]
+            + fp["launches"] + cp["launches"] + fl["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -3301,6 +3686,12 @@ def main() -> int:
         "cluster_seconds": {k: v for k, v in cp.items() if k.endswith("_s")},
         "cluster_processes": cp["processes"],
         "cluster_peak_bytes": cp["peak_bytes"],
+        "file_queries": {q: v for q, v in fl.items() if isinstance(v, dict) and q != "statements"},
+        "file_seconds": {k: v for k, v in fl.items() if k.endswith("_s")},
+        "file_peak_bytes": {k: v for k, v in fl.items() if k.endswith("_peak_bytes")},
+        "file_launches": {"onehot": fl["launches"], "partition": fl["partition_launches"],
+                          "grouped": fl["grouped_launches"]},
+        "file_replays": file_replays + file_preplays,
         "sf": args.sf,
     }))
     log(smi)

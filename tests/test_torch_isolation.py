@@ -61,6 +61,7 @@ def test_no_forbidden_imports_in_source(target):
             "scheduler/state_backend.py", "scheduler/persistent_state.py",
             "scheduler/result_cache.py", "scheduler/aqe.py", "scheduler/server.py",
             "scheduler/__main__.py", "standalone.py", "client/context.py",
+            "avro.py", "functions.py", "exec/scan.py",
         } <= names
     bad = [
         f"{f.relative_to(ROOT)}: {m}"
@@ -241,18 +242,39 @@ def _scheduler_process(*args):
     return proc
 
 
-def test_scheduler_process_on_the_cpu_serves_and_stops_on_sigterm():
+class _AbortContext:
+    def abort(self, code, details):
+        raise RuntimeError(code, details)
+
+
+def test_scheduler_process_on_the_cpu_serves_and_stops_on_sigterm(tmp_path):
     """``python -m ballista_tpu_torch.scheduler`` needs no card: it starts,
-    answers RegisterExecutor (push-staged) and GetFileMetadata (naming
-    the file scans' item), and exits 0 within 10 s of a SIGTERM."""
+    answers RegisterExecutor (push-staged) and GetFileMetadata (a Parquet
+    file's schema, as the reference's scheduler gives it; INVALID_ARGUMENT
+    for CSV), and exits 0 within 10 s of a SIGTERM."""
+    import datetime
     import re
     import signal
     import time
 
     import grpc
+    import pyarrow as pa
+    import pyarrow.parquet as papq
 
+    from ballista_tpu.scheduler.server import SchedulerGrpcServicer as RefServicer
     from ballista_tpu_torch.proto import pb
     from ballista_tpu_torch.scheduler.rpc import scheduler_stub
+
+    path = str(tmp_path / "t.parquet")
+    papq.write_table(
+        pa.table({
+            "k": pa.array([1, 2], pa.int64()), "s": pa.array(["a", None]),
+            "d": pa.array([datetime.date(1995, 1, 1)] * 2, pa.date32()), "f": pa.array([0.5, None]),
+        }),
+        path,
+    )
+    ask = pb.GetFileMetadataParams(path=path, file_type="parquet")
+    want = RefServicer.GetFileMetadata(None, ask, _AbortContext()).SerializeToString()
 
     proc = _scheduler_process("--scheduler-policy", "push-staged")
     try:
@@ -270,10 +292,14 @@ def test_scheduler_process_on_the_cpu_serves_and_stops_on_sigterm():
             )
             res = stub.RegisterExecutor(pb.RegisterExecutorParams(metadata=meta), timeout=10)
             assert res.success
+            assert stub.GetFileMetadata(ask, timeout=10).SerializeToString() == want
+            csv = pb.GetFileMetadataParams(path="/x.csv", file_type="csv")
             with pytest.raises(grpc.RpcError) as e:
-                stub.GetFileMetadata(pb.GetFileMetadataParams(path="/x.parquet", file_type="parquet"), timeout=10)
-            assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-            assert "item 3" in e.value.details()
+                stub.GetFileMetadata(csv, timeout=10)
+            assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+            with pytest.raises(RuntimeError) as ref_e:
+                RefServicer.GetFileMetadata(None, csv, _AbortContext())
+            assert e.value.details() == ref_e.value.args[1]
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=10) == 0
     finally:

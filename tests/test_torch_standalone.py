@@ -14,7 +14,9 @@ sums bit for bit against the reference's third run (its exact one, see
 too, and with eager shuffle, push shuffle and the local fast path off (so
 every read crosses Flight). An executor killed between q3's stages leaves
 q3 equal, and a query submitted to a scheduler with no executor uploads
-nothing to a device.
+nothing to a device and reads no file. q1, q3, q5, q12 and q18 also run
+over Parquet tables created by DDL through the client, each executor
+opening the files itself, against the reference reading the same files.
 """
 
 import threading
@@ -216,16 +218,43 @@ def test_kill_executor_between_q3_stages_recomputes(data):
         ctx.close()
 
 
-def test_submission_uploads_nothing_without_an_executor(data):
+@pytest.fixture(scope="module")
+def parquet_dir(data, tmp_path_factory):
+    import pyarrow.parquet as papq
+
+    d = tmp_path_factory.mktemp("tpch-parquet")
+    for name, t in data.items():
+        papq.write_table(t, d / f"{name}.parquet", row_group_size=4096)
+    return d
+
+
+def ddl(d, name: str) -> str:
+    return f"CREATE EXTERNAL TABLE {name} STORED AS PARQUET LOCATION '{d / name}.parquet'"
+
+
+def test_submission_uploads_nothing_without_an_executor(data, parquet_dir, monkeypatch):
     """The scheduler plans and never runs an operator: a query submitted
     to a scheduler no executor has joined leaves the provider's scan
-    device caches empty."""
+    device caches empty, over memory tables and over Parquet tables, where
+    it opens no file either (row groups are pruned when a task runs)."""
+    for source in ("memory", "parquet"):
+        _submit_without_executor(data, parquet_dir, source, monkeypatch)
+
+
+def _submit_without_executor(data, parquet_dir, source, monkeypatch):
+    import pyarrow.parquet as papq
+
     from ballista_tpu_torch.exec.context import TorchContext
     from ballista_tpu_torch.scheduler.server import SchedulerServer
 
     provider = TorchContext(device="cpu")
     for name, t in data.items():
-        provider.register_table(name, t)
+        if source == "memory":
+            provider.register_table(name, t)
+        else:
+            provider.sql(ddl(parquet_dir, name))
+    reads = []
+    monkeypatch.setattr(papq, "ParquetFile", lambda *a, **kw: reads.append(a))
     server = SchedulerServer(provider=provider)
     try:
         session = server.get_or_create_session("", {})
@@ -236,9 +265,41 @@ def test_submission_uploads_nothing_without_an_executor(data):
         job = server._get_job(job_id)
         assert job.status == "running" and len(job.stages) > 1, job.error
         assert server.stage_manager.inflight_tasks() > 0
-        assert all(not cache for _, _, cache in provider.tables.values())
+        assert all(
+            not r.kw.get("device_cache") and not r.kw.get("scan_cache") for r in provider.tables.values()
+        )
+        assert not reads
     finally:
         server.shutdown()
+        monkeypatch.undo()
+
+
+def test_parquet_tables_through_the_cluster(data, parquet_dir):
+    """The five queries over Parquet tables created by DDL through the
+    client (statements run client-side; each executor opens the files the
+    plan names) equal the reference reading the same files."""
+    from ballista_tpu.exec.context import TpuContext
+
+    ref = TpuContext()
+    ctx = BallistaContext.standalone(
+        BallistaConfig({"ballista.shuffle.partitions": "4"}), device="cpu", n_executors=2, concurrent_tasks=2
+    )
+    try:
+        for name in data:
+            ref.sql(ddl(parquet_dir, name))
+            assert ctx.sql(ddl(parquet_dir, name)).collect().to_pydict() == {"result": ["ok"]}
+        assert ctx.sql("SHOW TABLES").collect().column("table_name").to_pylist() == sorted(data)
+        for q in FIVE:
+            sql = query_sql(q, data)
+            for _ in range(2):
+                ref.sql(sql).collect()
+            got, job = run(ctx, data, q)
+            assert_matches(got, ref.sql(sql).collect(), q)
+            assert job.status == "completed" and len(job.stages) > 1
+            # the client's scans never ran: the executors read the files
+            assert not any(r.kw.get("scan_cache") for r in ctx.tables.values())
+    finally:
+        ctx.close()
 
 
 def test_concurrent_clients_share_one_cluster(default_cluster, data):

@@ -120,7 +120,7 @@ def test_slice_queries_match_reference(sql):
     cmp(got.to_pandas(), want.to_pandas())
 
 
-def test_unported_plans_raise_with_their_roadmap_item(contexts):
+def test_unported_plans_raise_with_their_roadmap_item(contexts, tmp_path):
     from ballista_tpu_torch.errors import PlanError
     from ballista_tpu_torch.exec.joins import HashJoinExec
     from ballista_tpu_torch.expr import logical as L
@@ -130,11 +130,15 @@ def test_unported_plans_raise_with_their_roadmap_item(contexts):
     # a UDAF: plugins are not ported, so the name does not resolve
     with pytest.raises(PlanError, match="ROADMAP queue 1, item 10"):
         port.sql("select my_udaf(l_quantity) from lineitem").collect()
-    # a file scan (DDL registers one)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        port.sql(
-            "create external table f (x int) stored as csv location 'f.csv'"
-        ).collect()
+    # a file table: the DDL registers the file, and a query over it runs
+    # (ported since; it raised naming item 3 before)
+    path = tmp_path / "f.csv"
+    path.write_text("1\n2\n5\n")
+    assert port.sql(
+        f"create external table f (x int) stored as csv location '{path}'"
+    ).collect().to_pydict() == {"result": ["ok"]}
+    assert port.sql("select sum(x) as s, count(*) as c from f").collect().to_pydict() == {"s": [8], "c": [3]}
+    port.sql("drop table f")
     # partitioned joins are ported (hash repartition); an unknown partition
     # mode is a plan error
     scan = port.scan("lineitem", ["l_orderkey"], 2)

@@ -232,7 +232,7 @@ def test_card_matches_cpu_bit_for_bit(contexts, sql):
         pytest.skip("needs an NVIDIA card")
     _, cpu = contexts
     card = TorchContext(device="cuda")
-    for name, (_, t, _) in cpu.tables.items():
-        card.register_table(name, t)
+    for name, r in cpu.tables.items():
+        card.register_table(name, r.kw["table"])
     want = cpu.sql(sql).collect()
     assert card.sql(sql).collect().equals(want)
