@@ -10,7 +10,9 @@ TPU kernel of the reference (``ops/pallas_agg.py``) is a hand-written CUDA
 kernel here (``csrc/onehot_agg.cu`` behind ``ops/onehot_agg.py``).
 
 The port imports nothing of ``ballista_tpu`` and never imports ``jax``.
-Entry point: ``ballista_tpu_torch.exec.context.TorchContext``.
+Entry points: ``ballista_tpu_torch.exec.context.TorchContext``, the
+cluster client ``ballista_tpu_torch.client.context.BallistaContext``, and
+the shell ``python -m ballista_tpu_torch.cli``.
 """
 
 __version__ = "0.1.0"

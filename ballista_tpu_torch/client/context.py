@@ -18,8 +18,10 @@ TABLE``, ``DROP TABLE``, ``SHOW``, ``EXPLAIN``) run client-side through
 ``TorchContext.sql``; a file table's source travels in the logical plan,
 so the executors open the file themselves. ``table()`` and ``read_*``
 return remote frames, and every frame derived from one stays remote.
-Where the port differs: a query over ``system.*`` raises ``PlanError``
-(the system tables are ROADMAP queue 1, item 3).
+A query over ``system.*`` runs client-side, as in the reference: the
+scan materializes the scheduler's persistent history (``GetHistory``)
+and the query runs through the local ``TorchContext`` path on the
+client's device.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import grpc
 import pyarrow as pa
 
 from ballista_tpu_torch.config import BallistaConfig
-from ballista_tpu_torch.errors import BallistaError, GrpcError, PlanError
+from ballista_tpu_torch.errors import BallistaError, GrpcError
 from ballista_tpu_torch.exec.context import DataFrame, TorchContext
 from ballista_tpu_torch.plan.logical import LogicalPlan
 from ballista_tpu_torch.proto import pb
@@ -145,6 +147,18 @@ class BallistaContext(TorchContext):
     def _frame(self, logical: LogicalPlan) -> DataFrame:
         return RemoteDataFrame(self, logical)
 
+    # -- system tables --------------------------------------------------------
+    def _system_table_rows(self, name: str) -> list[dict]:
+        """Cluster contexts materialize system.* from the scheduler's
+        persistent history (the GetHistory RPC), the fleet-wide log,
+        instead of the local process's query log."""
+        import json
+
+        from ballista_tpu_torch.obs.history import SYSTEM_TABLE_KINDS
+
+        res = self._stub.GetHistory(pb.GetHistoryParams(kind=SYSTEM_TABLE_KINDS[name]))
+        return json.loads(res.payload or b"[]")
+
     # -- query execution ------------------------------------------------------
     def sql(self, sql: str) -> DataFrame:
         stmt = parse_sql(sql)
@@ -161,15 +175,15 @@ class BallistaContext(TorchContext):
     ) -> pa.Table:
         """Submit a logical plan, poll to completion, fetch partitions
         (the DistributedQueryExec flow)."""
-        # the reference runs system-table queries client-side over the
-        # scheduler's history (GetHistory); the port's context has no
-        # system tables yet
+        # system-table queries run client-side: the history lives on the
+        # scheduler, not on executors, so the scan materializes it here
+        # (GetHistory) and the query runs through the local TorchContext
+        # path, planned and verified like any other; mixed queries (system
+        # joined with user tables) take the local path too
         from ballista_tpu_torch.exec.context import _scans_system_table
 
         if _scans_system_table(logical):
-            raise PlanError(
-                "system tables are not ported yet (ROADMAP queue 1, item 3)"
-            )
+            return DataFrame(self, logical).collect()
         if self.config.verify_plans():
             # client-side gate: a plan that cannot execute fails HERE with
             # an operator path (and SQL span when known) instead of as an

@@ -45,26 +45,122 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 class CapacityLadder:
-    """Geometric capacity buckets ``min_cap * ratio**k`` (the reference's
-    default ladder: min 2048, ratio 2)."""
+    """The process-wide capacity-bucket policy.
 
-    def __init__(self, min_cap: int = MIN_CAPACITY, ratio: int = 2):
+    Every row capacity in the engine (scan batches, join build tables,
+    aggregate states, expansion outputs) rounds up through ONE ladder, so
+    unrelated queries land on the same tensor sizes, and capacities equal
+    the reference's under the same ladder. The ladder is geometric —
+    ``min_cap * ratio**k`` — or an explicit sorted bucket list extended
+    geometrically past its top; the default (min 2048, ratio 2) is
+    power-of-two rounding. Configure via ``ballista.tpu.capacity_buckets``
+    ("<min>:<ratio>" or "b0,b1,b2,..."): a coarser ratio trades padding
+    (bounded by the ratio) for fewer distinct sizes.
+    """
+
+    def __init__(self, min_cap: int = MIN_CAPACITY, ratio: int = 2,
+                 explicit: tuple[int, ...] | None = None):
+        if explicit:
+            explicit = tuple(sorted(set(int(b) for b in explicit)))
+            if explicit[0] < 8:
+                raise ValueError(f"capacity bucket too small: {explicit[0]}")
+            min_cap = explicit[0]
         if min_cap < 8:
             raise ValueError(f"min capacity too small: {min_cap}")
         if ratio < 2:
             raise ValueError(f"bucket ratio must be >= 2: {ratio}")
         self.min_cap = int(min_cap)
         self.ratio = int(ratio)
+        self.explicit = explicit
+
+    @classmethod
+    def parse(cls, spec: str) -> "CapacityLadder":
+        spec = (spec or "").strip()
+        if not spec:
+            return cls()
+        if "," in spec:
+            lad = cls(explicit=tuple(
+                int(s) for s in spec.split(",") if s.strip()
+            ))
+        elif ":" in spec:
+            mn, _, r = spec.partition(":")
+            lad = cls(min_cap=int(mn), ratio=int(r))
+        else:
+            lad = cls(min_cap=int(spec))
+        # configured ladders keep the engine-wide floor of 2048 rows (the
+        # raw constructor stays relaxed for targeted tests)
+        if lad.min_cap < MIN_CAPACITY:
+            raise ValueError(
+                f"capacity bucket below the {MIN_CAPACITY} tileable "
+                f"minimum: {lad.min_cap}"
+            )
+        return lad
+
+    def spec(self) -> str:
+        if self.explicit:
+            return ",".join(str(b) for b in self.explicit)
+        return f"{self.min_cap}:{self.ratio}"
 
     def round(self, n: int) -> int:
-        """Smallest ladder bucket >= n."""
-        cap = self.min_cap
+        """Smallest ladder bucket >= n (geometric past any explicit top)."""
+        if self.explicit:
+            for b in self.explicit:
+                if n <= b:
+                    return b
+            cap = self.explicit[-1]
+        else:
+            cap = self.min_cap
         while cap < n:
             cap *= self.ratio
         return cap
 
+    def buckets_upto(self, n: int) -> tuple[int, ...]:
+        """Every ladder bucket <= round(n)."""
+        top = self.round(max(n, self.min_cap))
+        out = list(b for b in (self.explicit or ()) if b <= top)
+        cap = out[-1] if out else self.min_cap
+        if not out:
+            out.append(cap)
+        while cap < top:
+            cap *= self.ratio
+            out.append(cap)
+        return tuple(out)
+
 
 _LADDER = CapacityLadder()
+_LADDER_INSTALLED = False  # flips-after-install are logged (see below)
+
+
+def set_capacity_buckets(spec: str) -> "CapacityLadder":
+    """Install the process-wide bucket ladder (``TorchContext`` and the
+    executor task entry apply ``ballista.tpu.capacity_buckets`` here).
+    Process-global, as in the reference: capacities are what plan-cache
+    entries and learned hints are keyed and sized by, and two ladders in
+    one process would make each re-learn the other's. Mixed-capacity
+    batches in flight across a change remain valid (capacity is carried
+    per batch, never re-derived).
+    """
+    global _LADDER, _LADDER_INSTALLED
+    ladder = CapacityLadder.parse(spec)
+    if ladder.spec() != _LADDER.spec():
+        if _LADDER_INSTALLED:
+            # a mid-process flip is legal but costly: an executor serving
+            # sessions with different ladders re-learns adaptive
+            # capacities across each swap
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "capacity ladder changed %s -> %s; mixed-ladder sessions "
+                "on one executor re-learn their capacities",
+                _LADDER.spec(), ladder.spec(),
+            )
+        _LADDER = ladder
+        _LADDER_INSTALLED = True
+    return _LADDER
+
+
+def capacity_ladder() -> CapacityLadder:
+    return _LADDER
 
 
 def round_capacity(n: int) -> int:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from enum import Enum
 
-from ballista_tpu_torch.columnar.batch import MIN_CAPACITY
+from ballista_tpu_torch.columnar.batch import CapacityLadder
 from ballista_tpu_torch.errors import ConfigError
 
 BALLISTA_JOB_NAME = "ballista.job.name"
@@ -124,26 +124,7 @@ def _parse_shuffle_compression(s: str) -> str:
 
 
 def _parse_capacity_buckets(s: str) -> str:
-    """The reference's ladder spec rules (``CapacityLadder.parse``):
-    "<min>:<ratio>", "<min>", or an explicit "b0,b1,..." list; the lowest
-    bucket at least 2048 and the ratio at least 2."""
-    spec = (s or "").strip()
-    if not spec:
-        return s
-    if "," in spec:
-        buckets = sorted({int(b) for b in spec.split(",") if b.strip()})
-        if buckets[0] < 8:
-            raise ValueError(f"capacity bucket too small: {buckets[0]}")
-        low = buckets[0]
-    else:
-        mn, _, r = spec.partition(":")
-        low, ratio = int(mn), int(r) if r else 2
-        if low < 8:
-            raise ValueError(f"min capacity too small: {low}")
-        if ratio < 2:
-            raise ValueError(f"bucket ratio must be >= 2: {ratio}")
-    if low < MIN_CAPACITY:
-        raise ValueError(f"capacity bucket below the {MIN_CAPACITY} tileable minimum: {low}")
+    CapacityLadder.parse(s)  # raises on malformed specs
     return s
 
 
@@ -218,7 +199,6 @@ _ENTRIES: dict[str, tuple[str, object]] = {
 # A non-default value raises where the reference would use it.
 UNPORTED: dict[str, str] = {
     BALLISTA_PLUGIN_DIR: "ROADMAP queue 1, item 10a (UDF plugins)",
-    BALLISTA_CAPACITY_BUCKETS: "ROADMAP queue 1, item 3 (the capacity ladder)",
     BALLISTA_BUILD_CACHE_MB: "ROADMAP queue 1, item 6 (the build-table cache)",
     BALLISTA_PROFILE_DIR: "ROADMAP queue 1, item 10b (trace hooks)",
     # executors record and ship task and fetch spans; the local context
@@ -360,6 +340,9 @@ class BallistaConfig:
 
     def eager_poll_ms(self) -> int:
         return max(1, self._get(BALLISTA_EAGER_POLL_MS))
+
+    def capacity_buckets(self) -> str:
+        return self._get(BALLISTA_CAPACITY_BUCKETS)
 
     def eager_wait_s(self) -> float:
         return max(0.0, self._get(BALLISTA_EAGER_WAIT_S))

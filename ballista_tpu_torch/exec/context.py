@@ -27,16 +27,25 @@ context keeps the plan cache (join build flags, probe-table sizes, decimal
 scales) and the grown capacity across runs, as ``TpuContext`` does. With
 ``ballista.tpu.verify_plans`` on (the default) the optimized logical plan
 and a newly planned physical plan are verified (``analysis.verifier``)
-before they run. Not ported: the system tables (a query over ``system.*``
-raises ``PlanError`` naming ROADMAP queue 1, item 3), the staleness
-witness, the persisted capacity hints. A session key whose feature is not
-ported (``config.UNPORTED``) raises here when it is set to another value
-than its default.
+before they run.
+
+The context installs the session's capacity ladder
+(``ballista.tpu.capacity_buckets``, process-wide as in the reference),
+seeds its plan cache and capacity hint from the persisted hint file at
+its first run and writes them back when they change
+(``compilecache.hints``, ``BALLISTA_TPU_HINT_CACHE``). Every collect is
+logged with its cost vector into a local query log that ``system.queries``
+and ``system.task_attempts`` serve (``system.executors`` is empty without
+a cluster); a plan that scans a system table is never cached, so each
+query reads the rows as of its own planning. Not ported: the staleness
+witness. A session key whose feature is not ported (``config.UNPORTED``)
+raises here when it is set to another value than its default.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import pathlib
 import time
 from enum import Enum
@@ -75,6 +84,8 @@ from ballista_tpu_torch.sql import ast
 from ballista_tpu_torch.sql.parser import parse_sql
 from ballista_tpu_torch.sql.planner import Catalog, SqlPlanner
 
+log = logging.getLogger(__name__)
+
 
 class _Registered:
     """A registered table: ``kind`` is memory, csv, parquet or avro; ``kw``
@@ -88,7 +99,9 @@ class _Registered:
 
 
 def _scans_system_table(logical) -> bool:
-    """Does this logical plan reference any system.* table?"""
+    """Does this logical plan reference any system.* table? Such plans
+    bypass the physical-plan cache: their scans must materialize fresh
+    rows every run."""
     from ballista_tpu_torch.obs.history import SYSTEM_TABLE_SCHEMAS
     from ballista_tpu_torch.plan.logical import TableScan
 
@@ -136,12 +149,25 @@ class TorchContext(Catalog, TableProvider):
         # features the port lacks: a non-default value raises here
         self.config.check_ported(*_CONTEXT_UNPORTED)
         self.device = resolve_device(device)
+        # the session's capacity ladder governs every batch built from here
+        # on (process-wide, as in the reference)
+        from ballista_tpu_torch.columnar.batch import set_capacity_buckets
+        from ballista_tpu_torch.compilecache.hints import HintStore
+
+        set_capacity_buckets(self.config.capacity_buckets())
         self.tables: dict[str, _Registered] = {}
         self._physical_cache: dict = {}
         # cross-run plan-shape facts (see TaskContext.plan_cache)
         self._plan_cache: dict = {}
-        # the aggregate capacity a run grew to (see run_with_capacity_retry)
+        # the capacities a run grew to (see run_with_capacity_retry)
         self._capacity_hint: dict = {}
+        # persisted hints: loaded at the FIRST run, since registration
+        # clears the plan cache and would wipe an eager load
+        self._hints = HintStore()
+        # the local query log behind system.queries/system.task_attempts
+        # (created at first use; the cluster client serves the scheduler's)
+        self._local_history = None
+        self._local_query_seq = 0
 
     # -- registration --------------------------------------------------------
     def _registered(self, name: str, reg: _Registered) -> None:
@@ -208,13 +234,72 @@ class TorchContext(Catalog, TableProvider):
         self._plan_cache.clear()
         self._physical_cache.clear()
 
+    # -- system tables -------------------------------------------------------
+    def _system_history(self):
+        """The local query log (a memory backend: the local context's
+        history lives with the process; durable history is the
+        scheduler's)."""
+        if self._local_history is None:
+            from ballista_tpu_torch.obs.history import HistoryStore
+            from ballista_tpu_torch.scheduler.state_backend import MemoryBackend
+
+            self._local_history = HistoryStore(
+                MemoryBackend(), retention_jobs=self.config.history_retention_jobs()
+            )
+        return self._local_history
+
+    def _system_table_rows(self, name: str) -> list[dict]:
+        """The current rows of one system table. The cluster client
+        overrides this to fetch the scheduler's log."""
+        from ballista_tpu_torch.obs.history import SYSTEM_TABLE_KINDS
+
+        kind = SYSTEM_TABLE_KINDS[name]
+        if kind == "queries":
+            return self._system_history().jobs()
+        if kind == "task_attempts":
+            return self._system_history().attempts()
+        return []  # no cluster: the local engine has no executor roster
+
+    def _refresh_system_table(self, name: str) -> None:
+        """Materialize one system table's current rows as the memory table
+        the ordinary scan serves. Registered directly, not through
+        ``register_table``: a refresh must not clear the plan caches (plans
+        over system tables are never cached, and the data version leaves
+        system tables out)."""
+        from ballista_tpu_torch.obs import history as obs_history
+
+        t = obs_history.system_table(name, self._system_table_rows(name))
+        self.tables[name] = _Registered(
+            "memory", obs_history.SYSTEM_TABLE_SCHEMAS[name], table=t, device_cache={}
+        )
+
+    def _log_local_query(self, phys, wall_s: float, cpu_s: float, compile_s: float) -> None:
+        """Record one completed collect into the query log, in the record
+        shape the scheduler persists."""
+        from ballista_tpu_torch.obs import history as obs_history
+        from ballista_tpu_torch.obs.qclass import plan_class
+
+        hist = self._system_history()
+        self._local_query_seq += 1
+        job_id = f"local-{self._local_query_seq:06d}"
+        now = time.time()
+        cost = obs_history.cost_from_run(
+            wall_seconds=wall_s, cpu_seconds=cpu_s, plan=phys, compile_seconds=compile_s,
+        )
+        qclass = plan_class(phys)
+        hist.record_submit(job_id, query_class=qclass, submitted_s=now - wall_s)
+        hist.record_terminal(
+            job_id, "completed", query_class=qclass,
+            submitted_s=now - wall_s, latency_s=wall_s, cost=cost,
+        )
+
     # -- Catalog / TableProvider ---------------------------------------------
     def schema_of(self, table: str) -> Schema:
-        if table not in self.tables and table.startswith("system."):
-            raise PlanError(
-                f"system table {table!r} is not ported yet (ROADMAP queue 1, "
-                "item 3)"
-            )
+        from ballista_tpu_torch.obs.history import SYSTEM_TABLE_SCHEMAS
+
+        if table in SYSTEM_TABLE_SCHEMAS:
+            # a static schema: the rows are materialized when it is scanned
+            return SYSTEM_TABLE_SCHEMAS[table]
         if table not in self.tables:
             raise PlanError(f"table {table!r} not found")
         return self.tables[table].schema
@@ -238,6 +323,12 @@ class TorchContext(Catalog, TableProvider):
     def scan(
         self, table: str, projection: list[str] | None, partitions: int
     ) -> ExecutionPlan:
+        from ballista_tpu_torch.obs.history import SYSTEM_TABLE_SCHEMAS
+
+        if table in SYSTEM_TABLE_SCHEMAS:
+            # refresh on scan: a system table serves the rows as of this
+            # query's planning, through the ordinary memory scan
+            self._refresh_system_table(table)
         r = self.tables.get(table)
         if r is None:
             raise PlanError(f"table {table!r} not found")
@@ -313,9 +404,16 @@ class TorchContext(Catalog, TableProvider):
     def _data_version(self) -> tuple:
         """The registered data's signature in the plan cache's key: a
         swapped memory table (identity and rows) or a rewritten file
-        (mtime) gets a fresh plan, since cached scans hold their data."""
+        (mtime) gets a fresh plan, since cached scans hold their data.
+        System tables are left out: every scan of one re-registers it, and
+        a dashboard polling ``system.queries`` must not invalidate every
+        cached user plan (plans over system tables are never cached)."""
+        from ballista_tpu_torch.obs.history import SYSTEM_TABLE_SCHEMAS
+
         sig = []
         for name in sorted(self.tables):
+            if name in SYSTEM_TABLE_SCHEMAS:
+                continue
             r = self.tables[name]
             t = r.kw.get("table")
             if t is not None:
@@ -335,6 +433,15 @@ class TorchContext(Catalog, TableProvider):
             from ballista_tpu_torch.analysis import verify_logical
 
             verify_logical(optimized, sql=sql)
+        if _scans_system_table(optimized):
+            # never cached: a cached scan holds the rows it was planned
+            # against, and a system table serves the rows as of this query
+            phys = self._planner().plan(optimized)
+            if verify:
+                from ballista_tpu_torch.analysis import verify_physical
+
+                verify_physical(phys, sql=sql)
+            return phys
         key = (
             plan_fingerprint(optimized),
             tuple(sorted(self.config.settings().items())),
@@ -433,6 +540,7 @@ class TorchContext(Catalog, TableProvider):
                     batches += 1
             return batches
 
+        self._hints.load_once(self._capacity_hint, self._plan_cache)
         t0 = time.perf_counter()
         with unfused():
             run_with_capacity_retry(
@@ -442,6 +550,7 @@ class TorchContext(Catalog, TableProvider):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
+        self._hints.save_if_changed(self._capacity_hint, self._plan_cache)
         rows = [
             ("physical_plan (analyzed)", profile.annotated_display(phys)),
             ("analyze_summary",
@@ -647,11 +756,29 @@ class DataFrame:
             return out
 
         self.stats = {}
+        ctx = self.ctx
+        # the hint file seeds a cold run's capacities and plan shapes
+        ctx._hints.load_once(ctx._capacity_hint, ctx._plan_cache)
+        from ballista_tpu_torch.ops import cuda_build
+
+        t0, c0, b0 = time.perf_counter(), time.thread_time(), cuda_build.build_seconds()
         batches = run_with_capacity_retry(
-            self.ctx.config, run, device=self.ctx.device,
-            hint=self.ctx._capacity_hint, plan_cache=self.ctx._plan_cache,
+            ctx.config, run, device=ctx.device,
+            hint=ctx._capacity_hint, plan_cache=ctx._plan_cache,
             stats=self.stats,
         )
+        if ctx.config.cost_accounting():
+            # the local query log (system.queries): wall and CPU seconds
+            # around the run, and the kernel build seconds it paid
+            try:
+                ctx._log_local_query(
+                    phys, time.perf_counter() - t0, time.thread_time() - c0,
+                    cuda_build.build_seconds() - b0,
+                )
+            except Exception:  # noqa: BLE001 — the query log is
+                # observability; it must never fail a collect
+                log.exception("local query-log record failed")
+        ctx._hints.save_if_changed(ctx._capacity_hint, ctx._plan_cache)
         if not batches:
             return schema_to_arrow(phys.schema()).empty_table(), phys
         return pa.Table.from_batches(batches), phys

@@ -27,10 +27,11 @@ runs over ``partition_groups_plain``, without pinned memory. The shuffle
 writer (``executor/shuffle.py``) writes its partition files through the
 same grouped copy (``grouped_arrow``), with its own stats.
 
-Left out of the port, as neither changes a result and the port has neither
-module yet: the reference's resource-witness hooks (``analysis.reswitness``)
-and its spill trace events (``obs.trace``); and the executor's TTL sweep of
-orphaned attempt directories, which comes with the distributed tier.
+Left out, as neither changes a result: the reference's resource-witness
+hooks and spill trace events. The port has both modules
+(``analysis.reswitness``, ``obs.trace``) and the executor's TTL sweep of
+orphaned attempt directories (``executor/cleanup.py``), but the spill does
+not call the first two yet (ROADMAP queue 1, item 10b).
 """
 
 from __future__ import annotations

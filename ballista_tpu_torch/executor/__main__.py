@@ -10,9 +10,11 @@ Flags mirror the reference's executor config spec (executor_config_spec.toml);
 every flag also reads a ``BALLISTA_EXECUTOR_<NAME>`` environment default, the
 reference's configure_me behavior. ``--device`` (default ``cuda``) is the
 port's own: tasks run on the card, and without one the process exits
-before it binds a port unless started with ``--device cpu``. The port
-serves memory tables only in process (it has no file scans yet, ROADMAP
-queue 1, item 3), and ``--prewarm`` accepts only ``off``.
+before it binds a port unless started with ``--device cpu``. A non-zero
+``--metrics-port`` serves the Prometheus exposition of
+``obs.prometheus.executor_families`` at ``/api/metrics``. File tables
+travel in the plan; memory tables are served in process only, and
+``--prewarm`` accepts only ``off``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ import threading
 
 from ballista_tpu_torch.columnar.batch import resolve_device
 from ballista_tpu_torch.config import TaskSchedulingPolicy
-from ballista_tpu_torch.errors import ConfigError
 from ballista_tpu_torch.executor.cleanup import start_cleanup_loop
 from ballista_tpu_torch.executor.executor import (
     Executor,
@@ -101,8 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--metrics-port",
         type=int,
         default=int(_env("metrics_port", 0)),
-        help="serve Prometheus text metrics on this port; 0 disables, the "
-        "only value this engine supports yet (ROADMAP queue 1, item 9e)",
+        help="serve Prometheus text metrics (GET /api/metrics) on this "
+        "port — the executor-side scrape surface; 0 disables",
     )
     p.add_argument("--log-level", default=_env("log_level", "INFO"))
     p.add_argument(
@@ -121,11 +122,6 @@ def main(argv: list[str] | None = None) -> int:
     )
     policy = TaskSchedulingPolicy.parse(args.task_scheduling_policy)
     check_prewarm(args.prewarm)
-    if args.metrics_port:
-        raise ConfigError(
-            "--metrics-port is not supported by this engine yet: the "
-            "Prometheus exposition is ROADMAP queue 1, item 9e"
-        )
     # the device first: without a card (and without --device cpu) the
     # process raises here, before it makes a directory or binds a port
     device = resolve_device(args.device)
@@ -182,12 +178,25 @@ def main(argv: list[str] | None = None) -> int:
             args.job_data_clean_up_interval_seconds,
         )
 
+    metrics_httpd = None
+    if args.metrics_port:
+        from ballista_tpu_torch.obs import prometheus as prom
+
+        metrics_httpd, mport = prom.start_metrics_server(
+            prom.executor_families, args.bind_host, args.metrics_port
+        )
+        log.info("metrics on %s:%d/api/metrics", args.bind_host, mport)
+
     # wake up twice a second: a signal delivered to one of gRPC's threads
     # runs its Python handler only when the main thread next runs, and an
     # untimed wait would never return
     while not stop.wait(0.5):
         pass
     log.info("shutting down")
+    if metrics_httpd is not None:
+        from ballista_tpu_torch.obs.prometheus import stop_metrics_server
+
+        stop_metrics_server(metrics_httpd)
     worker.stop()
     svc.shutdown()
     return 0

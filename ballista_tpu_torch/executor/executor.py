@@ -11,12 +11,9 @@ Where the port differs from the reference:
 - **The device.** ``Executor(..., device="cuda")`` by default: every task
   runs on the card, and constructing an executor without one raises
   unless it is asked for the CPU (``device="cpu"``).
-- **Learned capacities live in memory** for the executor's life; the
-  reference's ``HintStore`` seeds them from a hint file and saves them
-  back. Persisting them is ROADMAP queue 1, item 3.
-- **The capacity ladder and UDF plugins** are not ported: a task whose
-  session sets ``ballista.tpu.capacity_buckets`` or ``ballista.plugin_dir``
-  fails with ``ConfigError`` (reported as a failed task).
+- **UDF plugins** are not ported: a task whose session sets
+  ``ballista.plugin_dir`` fails with ``ConfigError`` (reported as a
+  failed task).
 - **Prewarm**: ``PollLoop(prewarm=...)`` accepts only ``off``.
 - **Compile metrics** shipped on the poll are the nvcc build seconds of
   ``ops/cuda_build``.
@@ -36,7 +33,6 @@ import grpc
 
 from ballista_tpu_torch.columnar.batch import resolve_device
 from ballista_tpu_torch.config import (
-    BALLISTA_CAPACITY_BUCKETS,
     BALLISTA_PLUGIN_DIR,
     BALLISTA_PREWARM,
     UNPORTED,
@@ -116,8 +112,8 @@ class Executor:
         # bytes it hands over, so the second walk buys nothing.
         self.verify_decoded_plans = True
         # adaptive-capacity memory across tasks (run_with_capacity_retry),
-        # for the executor's life: nothing is persisted (ROADMAP queue 1,
-        # item 3)
+        # seeded from the persisted hint file so a restarted executor keeps
+        # its learned join strategies and capacities (compilecache.hints)
         self._capacity_hint: dict = {}
         self._plan_cache: dict = {}
         # job-scoped strategy snapshots (the q15 warm-pass drift fix):
@@ -129,6 +125,10 @@ class Executor:
         self._job_snapshots: _collections.OrderedDict = (
             _collections.OrderedDict()
         )
+        from ballista_tpu_torch.compilecache.hints import HintStore
+
+        self._hints = HintStore()
+        self._hints.load_once(self._capacity_hint, self._plan_cache)
         # None = resolve per task from the session's declared
         # ballista.tpu.metrics_collector (shipping by default); an
         # explicitly constructed collector wins (tests, embedders)
@@ -314,11 +314,11 @@ class Executor:
                 task.task_id.partition_id, attempt,
             )
         # UDF plugins (the reference loads them here, before the decode)
-        # and the capacity ladder are not ported: a session that sets
-        # either fails the task
+        # are not ported: a session that sets a plugin directory fails the
+        # task
         BallistaConfig(
-            {k: v for k, v in props_early.items() if k in (BALLISTA_PLUGIN_DIR, BALLISTA_CAPACITY_BUCKETS)}
-        ).check_ported(BALLISTA_PLUGIN_DIR, BALLISTA_CAPACITY_BUCKETS)
+            {k: v for k, v in props_early.items() if k == BALLISTA_PLUGIN_DIR}
+        ).check_ported(BALLISTA_PLUGIN_DIR)
         node = pb.PhysicalPlanNode()
         node.ParseFromString(task.plan)
         plan = self.codec.physical_from_proto(node)
@@ -329,6 +329,12 @@ class Executor:
             )
         props = props_early
         config = BallistaConfig(props) if props else BallistaConfig()
+        # the session's capacity ladder governs this executor's capacities
+        # too, or client and executor would size the same query apart (a
+        # no-op when the spec is unchanged)
+        from ballista_tpu_torch.columnar.batch import set_capacity_buckets
+
+        set_capacity_buckets(config.capacity_buckets())
         if self.verify_decoded_plans and config.verify_plans():
             from ballista_tpu_torch.analysis import verify_physical
 
@@ -429,6 +435,8 @@ class Executor:
         from ballista_tpu_torch.exec.base import evict_plan_cache
 
         evict_plan_cache(self._plan_cache)
+        # outside exec.base's hint lock: the save only reads the hint
+        self._hints.save_if_changed(self._capacity_hint, self._plan_cache)
         from ballista_tpu_torch.analysis import replay
 
         if replay.enabled():

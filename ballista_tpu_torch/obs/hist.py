@@ -18,13 +18,18 @@ docs/observability.md).
 scheduler keeps an INSTANCE registry (its own latency observations plus
 everything executors ship), distinct from the module-level one, so an
 in-process standalone cluster never counts a shipped observation twice.
-``Histogram.quantile`` interpolates inside the landing bucket. The
-Prometheus exposition comes with ROADMAP queue 1, item 9e.
+``Histogram.quantile`` interpolates inside the landing bucket.
+
+Exposition: :meth:`Registry.families` returns Prometheus ``histogram``
+families (``_bucket``/``_sum``/``_count`` with cumulative ``le``
+samples) in the 3-tuple sample shape ``obs.prometheus.render``
+understands.
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 
 from ballista_tpu_torch.analysis.witness import make_lock
 
@@ -34,6 +39,14 @@ from ballista_tpu_torch.analysis.witness import make_lock
 DEFAULT_BUCKETS: tuple[float, ...] = tuple(
     0.001 * (2.0 ** i) for i in range(21)
 )
+
+
+def format_le(le: float) -> str:
+    """Prometheus ``le`` label text: finite bounds via %g, +Inf spelled
+    the way every scraper expects."""
+    if math.isinf(le):
+        return "+Inf"
+    return f"{le:g}"
 
 
 class Histogram:
@@ -177,6 +190,34 @@ class Registry:
         with self._lock:
             self._vecs.clear()
             self._outbox.clear()
+
+    # -- exposition ----------------------------------------------------------
+    def families(self) -> list[tuple]:
+        """Prometheus ``histogram`` families in the 3-tuple sample shape
+        of obs.prometheus.render: (suffix, labels, value) with cumulative
+        ``le`` buckets in ascending order."""
+        out: list[tuple] = []
+        with self._lock:
+            vecs = sorted(self._vecs.items())
+        for name, vec in vecs:
+            samples: list[tuple] = []
+            for key, child in vec.children():
+                labels = dict(zip(vec.labelnames, key))
+                counts, total_sum, total_count = child.snapshot()
+                cum = 0
+                for i, le in enumerate(vec.buckets):
+                    cum += counts[i]
+                    samples.append(
+                        ("_bucket", {**labels, "le": format_le(le)}, cum)
+                    )
+                samples.append(
+                    ("_bucket", {**labels, "le": "+Inf"}, total_count)
+                )
+                samples.append(("_sum", labels, round(total_sum, 6)))
+                samples.append(("_count", labels, total_count))
+            if samples:
+                out.append((name, "histogram", vec.help or name, samples))
+        return out
 
     # -- executor -> scheduler shipping --------------------------------------
     def drain_deltas(self) -> list[dict]:

@@ -17,9 +17,9 @@ written through its state backend (``scheduler/state_backend``): one
 ``submitted`` and one terminal record per job plus per-attempt cost
 records, bounded to ``retention_jobs`` jobs. The Arrow builders of the
 ``system.queries`` / ``system.task_attempts`` / ``system.executors``
-tables are here too; the contexts do not serve those tables yet (ROADMAP
-queue 1, item 3), and the scheduler's ``GetHistory`` RPC returns their
-rows as JSON.
+tables are here too: ``TorchContext`` serves them from its local query
+log, and ``BallistaContext`` from the scheduler's log, whose rows the
+``GetHistory`` RPC returns as JSON.
 """
 
 from __future__ import annotations

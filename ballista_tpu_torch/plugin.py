@@ -26,6 +26,9 @@ class UdfRegistry:
     def get_udaf(self, name: str):
         return None
 
+    def names(self) -> list[str]:
+        return []
+
 
 global_registry = UdfRegistry()
 

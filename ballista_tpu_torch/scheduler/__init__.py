@@ -4,10 +4,11 @@ registry of the scheduler and executor services (``rpc``), the
 pull-staged task handout, shuffle-location publishing and executor-loss
 recovery (``server``), the task, stage and executor bookkeeping
 (``stage_manager``, ``executor_manager``), the state backends and their
-restart recovery (``state_backend``: memory and sqlite,
-``persistent_state``), the result cache (``result_cache``) and the
+restart recovery (``state_backend``: memory and sqlite, ``etcd_backend``,
+``persistent_state``), the result cache (``result_cache``), the REST API
+(``rest``), the KEDA external scaler (``external_scaler``) and the
 default path of adaptive query execution (``aqe``). ``python -m
 ballista_tpu_torch.scheduler`` runs it as a process; it plans and never
-runs an operator, so it needs no card. The REST API, the etcd backend,
-the KEDA external scaler and AQE itself are ROADMAP queue 1, item 9e.
+runs an operator, so it needs no card. AQE itself is ROADMAP queue 1,
+item 9e, step 3.
 """

@@ -3,16 +3,19 @@
 (port of ``python -m ballista_tpu.scheduler``).
 
 ref ballista/rust/scheduler/src/main.rs:65-198 — parse the flag/env config
-tier, pick the state backend (in-memory or sqlite, standing in for the
-reference's sled/etcd pair), start the SchedulerGrpc service, and wait for
-a signal.
+tier, pick the state backend (in-memory, sqlite standing in for the
+reference's sled, or etcd), start the SchedulerGrpc service (with the KEDA
+external scaler on the same port) and the REST API, and wait for a
+signal.
 
 Flags mirror the reference's scheduler config spec; every flag also reads a
 ``BALLISTA_SCHEDULER_<NAME>`` environment default (configure_me behavior).
 The scheduler plans and never runs an operator, so it needs no card. A
-non-zero ``--rest-port`` (the REST API) and ``--state-backend etcd`` are
-refused with ``ConfigError`` before any port is bound: both are ROADMAP
-queue 1, item 9e. The process wakes twice a second to see a stop signal.
+non-zero ``--rest-port`` serves ``/api/state``, ``/api/history``,
+``/api/job/<id>``, ``/api/metrics`` and the status page
+(``scheduler/rest.py``); ``--state-backend etcd --etcd-urls host:port``
+keeps the scheduler's state in etcd (``scheduler/etcd_backend.py``). The
+process wakes twice a second to see a stop signal.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ import signal
 import threading
 
 from ballista_tpu_torch.config import BallistaConfig, TaskSchedulingPolicy
-from ballista_tpu_torch.errors import ConfigError
 
 log = logging.getLogger("ballista_tpu_torch.scheduler")
 
@@ -91,16 +93,6 @@ def main(argv: list[str] | None = None) -> int:
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
-    if args.rest_port:
-        raise ConfigError(
-            f"--rest-port {args.rest_port}: the REST API is not supported by "
-            "this engine yet (ROADMAP queue 1, item 9e); use --rest-port 0"
-        )
-    if args.state_backend == "etcd":
-        raise ConfigError(
-            "--state-backend etcd is not supported by this engine yet "
-            "(ROADMAP queue 1, item 9e); use memory or sqlite"
-        )
     # handlers first: a SIGTERM that arrives while the server starts must
     # still stop it
     stop = threading.Event()
@@ -115,7 +107,11 @@ def main(argv: list[str] | None = None) -> int:
         SqliteBackend,
     )
 
-    if args.state_backend == "sqlite":
+    if args.state_backend == "etcd":
+        from ballista_tpu_torch.scheduler.etcd_backend import EtcdBackend
+
+        backend = EtcdBackend(args.etcd_urls)
+    elif args.state_backend == "sqlite":
         backend = SqliteBackend(args.state_path)
     else:
         backend = MemoryBackend()
@@ -134,12 +130,22 @@ def main(argv: list[str] | None = None) -> int:
         "scheduler: gRPC on %s:%d, policy=%s, backend=%s",
         args.bind_host, port, args.scheduler_policy, args.state_backend,
     )
+    rest = None
+    if args.rest_port:
+        from ballista_tpu_torch.scheduler.rest import start_rest_server
+
+        rest, rest_port = start_rest_server(server, args.bind_host, args.rest_port)
+        log.info("REST /state on %s:%d", args.bind_host, rest_port)
     # wake up twice a second: a signal delivered to one of gRPC's threads
     # sets the flag only once the main thread runs Python again, and an
     # untimed wait would never return
     while not stop.wait(0.5):
         pass
     log.info("shutting down")
+    if rest is not None:
+        from ballista_tpu_torch.scheduler.rest import stop_rest_server
+
+        stop_rest_server(rest)
     grpc_server.stop(grace=1)
     server.shutdown()
     backend.close()

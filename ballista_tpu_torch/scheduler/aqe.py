@@ -6,8 +6,8 @@ runtime-stats gathering the skew monitor reads on every job
 (:func:`producer_stats`, :func:`keyed_bucket_totals`), and
 :class:`AqePolicy`, whose hooks return at once while AQE is off.
 
-Not ported (ROADMAP queue 1, item 9e): the policy itself (the learned
-strategy store over the reference's ``compilecache/hints.py``, the flip,
+Not ported (ROADMAP queue 1, item 9e, step 3): the policy itself (the
+learned strategy store over ``compilecache/hints.py``, the flip,
 split, coalesce and broadcast rules), the certified rewrites it applies
 (``rewrite.py``) and the scheduler's ``apply_certified_rewrite``. So where
 the reference would turn AQE on (``ballista.tpu.aqe=true``, or

@@ -22,13 +22,16 @@ scheduler needs no card. Where the port differs:
 - **AQE** (``scheduler/aqe.py``) is the reference's default path only;
   ``apply_certified_rewrite`` and the rewrites it applies are left out,
   and a session or process that turns AQE on is refused with
-  ``ConfigError`` (ROADMAP queue 1, item 9e).
+  ``ConfigError`` (ROADMAP queue 1, item 9e, step 3).
 - **File tables**: a query's file scans are planned from the source in
   its logical plan; the scheduler reads no row of the file (row groups are
   pruned when an executor runs the task). ``GetFileMetadata`` reads a
   Parquet footer only.
-- **No KEDA external scaler** on the gRPC port (ROADMAP queue 1, item
-  9e); ``desired_executors`` still computes its signal.
+
+The KEDA external scaler (``scheduler/external_scaler.py``) shares the
+gRPC port, the REST API (``scheduler/rest.py``, with ``/api/metrics``)
+reads this server's state, and ``scheduler/etcd_backend.py`` is one of
+its state backends, as in the reference.
 """
 
 from __future__ import annotations
@@ -3034,6 +3037,11 @@ def start_scheduler_grpc(
         .ThreadPoolExecutor(max_workers=16)
     )
     add_service(gs, SCHEDULER_SERVICE, SCHEDULER_METHODS, SchedulerGrpcServicer(server))
+    # KEDA external scaler rides the same port (ref main.rs:136-166
+    # multiplexes gRPC services on the scheduler's bind address)
+    from ballista_tpu_torch.scheduler.external_scaler import add_external_scaler
+
+    add_external_scaler(gs, server)
     bound = gs.add_insecure_port(f"{host}:{port}")
     gs.start()
     return gs, bound

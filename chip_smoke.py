@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py [--sf 1] [--seed 42] [--warm 3] [--profile]
     python3 chip_smoke.py --partition-timing [--root CHECKOUT]
+    python3 chip_smoke.py --collect-timing [--root CHECKOUT] [--settings JSON]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -220,7 +221,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against its plain version.
 11. File tables, on the tables of phase 5 written as Parquet files (row
    groups of 2^20 rows: lineitem 6, orders 2) into a temporary directory
-   that is deleted at the end, every table registered by ``CREATE
+   that is deleted after phase 12, every table registered by ``CREATE
    EXTERNAL TABLE``. (a) ``TorchContext(device="cuda")``: all 22 TPC-H
    queries (the SQL of phases 4-6) one cold and two warm runs each, held
    against the card's memory-table results of phases 4-6 (rows sorted:
@@ -252,7 +253,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    memory of (a), (c) and (e), the phase's time with the ``nvidia-smi``
    line, and replays one launch per distinct shape of each kernel of the
    phase against its plain version.
-12. One JSON line of kernel results (the one-hot kernel, and the
+12. The operator's surface, over phase 11's Parquet files. Phases 3-11
+   and the processes they start run with ``BALLISTA_TPU_HINT_CACHE=off``,
+   so their cold runs stay cold; each child of this phase gets its own
+   hint directory, deleted at the end. (a) ``python -m
+   ballista_tpu_torch.cli -f <script> --format csv`` as a child on the
+   card: the script creates the eight tables by DDL and runs q1, q6 and
+   q3, whose CSV output equals phase 11 (a)'s results (keys and counts
+   exactly, floats within rtol 1e-9); prints the child's wall seconds.
+   (b) Persisted hints: two fresh children sharing one new hint directory
+   run q2 and q4 cold over the files; the first retries, the second makes
+   no capacity retry or speculation miss and returns the first's tables
+   bit for bit, and a third child with the cache ``off`` retries as the
+   first did; prints each query's cold seconds, retries and launches in
+   each child and the size of ``plan_hints.json``. (c) The capacity
+   ladder: q1, q6 and q18 over the memory tables, cold and warm, under
+   ``ballista.tpu.capacity_buckets`` ``LADDER_SPEC`` and under the
+   default, and q3 through the distributed planner in process under each
+   (the partition-hash kernel): keys, counts and money sums bit for bit,
+   other floats within rtol 1e-9, against phases 4-6 and across the
+   ladders; the default ladder is restored. (d, e) ``python -m
+   ballista_tpu_torch.scheduler --rest-port`` and two ``python -m
+   ballista_tpu_torch.executor --device cuda --metrics-port`` processes;
+   q1 and q3 through ``BallistaContext.remote`` over the files, equal to
+   phase 11 (a)'s; KEDA's ``IsActive`` (on the scheduler's gRPC port) is
+   true while a query runs and false after it; ``system.queries`` has the
+   two jobs, ``system.task_attempts`` their tasks and ``system.executors``
+   the two executors; ``/api/state``, ``/api/history``, ``/api/job/<id>``
+   and ``/api/metrics`` answer, and every scrape (the scheduler's and each
+   executor's) passes ``validate_exposition``; the three processes exit 0
+   on SIGTERM. Replays one launch per distinct shape of (c)'s runs against
+   the plain versions.
+13. One JSON line of kernel results (the one-hot kernel, and the
    partition-hash kernel's ids and grouped modes), the card's name and
    power limit, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -260,7 +292,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 prints ``partition_timing``'s results, and stops. With ``--root`` it
 imports another checkout's ``ballista_tpu_torch`` (unpacked into a
 gitignored directory such as ``build/``), so that two checkouts' kernels
-are timed on one card in one call.
+are timed on one card in one call. ``--collect-timing`` runs phase 1,
+builds both kernels, generates TPC-H at ``--sf`` and runs the 22 queries
+over memory tables in one ``TorchContext(device="cuda")`` (session
+settings from ``--settings``, a JSON object), one cold and ``--warm``
+warm runs each, prints their seconds as one JSON line, and stops: run it
+once per checkout (``--root``) in one call to compare two trees' warm
+runs on one card.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3013,16 +3051,17 @@ def held_as(tag: str, q: str, got, want, exact: bool) -> None:
         check(g.column(c).equals(w.column(c)), f"{tag}: {c} not bit for bit")
 
 
-def files_path(data: dict, oracles: dict, earlier: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict:
+def files_path(data: dict, oracles: dict, earlier: dict, tmp: pathlib.Path, rec: LaunchRecorder,
+               prec: PartitionRecorder) -> dict:
     """(a)-(f) of phase 11: the TPC-H tables of phase 5 as Parquet files
-    (row groups of 2^20 rows), CSV and Avro files in a temporary directory
-    that is deleted at the end, registered by ``CREATE EXTERNAL TABLE``.
+    (row groups of 2^20 rows), CSV and Avro files in the directory ``tmp``
+    (phase 12 reads the Parquet files too; the caller deletes it),
+    registered by ``CREATE EXTERNAL TABLE``. ``out["results"]`` holds (a)'s
+    third run of each query.
     ``earlier``: query -> (SQL, the card's memory-table result) of phases
     4-6. Every launch keeps the inputs of the first launch at its shape,
     on the host, for the replay."""
     import gc
-    import shutil
-    import tempfile
 
     import pyarrow.csv as pacsv
     import pyarrow.parquet as papq
@@ -3040,7 +3079,6 @@ def files_path(data: dict, oracles: dict, earlier: dict, rec: LaunchRecorder, pr
 
     out: dict = {}
     launches = plaunches = glaunches = 0
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_files-"))
 
     def ddl(name: str, fmt: str = "parquet", path=None) -> str:
         stored = {"parquet": "PARQUET", "csv": "CSV WITH HEADER ROW", "avro": "AVRO"}[fmt]
@@ -3112,6 +3150,7 @@ def files_path(data: dict, oracles: dict, earlier: dict, rec: LaunchRecorder, pr
             )
             log(f"{tag}: ok  {json.dumps(out[tag])}")
         check(min(out["q1-files"]["onehot_launches"]) > 0, "q1 over Parquet did not launch the one-hot kernel")
+        out["results"] = results
         out["collect_peak_bytes"] = torch.cuda.max_memory_allocated()
 
         # (f) the statements, on (a)'s context
@@ -3297,7 +3336,6 @@ def files_path(data: dict, oracles: dict, earlier: dict, rec: LaunchRecorder, pr
     finally:
         rec.tag = prec.tag = None
         rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
-        shutil.rmtree(tmp, ignore_errors=True)
     for r in (rec, prec):
         for tag in r.shapes:
             if tag.endswith(("-files", "-files-cluster", "-csv", "-avro", "-analyze")) or "-stream" in tag or "-pruned-" in tag:
@@ -3306,6 +3344,445 @@ def files_path(data: dict, oracles: dict, earlier: dict, rec: LaunchRecorder, pr
     log(f"files: peak device memory {out['collect_peak_bytes']} bytes (collect), "
         f"{out['stream0_peak_bytes']} / {out['stream1_peak_bytes']} (streamed, depth 0 / 1), "
         f"{out['cluster_peak_bytes']} (cluster)")
+    out["launches"] = launches
+    out["partition_launches"] = plaunches
+    out["grouped_launches"] = glaunches
+    return out
+
+
+# -- phase 12: the operator's surface (shell, hints, ladder, REST, KEDA) -------
+
+# (a): the queries the shell runs from its script
+SHELL_QUERIES = ("q1", "q6", "q3")
+# (b): queries whose cold runs retried over Parquet in run J10 (q2 once, q4
+# twice): a fresh process seeded from the hint file must not retry
+HINT_QUERIES = ("q2", "q4")
+# (c): a coarser ladder than the default 2048:2
+LADDER_SPEC = "4096:4"
+LADDER_QUERIES = ("q1", "q6", "q18")
+# (d, e): the cluster's jobs, through the process entries
+OPS_QUERIES = ("q1", "q3")
+
+# a child process of (b): a fresh TorchContext on the card over the Parquet
+# files, each query of HINT_QUERIES run once (cold), its result written as
+# Arrow IPC; prints one line "RESULT <json>" with seconds, retries and the
+# kernels' launches a query
+HINT_CHILD = r"""
+import json, sys, time
+import pyarrow as pa
+import torch
+from ballista_tpu_torch.exec.context import TorchContext
+from ballista_tpu_torch.ops import onehot_agg, partition
+
+spec = json.loads(sys.argv[1])
+ctx = TorchContext(device="cuda")
+for stmt in spec["ddl"]:
+    ctx.sql(stmt)
+out = {}
+for q, sql in spec["queries"].items():
+    onehot_agg.launches = partition.launches = partition.group_launches = 0
+    t = time.perf_counter()
+    df = ctx.sql(sql)
+    res = df.collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    with pa.OSFile(f"{spec['out']}/{q}.arrow", "wb") as f, pa.ipc.new_file(f, res.schema) as w:
+        w.write_table(res)
+    out[q] = dict(
+        s=secs, capacity_retries=df.stats.get("capacity_retries", 0),
+        speculation_misses=df.stats.get("speculation_misses", 0), launches=onehot_agg.launches,
+        partition_launches=partition.launches + partition.group_launches,
+    )
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        return so.getsockname()[1]
+
+
+def child_env(hints: str) -> dict:
+    """The environment of a child process: this one's, with its own hint
+    cache (a directory, or ``off``)."""
+    import os
+
+    return {**os.environ, "BALLISTA_TPU_HINT_CACHE": hints}
+
+
+def read_csv_blocks(text: str, counts: list) -> list:
+    """Split the shell's ``--format csv -q`` output into one table a
+    statement: each block is a header line and ``counts[i]`` rows."""
+    import io
+
+    import pyarrow.csv as pacsv
+
+    lines = text.splitlines()
+    out, i = [], 0
+    for n in counts:
+        block = "\n".join(lines[i:i + 1 + n]) + "\n"
+        out.append(pacsv.read_csv(io.BytesIO(block.encode())))
+        i += 1 + n
+    check(i == len(lines), f"shell: {len(lines) - i} lines of output left over:\n{text[-2000:]}")
+    return out
+
+
+def as_types_of(got, want):
+    """``got`` (read back from CSV) cast to ``want``'s schema."""
+    import pyarrow as pa
+
+    check(got.column_names == want.column_names, f"columns {got.column_names} vs {want.column_names}")
+    return pa.Table.from_arrays(
+        [got.column(c).cast(want.schema.field(c).type) for c in want.column_names], schema=want.schema
+    )
+
+
+def ops_path(data: dict, earlier: dict, files: dict, tmp: pathlib.Path, rec: LaunchRecorder,
+             prec: PartitionRecorder, pkg_root: pathlib.Path) -> dict:
+    """(a)-(e) of phase 12 over phase 11's Parquet files in ``tmp``:
+    ``earlier`` maps a query to (SQL, the card's memory-table result of
+    phases 4-6), ``files`` to phase 11 (a)'s result over the files."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    import grpc
+    import pyarrow as pa
+    import torch
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.columnar.arrow_interop import batch_to_arrow
+    from ballista_tpu_torch.columnar.batch import capacity_ladder, set_capacity_buckets
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.base import execute_to_batches, run_with_capacity_retry
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.exec.planner import PhysicalPlanner
+    from ballista_tpu_torch.obs.prometheus import validate_exposition
+    from ballista_tpu_torch.ops import onehot_agg, partition
+    from ballista_tpu_torch.plan.optimizer import optimize
+    from ballista_tpu_torch.proto import pb
+    from ballista_tpu_torch.scheduler.external_scaler import EXTERNAL_SCALER_METHODS, EXTERNAL_SCALER_SERVICE
+
+    out: dict = {}
+    launches = plaunches = glaunches = 0
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ops-"))
+    ddl = [
+        f"CREATE EXTERNAL TABLE {name} STORED AS PARQUET LOCATION '{tmp / f'{name}.parquet'}'" for name in data
+    ]
+
+    def child(args: list, env: dict, timeout: float = 300):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, *args], cwd=pkg_root, env=env, capture_output=True, text=True, timeout=timeout
+        )
+        return proc, time.perf_counter() - t
+
+    try:
+        # (a) the shell as a child on the card: DDL, then q1, q6, q3
+        t0 = time.perf_counter()
+        script = work / "shell.sql"
+        script.write_text(
+            "".join(f"{s};\n" for s in ddl)
+            + "".join(earlier[q][0].strip().rstrip(";") + ";\n" for q in SHELL_QUERIES)
+        )
+        proc, secs = child(
+            ["-m", "ballista_tpu_torch.cli", "-f", str(script), "--format", "csv", "-q", "--device", "cuda"],
+            child_env(str(work / "hints-shell")),
+        )
+        check(proc.returncode == 0 and "error:" not in proc.stdout,
+              f"shell exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        blocks = read_csv_blocks(proc.stdout, [1] * len(ddl) + [files[q].num_rows for q in SHELL_QUERIES])
+        check(all(b.to_pydict() == {"result": ["ok"]} for b in blocks[:len(ddl)]), "shell: a DDL statement failed")
+        for q, got in zip(SHELL_QUERIES, blocks[len(ddl):]):
+            held_as(f"{q}-shell", q, as_types_of(got, files[q]), files[q], exact=False)
+        out["shell"] = dict(s=secs, queries=list(SHELL_QUERIES), output_lines=len(proc.stdout.splitlines()))
+        log(f"shell: ok  {json.dumps(out['shell'])}")
+        out["shell_s"] = time.perf_counter() - t0
+
+        # (b) persisted hints: two children over one fresh hint directory,
+        # a third with the cache off
+        t0 = time.perf_counter()
+        hints = work / "hints"
+        runs = {}
+        for tag, cache in (("first", str(hints)), ("second", str(hints)), ("off", "off")):
+            res_dir = work / f"hint-{tag}"
+            res_dir.mkdir()
+            spec = dict(ddl=ddl, queries={q: earlier[q][0] for q in HINT_QUERIES}, out=str(res_dir))
+            proc, secs = child(["-c", HINT_CHILD, json.dumps(spec)], child_env(cache))
+            line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")), None)
+            check(proc.returncode == 0 and line is not None,
+                  f"hint child {tag} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            runs[tag] = json.loads(line[len("RESULT "):])
+            tables = {q: pa.ipc.open_file(str(res_dir / f"{q}.arrow")).read_all() for q in HINT_QUERIES}
+            for q in HINT_QUERIES:
+                held_as(f"{q}-hints-{tag}", q, tables[q], files[q], exact=False)
+                runs[tag][q]["table"] = tables[q]
+            size = (hints / "plan_hints.json").stat().st_size if (hints / "plan_hints.json").exists() else 0
+            out[f"hints-{tag}"] = dict(
+                child_s=secs, hint_file_bytes=size,
+                **{q: {k: v for k, v in runs[tag][q].items() if k != "table"} for q in HINT_QUERIES},
+            )
+            log(f"hints-{tag}: ok  {json.dumps(out[f'hints-{tag}'])}")
+
+        def retries(tag, q):
+            return runs[tag][q]["capacity_retries"] + runs[tag][q]["speculation_misses"]
+
+        check(out["hints-first"]["hint_file_bytes"] > 0, "hints: the first child wrote no plan_hints.json")
+        for q in HINT_QUERIES:
+            check(retries("second", q) == 0, f"{q}: the second child retried {retries('second', q)} times")
+            check(runs["second"][q]["table"].equals(runs["first"][q]["table"]),
+                  f"{q}: the second child's result differs from the first's")
+            check(retries("off", q) == retries("first", q),
+                  f"{q}: with the cache off {retries('off', q)} retries, the first child {retries('first', q)}")
+        check(sum(retries("first", q) for q in HINT_QUERIES) > 0, "hints: the first child's cold runs did not retry")
+        out["hints_s"] = time.perf_counter() - t0
+
+        # (c) the capacity ladder: q1, q6, q18 over the memory tables
+        # under LADDER_SPEC and under the default, and q3 through the
+        # distributed planner in process (the partition-hash kernel)
+        t0 = time.perf_counter()
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = True
+        ladders: dict = {}
+        try:
+            for spec in (LADDER_SPEC, ""):
+                name = spec or "default"
+                ctx = TorchContext(BallistaConfig({"ballista.tpu.capacity_buckets": spec} if spec else {}), device="cuda")
+                check(capacity_ladder().spec() == (spec or "2048:2"), f"ladder {name}: {capacity_ladder().spec()}")
+                for t, tab in data.items():
+                    ctx.register_table(t, tab)
+                sqls = {q: earlier[q][0] for q in LADDER_QUERIES + ("q3",)}
+                for q in LADDER_QUERIES:
+                    tag = f"{q}-ladder-{name}"
+                    rec.tag = prec.tag = tag
+                    rs = []
+                    for _ in range(2):
+                        onehot_agg.launches = partition.launches = partition.group_launches = 0
+                        t = time.perf_counter()
+                        df = ctx.sql(sqls[q])
+                        res = df.collect()
+                        torch.cuda.synchronize()
+                        rs.append(dict(s=time.perf_counter() - t, table=res, launches=onehot_agg.launches,
+                                       retries=df.stats.get("capacity_retries", 0)))
+                        launches += onehot_agg.launches
+                        plaunches += partition.launches
+                        glaunches += partition.group_launches
+                    rec.tag = prec.tag = None
+                    held_as(tag, q, rs[1]["table"], earlier[q][1], exact=True)
+                    check(rs[1]["retries"] == 0, f"{tag}: the warm run retried")
+                    ladders[tag] = rs[1]["table"]
+                    out[tag] = dict(cold_s=rs[0]["s"], warm_s=rs[1]["s"], capacity_retries=[r["retries"] for r in rs],
+                                    onehot_launches=[r["launches"] for r in rs])
+                    log(f"{tag}: ok  {json.dumps(out[tag])}")
+                plan = PhysicalPlanner(ctx, 4, config=ctx.config, distributed=True).plan(
+                    optimize(ctx.sql_to_logical(sqls["q3"]))
+                )
+                tag = f"q3-ladder-dist-{name}"
+                rec.tag = prec.tag = tag
+                partition.launches = partition.group_launches = onehot_agg.launches = 0
+                t = time.perf_counter()
+                res = pa.Table.from_batches(run_with_capacity_retry(
+                    ctx.config,
+                    lambda task: [rb for b in execute_to_batches(plan, task) if (rb := batch_to_arrow(b)).num_rows],
+                    device="cuda",
+                ))
+                torch.cuda.synchronize()
+                rec.tag = prec.tag = None
+                launches += onehot_agg.launches
+                plaunches += partition.launches
+                glaunches += partition.group_launches
+                compare_tables(tag, res, earlier["q3"][1])
+                check(partition.launches > 0, f"{tag}: no partition-hash launch")
+                ladders[tag] = res
+                out[tag] = dict(s=time.perf_counter() - t, partition_launches=partition.launches)
+                log(f"{tag}: ok  {json.dumps(out[tag])}")
+                ctx.tables.clear()
+                ctx._physical_cache.clear()
+        finally:
+            rec.tag = prec.tag = None
+            rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
+            set_capacity_buckets("")
+        check(capacity_ladder().spec() == "2048:2", "the default ladder was not restored")
+        for q in LADDER_QUERIES:
+            held_as(f"{q}-ladders", q, ladders[f"{q}-ladder-{LADDER_SPEC}"], ladders[f"{q}-ladder-default"], exact=True)
+        compare_tables("q3-ladders-dist", ladders[f"q3-ladder-dist-{LADDER_SPEC}"], ladders["q3-ladder-dist-default"])
+        torch.cuda.empty_cache()
+        out["ladder_s"] = time.perf_counter() - t0
+
+        # (d, e) the scheduler and two executors as process entries with
+        # REST and metrics ports; q1 and q3 through a remote client
+        t0 = time.perf_counter()
+        procs: list = []
+
+        def start(args: list):
+            proc = subprocess.Popen(
+                [sys.executable, "-m", *args], cwd=pkg_root, env=child_env("off"),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            lines: list = []
+            threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True).start()
+            procs.append((args[0], proc, lines))
+            return proc, lines
+
+        def wait_for(lines, proc, pattern: str, what: str):
+            deadline = time.time() + 90
+            while time.time() < deadline and proc.poll() is None:
+                m = re.search(pattern, "".join(lines))
+                if m:
+                    return m
+                time.sleep(0.1)
+            raise SmokeFailure(f"{what} did not start:\n" + "".join(lines[-40:]))
+
+        rest_port, metrics_ports = free_port(), [free_port(), free_port()]
+        client = None
+        try:
+            sched, sched_out = start([
+                "ballista_tpu_torch.scheduler", "--bind-host", "127.0.0.1", "--bind-port", "0",
+                "--rest-port", str(rest_port), "--executor-timeout-seconds", "30",
+            ])
+            port = int(wait_for(sched_out, sched, r"gRPC on 127\.0\.0\.1:(\d+)", "scheduler").group(1))
+            wait_for(sched_out, sched, rf"REST /state on 127\.0\.0\.1:{rest_port}", "REST")
+            execs = [start([
+                "ballista_tpu_torch.executor", "--device", "cuda", "--bind-host", "127.0.0.1",
+                "--external-host", "127.0.0.1", "--bind-port", "0", "--scheduler-host", "127.0.0.1",
+                "--scheduler-port", str(port), "--concurrent-tasks", "2", "--metrics-port", str(mp),
+                "--work-dir", str(work / f"exec{i}"),
+            ]) for i, mp in enumerate(metrics_ports)]
+            for (proc, lines), mp in zip(execs, metrics_ports):
+                wait_for(lines, proc, rf"metrics on 127\.0\.0\.1:{mp}/api/metrics", "executor metrics")
+            base = f"http://127.0.0.1:{rest_port}"
+
+            def api(path: str):
+                return json.load(urllib.request.urlopen(base + path, timeout=30))
+
+            deadline = time.time() + 60
+            while len(api("/api/state")["executors"]) < 2 and time.time() < deadline:
+                time.sleep(0.2)
+            check(len(api("/api/state")["executors"]) == 2, "the executors did not register")
+            client = BallistaContext.remote("127.0.0.1", port, BallistaConfig(CLUSTER_SETTINGS), device="cuda")
+            for s in ddl:
+                check(client.sql(s).collect().to_pydict() == {"result": ["ok"]}, f"DDL: {s}")
+            channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+            scaler = {
+                name: channel.unary_unary(
+                    f"/{EXTERNAL_SCALER_SERVICE}/{name}", request_serializer=lambda r: r.SerializeToString(),
+                    response_deserializer=resp.FromString,
+                )
+                for name, (_req, resp) in EXTERNAL_SCALER_METHODS.items()
+            }
+            ref = pb.ScaledObjectRef(name="ballista")
+
+            def is_active() -> bool:
+                return scaler["IsActive"](ref, timeout=10).result
+
+            check(not is_active(), "KEDA IsActive before any query")
+            job_ids = {}
+            for q in OPS_QUERIES:
+                before = {j["job_id"] for j in api("/api/state")["jobs"]}
+                done, box = threading.Event(), {}
+
+                def run(q=q):
+                    try:
+                        t = time.perf_counter()
+                        box["table"] = client.sql(earlier[q][0]).collect()
+                        box["s"] = time.perf_counter() - t
+                    except BaseException as e:  # noqa: BLE001 — re-raised below
+                        box["error"] = e
+                    finally:
+                        done.set()
+
+                th = threading.Thread(target=run)
+                th.start()
+                active, metric = False, 0
+                while not done.is_set():
+                    if is_active():
+                        active = True
+                        metric = max(metric, scaler["GetMetrics"](
+                            pb.GetMetricsRequest(scaledObjectRef=ref), timeout=10).metricValues[0].metricValue)
+                    time.sleep(0.02)
+                th.join()
+                if "error" in box:
+                    raise box["error"]
+                held_as(f"{q}-ops", q, box["table"], files[q], exact=True)
+                check(active, f"{q}: KEDA IsActive never true while it ran")
+                check(not is_active(), f"{q}: KEDA IsActive still true after it")
+                (job_ids[q],) = {j["job_id"] for j in api("/api/state")["jobs"]} - before
+                out[f"{q}-ops"] = dict(s=box["s"], keda_active_seen=active, keda_max_desired=metric)
+                log(f"{q}-ops: ok  {json.dumps(out[f'{q}-ops'])}")
+            channel.close()
+            # the scheduler writes a job's terminal history row just after
+            # its client sees it complete
+            deadline = time.time() + 30
+            while time.time() < deadline and sum(
+                r["status"] == "completed" for r in api("/api/history")["rows"]
+            ) < len(OPS_QUERIES):
+                time.sleep(0.1)
+            # the system tables, through the client (the scheduler's history)
+            queries = client.sql("SELECT job_id, status, query_class, wall_seconds FROM system.queries").collect()
+            rows = {r["job_id"]: r for r in queries.to_pylist()}
+            check(set(job_ids.values()) <= set(rows), f"system.queries: {queries.to_pydict()}")
+            check(all(rows[j]["status"] == "completed" and rows[j]["wall_seconds"] > 0 for j in job_ids.values()),
+                  f"system.queries: {queries.to_pydict()}")
+            attempts = client.sql("SELECT job_id, stage_id, partition, state FROM system.task_attempts").collect()
+            for q, j in job_ids.items():
+                detail = api(f"/api/job/{j}")
+                check(detail["status"] == "completed" and detail["stages"], f"/api/job/{j}: {detail.get('status')}")
+                got = sum(1 for r in attempts.to_pylist() if r["job_id"] == j and r["state"] == "completed")
+                check(got >= len(detail["stages"]), f"system.task_attempts: {got} completed attempts of {q}")
+                out[f"{q}-ops"].update(job_id=j, stages=len(detail["stages"]), attempts=got)
+            executors = client.sql("SELECT id, alive, task_slots FROM system.executors").collect()
+            check(executors.num_rows == 2 and all(executors.column("alive").to_pylist()),
+                  f"system.executors: {executors.to_pydict()}")
+            history = api("/api/history")
+            check(sum(r["status"] == "completed" for r in history["rows"]) >= len(OPS_QUERIES), f"/api/history: {history}")
+            sched_metrics = urllib.request.urlopen(base + "/api/metrics", timeout=30).read().decode()
+            validate_exposition(sched_metrics)
+            check(f'ballista_jobs{{status="completed"}} {len(OPS_QUERIES)}' in sched_metrics,
+                  "scheduler metrics: completed jobs")
+            check("ballista_executors_alive 2" in sched_metrics, "scheduler metrics: alive executors")
+            scrapes = []
+            for mp in metrics_ports:
+                text = urllib.request.urlopen(f"http://127.0.0.1:{mp}/api/metrics", timeout=30).read().decode()
+                validate_exposition(text)
+                m = re.search(r'ballista_executor_task_run_seconds_count\{class="[^"]*"\} (\d+)', text)
+                scrapes.append(dict(bytes=len(text), task_runs=int(m.group(1)) if m else 0))
+            check(sum(s["task_runs"] for s in scrapes) > 0, f"executor scrapes: {scrapes}")
+            out["ops"] = dict(
+                system_queries=queries.num_rows, system_attempts=attempts.num_rows,
+                system_executors=executors.num_rows, history_rows=len(history["rows"]),
+                scheduler_metrics_bytes=len(sched_metrics), executor_scrapes=scrapes,
+            )
+            log(f"ops: ok  {json.dumps(out['ops'])}")
+        finally:
+            if client is not None:
+                client.close()
+            stops = {}
+            for name, proc, lines in reversed(procs):
+                if proc.poll() is None:
+                    t = time.perf_counter()
+                    proc.send_signal(signal.SIGTERM)
+                    try:
+                        rc = proc.wait(timeout=15)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait(timeout=30)
+                        rc = None
+                    stops.setdefault(name, []).append((rc, time.perf_counter() - t))
+            out["ops_stops"] = stops
+        check(all(rc == 0 for v in stops.values() for rc, _ in v), f"process entries on SIGTERM: {stops}")
+        out["ops_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in (rec, prec):
+        for tag in r.shapes:
+            if "-ladder-" in tag:
+                missing = set(r.shapes[tag]) - set(r.inputs)
+                check(not missing, f"{tag}: no inputs kept for launch shapes {sorted(missing)}")
     out["launches"] = launches
     out["partition_launches"] = plaunches
     out["grouped_launches"] = glaunches
@@ -3405,6 +3882,37 @@ def process_cluster(pkg_root: pathlib.Path) -> dict:
     return out
 
 
+def collect_timing(root: pathlib.Path, sf: float, seed: int, warm: int, settings: dict) -> dict:
+    """Seconds of one cold and ``warm`` warm runs of each TPC-H query over
+    memory tables in one ``TorchContext(device="cuda")``, the SQL of
+    ``root``'s ``benchmarks/queries`` with its spec constants replaced
+    from the data (``tpch.spec_substitutions``)."""
+    import torch
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.tpch import gen_all, spec_substitutions
+
+    data = gen_all(sf, seed)
+    ctx = TorchContext(BallistaConfig(settings), device="cuda")
+    for name, t in data.items():
+        ctx.register_table(name, t)
+    out = {}
+    for i in range(1, 23):
+        q = f"q{i}"
+        sql = (root / "benchmarks" / "queries" / f"{q}.sql").read_text()
+        for old, new in spec_substitutions(q, data).items():
+            sql = sql.replace(old, new)
+        secs = []
+        for _ in range(1 + warm):
+            t = time.perf_counter()
+            ctx.sql(sql).collect()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        out[q] = dict(cold_s=secs[0], warm_s=secs[1:], median_warm_s=sorted(secs[1:])[warm // 2])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -3421,12 +3929,26 @@ def main() -> int:
         "call and host times (partition_timing), then stop",
     )
     ap.add_argument(
+        "--collect-timing", action="store_true",
+        help="only run the 22 TPC-H queries over memory tables, cold and "
+        "--warm times each, print their seconds, then stop",
+    )
+    ap.add_argument(
+        "--settings", default="{}",
+        help="session settings (a JSON object) of --collect-timing's context",
+    )
+    ap.add_argument(
         "--root", default=str(ROOT),
         help="the checkout whose ballista_tpu_torch is imported (default: this "
         "script's): time another checkout's kernel in the same call",
     )
     args = ap.parse_args()
     check(args.warm >= 2, "--warm must be at least 2: two warm runs are compared")
+    # no persisted hints for phases 3-11 (their cold runs stay cold) or the
+    # processes they start; phase 12 (b) gives its children their own
+    import os
+
+    os.environ["BALLISTA_TPU_HINT_CACHE"] = "off"
 
     pkg_root = pathlib.Path(args.root).resolve()
     check((pkg_root / "ballista_tpu_torch").is_dir(), f"no ballista_tpu_torch in {pkg_root}")
@@ -3446,6 +3968,12 @@ def main() -> int:
         path, secs, _ = cuda_build.build(partition.SOURCE)
         log(f"build: {path.name} in {secs:.2f}s (from {pkg_root})")
         log(json.dumps({"partition_timing": partition_timing(seed=15), "root": str(pkg_root)}))
+        log(smi)
+        return 0
+    if args.collect_timing:
+        cuda_build.build_many([onehot_agg.SOURCE, partition.SOURCE])
+        timing = collect_timing(pkg_root, args.sf, args.seed, args.warm, json.loads(args.settings))
+        log(json.dumps({"collect_timing": timing, "root": str(pkg_root), "settings": args.settings}))
         log(smi)
         return 0
 
@@ -3555,17 +4083,37 @@ def main() -> int:
         log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
 
         # 11. file tables: Parquet, CSV and Avro through CREATE EXTERNAL TABLE
-        t0 = time.perf_counter()
-        fl = files_path(data, oracles, earlier, rec, prec)
-        file_replays = replay_launches(rec)
-        replays += file_replays
-        file_preplays = replay_partition_launches(prec)
-        preplays += file_preplays
-        check(bool(file_replays) and bool(file_preplays), "phase 11: no launch replayed")
-        log(f"phase 11 took {time.perf_counter() - t0:.1f}s; {smi}")
-    for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget", "q1-files"):
+        import shutil
+        import tempfile
+
+        files_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_files-"))
+        try:
+            t0 = time.perf_counter()
+            fl = files_path(data, oracles, earlier, files_dir, rec, prec)
+            file_replays = replay_launches(rec)
+            replays += file_replays
+            file_preplays = replay_partition_launches(prec)
+            preplays += file_preplays
+            check(bool(file_replays) and bool(file_preplays), "phase 11: no launch replayed")
+            log(f"phase 11 took {time.perf_counter() - t0:.1f}s; {smi}")
+
+            # 12. the operator's surface: the shell, persisted hints, the
+            # capacity ladder, the system tables, REST, Prometheus, KEDA
+            t0 = time.perf_counter()
+            op = ops_path(data, earlier, fl.pop("results"), files_dir, rec, prec, pkg_root)
+            ops_replays = replay_launches(rec)
+            replays += ops_replays
+            ops_preplays = replay_partition_launches(prec)
+            preplays += ops_preplays
+            check(bool(ops_replays) and bool(ops_preplays), "phase 12: no launch replayed")
+            log(f"phase 12 took {time.perf_counter() - t0:.1f}s; {smi}")
+        finally:
+            shutil.rmtree(files_dir, ignore_errors=True)
+    for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget", "q1-files", f"q1-ladder-{LADDER_SPEC}",
+              "q1-ladder-default"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
-    for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist") + tuple(
+    for q in ("q3-budget", "q5-budget", "q18-budget", "q1-dist", "q12-dist", "q3-dist",
+              f"q3-ladder-dist-{LADDER_SPEC}", "q3-ladder-dist-default") + tuple(
         f"{q}-{path}" for q in STAGED_QUERIES for path in ("stages", "fleet")
     ):
         check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
@@ -3594,14 +4142,14 @@ def main() -> int:
     plaunches = (
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
-        + fl["partition_launches"]
+        + fl["partition_launches"] + op["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
-        + cp["grouped_launches"] + fl["grouped_launches"]
+        + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
     )
 
-    # 12. results
+    # 13. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -3614,7 +4162,7 @@ def main() -> int:
         # the port's cluster, with the other TPC-H queries there
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
-            + fp["launches"] + cp["launches"] + fl["launches"]
+            + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -3692,6 +4240,10 @@ def main() -> int:
         "file_launches": {"onehot": fl["launches"], "partition": fl["partition_launches"],
                           "grouped": fl["grouped_launches"]},
         "file_replays": file_replays + file_preplays,
+        "ops": {k: v for k, v in op.items() if not k.endswith("launches")},
+        "ops_launches": {"onehot": op["launches"], "partition": op["partition_launches"],
+                         "grouped": op["grouped_launches"]},
+        "ops_replays": ops_replays + ops_preplays,
         "sf": args.sf,
     }))
     log(smi)

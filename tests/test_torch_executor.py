@@ -6,8 +6,8 @@ query class); the port's ``Executor(device="cpu")`` and the reference's
 and write the same shuffle files bucket for bucket, with the same metas,
 the same operator metric records (paths and operator names) and a cost
 vector whose fields are set. Task statuses, the refusals (a root other
-than ``ShuffleWriterExec``, the capacity ladder, UDF plugins, prewarm),
-the advertised devices and the process's flags are held to the
+than ``ShuffleWriterExec``, UDF plugins, prewarm), a session's capacity
+ladder, the advertised devices and the process's flags are held to the
 reference's."""
 
 import pathlib
@@ -172,23 +172,50 @@ def test_executor_writes_the_reference_executors_files(env, q, tmp_path):
 
 def test_executor_refusals_match_the_reference(env, tmp_path):
     """A plan whose root is not a ShuffleWriterExec raises ExecutionError in
-    both executors; a session that sets the capacity ladder or a plugin
-    directory fails the port's task with ConfigError naming its item."""
+    both executors; a session that sets a plugin directory fails the port's
+    task with ConfigError naming its item. A session that sets the
+    capacity ladder installs it in both executors, whose tasks write the
+    same metas and files under it."""
+    from ballista_tpu.columnar.batch import capacity_ladder as ref_ladder
+    from ballista_tpu.columnar.batch import set_capacity_buckets as ref_set_buckets
+    from ballista_tpu_torch.columnar.batch import capacity_ladder, set_capacity_buckets
+
     data, ref, port = env
     scan = ref.create_physical_plan(ref_optimize(ref.sql_to_logical("SELECT n_name FROM nation")))
     bad = task_def(RefCodec(provider=ref).physical_to_proto(scan).SerializeToString(), "j", 1, 0, {})
+    ref_exec = RefExecutor("r", str(tmp_path / "r"), provider=ref)
     with pytest.raises(Exception, match="task plan root must be ShuffleWriterExec") as want:
-        RefExecutor("r", str(tmp_path / "r"), provider=ref).execute_shuffle_write(bad)
+        ref_exec.execute_shuffle_write(bad)
     port_exec = Executor("p", str(tmp_path / "p"), provider=port, device="cpu")
     with pytest.raises(ExecutionError, match="task plan root must be ShuffleWriterExec") as got:
         port_exec.execute_shuffle_write(bad)
     assert str(got.value) == str(want.value)
-    for key, value, item in (
-        ("ballista.tpu.capacity_buckets", "4096:4", "item 3"),
-        ("ballista.plugin_dir", str(tmp_path), "item 10a"),
-    ):
-        with pytest.raises(ConfigError, match=item):
-            port_exec.execute_shuffle_write(task_def(bad.plan, "j", 1, 0, {key: value}))
+    with pytest.raises(ConfigError, match="item 10a"):
+        port_exec.execute_shuffle_write(task_def(bad.plan, "j", 1, 0, {"ballista.plugin_dir": str(tmp_path)}))
+    # the capacity ladder: the first stage of a grouped scan under 4096:4
+    props = {"ballista.shuffle.partitions": str(K), "ballista.tpu.capacity_buckets": "4096:4"}
+    cfg = RefConfig(props)
+    plan = RefPlanner(ref, K, config=cfg, distributed=True).plan(ref_optimize(ref.sql_to_logical(
+        "SELECT l_returnflag, COUNT(*) AS n, SUM(l_quantity) AS q FROM lineitem GROUP BY l_returnflag"
+    )))
+    stage = RefDistributedPlanner().plan_query_stages("jl", plan)[0]
+    plan_bytes = RefCodec(provider=ref).physical_to_proto(stage.plan).SerializeToString()
+    specs = ref_ladder().spec(), capacity_ladder().spec()
+    try:
+        for p in range(stage.input_partition_count):
+            want = ref_exec.execute_shuffle_write(task_def(plan_bytes, "jl", stage.stage_id, p, props))
+            got = port_exec.execute_shuffle_write(task_def(plan_bytes, "jl", stage.stage_id, p, props))
+            assert [(m.partition_id, m.num_rows, m.num_batches) for m in got] == [
+                (m.partition_id, m.num_rows, m.num_batches) for m in want
+            ]
+        assert capacity_ladder().spec() == ref_ladder().spec() == "4096:4"
+    finally:
+        ref_set_buckets(specs[0])
+        set_capacity_buckets(specs[1])
+    ref_files, port_files = _files(tmp_path / "r"), _files(tmp_path / "p")
+    assert sorted(port_files) == sorted(ref_files) and ref_files
+    for path, want_t in ref_files.items():
+        cmp(port_files[path].to_pandas(), want_t.to_pandas())
 
 
 def _status_inputs(pkg):

@@ -530,6 +530,7 @@ PORTED_SINCE = {
     "ballista.parquet.pruning",
     "ballista.tpu.scan_stream_mb",
     "ballista.tpu.prefetch_depth",
+    "ballista.tpu.capacity_buckets",
 }
 
 
@@ -574,6 +575,28 @@ def _honoured(key: str, cfg: BallistaConfig, tmp_path) -> None:
     elif key == "ballista.parquet.pruning":
         assert _file_scan_counters(tmp_path, {})["row_groups_pruned"] == 1
         assert _file_scan_counters(tmp_path, {key: NON_DEFAULT[key]})["row_groups_pruned"] == 0
+    elif key == "ballista.tpu.capacity_buckets":
+        # both contexts install the session's ladder; a 3000-row table
+        # scans into one batch of the same capacity in both
+        from ballista_tpu.columnar.batch import capacity_ladder as ref_ladder
+        from ballista_tpu.columnar.batch import set_capacity_buckets as ref_set_buckets
+        from ballista_tpu_torch.columnar.batch import capacity_ladder, set_capacity_buckets
+
+        specs = ref_ladder().spec(), capacity_ladder().spec()
+        try:
+            ref = _ref_context(cfg)
+            port = TorchContext(cfg, device="cpu")
+            assert capacity_ladder().spec() == ref_ladder().spec() == NON_DEFAULT[key]
+            t = pa.table({"x": pa.array(np.arange(3000, dtype=np.int64))})
+            caps = []
+            for c in (ref, port):
+                c.register_table("t", t)
+                plan = c.create_physical_plan(c.sql_to_logical("SELECT x FROM t"))
+                caps.append([b.capacity for b in plan.execute(0, TaskContext(device="cpu") if c is port else RefTaskContext())])
+            assert caps[0] == caps[1] == [4096]
+        finally:
+            ref_set_buckets(specs[0])
+            set_capacity_buckets(specs[1])
     elif key == "ballista.tpu.scan_stream_mb":
         assert _file_scan_counters(tmp_path, {key: "1"})["stream_slices"] == 3
         assert _file_scan_counters(tmp_path, {key: NON_DEFAULT[key]})["stream_slices"] == 0
