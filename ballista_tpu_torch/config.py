@@ -7,8 +7,8 @@ executor, so the port knows all of them, also those whose feature it does
 not have yet. Such a key keeps its default behaviour, and a non-default
 value raises at the point of use (``check_ported``), naming the ROADMAP
 item that ports the feature; it is never silently ignored. The scheduler
-(``scheduler/``) reads the task-retry, straggler, skew, result-cache,
-grant-batch, history and verification keys; the executor reads the
+(``scheduler/``) reads the task-retry, straggler, skew, AQE,
+result-cache, grant-batch, history and verification keys; the executor reads the
 fetch, shuffle, trace, metrics and cost keys (``executor/``).
 """
 
@@ -205,9 +205,6 @@ UNPORTED: dict[str, str] = {
     # does not trace
     BALLISTA_TRACE: "ROADMAP queue 1, item 10b (trace hooks)",
     BALLISTA_PREWARM: "ROADMAP queue 1, item 10b (kernel registry)",
-    # the scheduler's adaptive query execution (``BALLISTA_AQE=1`` in the
-    # environment too, see scheduler/aqe.enabled)
-    BALLISTA_AQE: "ROADMAP queue 1, item 9e (adaptive query execution)",
     BALLISTA_COLLECTIVE_SHUFFLE: "ROADMAP queue 1, item 10b (multi-device)",
 }
 
@@ -379,6 +376,12 @@ class BallistaConfig:
 
     def aqe(self) -> bool:
         return self._get(BALLISTA_AQE)
+
+    def aqe_broadcast_threshold_mb(self) -> int:
+        return self._get(BALLISTA_AQE_BROADCAST_THRESHOLD_MB)
+
+    def aqe_target_partition_mb(self) -> int:
+        return self._get(BALLISTA_AQE_TARGET_PARTITION_MB)
 
     def history_retention_jobs(self) -> int:
         return max(1, self._get(BALLISTA_HISTORY_RETENTION_JOBS))

@@ -19,10 +19,10 @@ scheduler needs no card. Where the port differs:
 - **Planning** uses the port's ``PhysicalPlanner`` with no mesh runtime:
   port executors advertise one device, so no stage lowers to the mesh
   operators (ROADMAP queue 1, item 10b).
-- **AQE** (``scheduler/aqe.py``) is the reference's default path only;
-  ``apply_certified_rewrite`` and the rewrites it applies are left out,
-  and a session or process that turns AQE on is refused with
-  ``ConfigError`` (ROADMAP queue 1, item 9e, step 3).
+- **AQE** (``scheduler/aqe.py``) and ``apply_certified_rewrite`` are the
+  reference's: ``ballista.tpu.aqe=true`` (or ``BALLISTA_AQE=1``) turns the
+  policy on, and every adaptation is a certified rewrite
+  (``rewrite.py``) accepted here.
 - **File tables**: a query's file scans are planned from the source in
   its logical plan; the scheduler reads no row of the file (row groups are
   pruned when an executor runs the task). ``GetFileMetadata`` reads a
@@ -53,6 +53,7 @@ from ballista_tpu_torch.distributed_plan import (
 )
 from ballista_tpu_torch.errors import (
     PlanError,
+    RewriteRejected,
     error_is_retryable,
     parse_shuffle_fetch_error,
 )
@@ -139,7 +140,7 @@ class JobInfo:
     max_attempts: int = 3
     total_retries: int = 0
     total_recomputes: int = 0
-    # certified plan rewrites (ballista_tpu/rewrite.py): accepted swaps of
+    # certified plan rewrites (ballista_tpu_torch/rewrite.py): accepted swaps of
     # stage templates + certificate-validation rejections (visibility for
     # REST and the chaos suites; both 0 on a non-adaptive run)
     total_rewrites: int = 0
@@ -394,11 +395,9 @@ class SchedulerServer:
         # unless the session's ballista.tpu.aqe (or BALLISTA_AQE) turns
         # it on. The counter map feeds
         # ballista_aqe_rewrites_total{op,outcome} on /api/metrics.
-        from ballista_tpu_torch.scheduler import aqe as aqe_mod
+        from ballista_tpu_torch.scheduler.aqe import AqePolicy
 
-        # refuses the process-wide BALLISTA_AQE=1 before any thread starts
-        aqe_mod.enabled(self.config)
-        self.aqe = aqe_mod.AqePolicy(self)
+        self.aqe = AqePolicy(self)
         self.obs_aqe_total: dict[tuple[str, str], int] = {}
         # serving fast path (docs/serving.md). Result cache: capacity
         # comes from the SCHEDULER's config (sessions cannot resize a
@@ -820,10 +819,6 @@ class SchedulerServer:
         trace: dict | None = None,
         cache_key: object = None,
     ) -> str:
-        from ballista_tpu_torch.scheduler import aqe as aqe_mod
-
-        # a session that turns AQE on is refused here, at submission
-        aqe_mod.enabled(self._session_config(session_id))
         job_id = generate_job_id()
         if trace is None:
             # direct physical submissions (tests, embedders) trace too
@@ -1839,6 +1834,187 @@ class SchedulerServer:
         if self.policy == TaskSchedulingPolicy.PUSH_STAGED:
             self.event_loop.post(ReviveOffers())
         return True
+
+    # -- certified plan rewrites (rewrite.py) ----------------------------------
+    def apply_certified_rewrite(self, job_id: str, op):
+        """The ONLY sanctioned way to change a running job's stage
+        templates (docs/analysis.md): apply a typed rewrite op over THIS
+        server's pristine templates under the server lock — the
+        certificate is derived here, never accepted from a caller —
+        enforce the runtime precondition (every touched stage fully
+        pending), and only then swap templates + bookkeeping atomically.
+        Any failure raises the typed :class:`RewriteRejected` carrying
+        the failing clause and leaves the pristine templates untouched —
+        the job proceeds on the unrewritten plan. Returns the validated
+        certificate.
+
+        This is the seam the AQE policy layer (ROADMAP) plugs into: it
+        decides WHAT to rewrite from runtime stats; this method decides
+        whether the rewrite is provably safe."""
+        from ballista_tpu_torch import rewrite as rewrite_mod
+        from ballista_tpu_torch.testing import faults
+
+        job = self._get_job(job_id)
+        if job is None or job.status != "running":
+            raise RewriteRejected(
+                f"job {job_id} is not running", clause="job-state"
+            )
+        deferred: list = []
+        try:
+            with self._lock:
+                old_stages = list(job.stages.values())
+                result = rewrite_mod.apply_rewrite(
+                    old_stages, op, job_id=job_id
+                )
+                inj = faults.active()
+                if inj is not None:
+                    # chaos: the certificate-validation failure path
+                    # (rewrite_reject rules raise RewriteRejected here)
+                    inj.on_rewrite_validate(
+                        job_id, getattr(op, "stage_id", -1)
+                    )
+                # the certificate was derived HERE, under the lock, from
+                # this server's own pristine templates (apply_rewrite
+                # certifies and raises on any failing clause) — there is
+                # no producer-supplied copy to distrust
+                cert = result.certificate
+                new_by = {s.stage_id: s for s in result.stages}
+                touched = cert.rewritten_stages + cert.added_stages
+                err = self.stage_manager.rebind_stages_for_rewrite(
+                    job_id,
+                    affected={
+                        sid: new_by[sid].input_partition_count
+                        for sid in cert.rewritten_stages
+                    },
+                    removed=cert.removed_stages,
+                    added={
+                        sid: new_by[sid].input_partition_count
+                        for sid in cert.added_stages
+                    },
+                    deps=_stage_dependencies(result.stages),
+                    max_attempts=job.max_attempts,
+                )
+                if err is not None:
+                    raise RewriteRejected(err, clause="runtime-state")
+                # accepted: swap the pristine templates + invalidate every
+                # cached resolution of a touched stage (eager bytes too —
+                # they are location-free but template-derived)
+                job.stages = {s.stage_id: s for s in result.stages}
+                job.dependencies = _stage_dependencies(result.stages)
+                for sid in touched + cert.removed_stages:
+                    job.resolved_plan_bytes.pop(sid, None)
+                    job.eager_plan_bytes.pop(sid, None)
+                job.total_rewrites += 1
+                # rewrite visibility (docs/aqe.md): the decision log
+                # /api/job serves + the /timeline "rewritten" stage
+                # marker (why did this stage's partition count change?)
+                job.rewritten_stages.update(touched)
+                if len(job.rewrite_log) < 256:
+                    job.rewrite_log.append(
+                        {
+                            "op": op.describe(),
+                            "outcome": "applied",
+                            "exactness": cert.exactness,
+                            "rewritten": sorted(cert.rewritten_stages),
+                            "added": sorted(cert.added_stages),
+                            "removed": sorted(cert.removed_stages),
+                        }
+                    )
+                from ballista_tpu_torch import rewrite as _rw
+                from ballista_tpu_torch.analysis import replay
+
+                if replay.enabled():
+                    # the witness must not compare across content that
+                    # legitimately changes: re-bucketed stages always;
+                    # for MULTISET_EXACT rewrites also every touched
+                    # stage and its transitive consumers (float folds
+                    # re-associate downstream — see rewrite.BIT_EXACT)
+                    forget = set(cert.bucket_changed_stages)
+                    if cert.exactness != _rw.BIT_EXACT:
+                        forget |= set(touched)
+                    frontier = set(forget)
+                    while frontier:
+                        frontier = {
+                            parent
+                            for child in frontier
+                            for parent in job.dependencies.get(
+                                child, set()
+                            )
+                        } - forget
+                        forget |= frontier
+                    for sid in sorted(forget):
+                        replay.forget_stage(job_id, sid)
+                if self.state is not None:
+                    for sid in touched:
+                        self.state.save_stage_plan(
+                            job_id, sid, new_by[sid].plan
+                        )
+                # re-promote touched stages whose dependencies are already
+                # complete (they were forced PENDING by the rebind; nothing
+                # else re-promotes them until a dependency finishes)
+                for sid in sorted(touched):
+                    if not self.stage_manager.is_pending_stage(job_id, sid):
+                        continue
+                    unresolved = find_unresolved_shuffles(
+                        job.stages[sid].plan
+                    )
+                    if all(
+                        self.stage_manager.is_completed_stage(
+                            job_id, u.stage_id
+                        )
+                        for u in unresolved
+                    ):
+                        self._resolve_stage(job_id, sid)
+                        deferred.extend(
+                            self.stage_manager.promote_pending_stage(
+                                job_id, sid
+                            )
+                        )
+        except RewriteRejected as e:
+            with self._lock:
+                # same discipline as the accepted-path counter: REST and
+                # chaos assertions read these, and an unlocked
+                # read-modify-write can drop concurrent increments
+                job.total_rewrite_rejects += 1
+                if len(job.rewrite_log) < 256:
+                    job.rewrite_log.append(
+                        {
+                            "op": op.describe(),
+                            "outcome": "rejected",
+                            "clause": e.clause,
+                            "stage_ids": sorted(
+                                int(s) for s in (e.stage_ids or ())
+                            ),
+                        }
+                    )
+            self._job_event(
+                job, "rewrite_reject",
+                attrs={"op": op.describe(), "clause": e.clause},
+            )
+            log.warning(
+                "certified rewrite REJECTED for %s: %s", job_id, e
+            )
+            raise
+        # events post after the lock: the queue is bounded (racelint
+        # blocking-under-lock), and every accepted rewrite may unlock work
+        self._job_event(
+            job, "rewrite",
+            attrs={
+                "op": op.describe(),
+                "rewritten": list(cert.rewritten_stages),
+                "added": list(cert.added_stages),
+                "removed": list(cert.removed_stages),
+            },
+        )
+        log.warning(
+            "certified rewrite ACCEPTED for %s: %s (%s)",
+            job_id, op.describe(), cert.summary(),
+        )
+        for e in deferred:
+            self.event_loop.post(e)
+        if self.policy == TaskSchedulingPolicy.PUSH_STAGED:
+            self.event_loop.post(ReviveOffers())
+        return cert
 
     def _close_job_trace(self, job: JobInfo, outcome: str = "ok") -> None:
         """Finish whatever spans are still open (stage spans, root) and

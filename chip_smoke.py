@@ -5,6 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py [--sf 1] [--seed 42] [--warm 3] [--profile]
     python3 chip_smoke.py --partition-timing [--root CHECKOUT]
     python3 chip_smoke.py --collect-timing [--root CHECKOUT] [--settings JSON]
+    python3 chip_smoke.py --aqe-only [--sf 1]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -284,7 +285,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    executor's) passes ``validate_exposition``; the three processes exit 0
    on SIGTERM. Replays one launch per distinct shape of (c)'s runs against
    the plain versions.
-13. One JSON line of kernel results (the one-hot kernel, and the
+13. Adaptive query execution, on the tables of phase 5: the port's
+   cluster (two executors on the card, K = 4) with ``ballista.tpu.aqe``
+   on and eager shuffle off (eager consumers would close the window of a
+   reactive rewrite), its strategy store persisted into a new hint
+   directory that is deleted at the end. (a) The reference test's
+   wrong-side build (``skewed_tables``, 6,000,000 fact rows, the fact on
+   the build side of a string-keyed collect join) three times with AQE
+   off and three times on: run 1 on applies a reactive flip of a build
+   larger than its probe, runs 2 and 3 apply only learned strategies, a
+   flip among them; keys and counts bit for bit AQE off's, ``SUM(v)``
+   within rtol 1e-9 (it has no decimal scale, and AQE off's own warm runs
+   differ in its last bits: the spread is printed). (b) q1, q3, q5, q12
+   and q18 twice each, held against phase 9's collect-mode results and
+   the numpy oracles as phase 10 holds them (money sums of q3 and q18 bit
+   for bit); every decision printed (op, source, outcome, stages,
+   clause), with each run's grouped partition-hash K. (c) ``BALLISTA_AQE=0``
+   over the same session: no decision, (a)'s query as AQE off runs it
+   and q3 bit for bit collect mode's. The scheduler's
+   ``ballista_aqe_rewrites_total`` and rewrite totals, from a scrape that
+   passes ``validate_exposition``. (d) A new cluster over the same hint
+   directory, the process's store dropped: its first run applies (a)'s
+   learned flip. Prints warm seconds on and off, the rewrites accepted
+   and rejected, the size of ``plan_hints.json``, the phase's peak device
+   memory, and replays one launch per distinct shape of each kernel of
+   the phase against its plain version.
+14. One JSON line of kernel results (the one-hot kernel, and the
    partition-hash kernel's ids and grouped modes), the card's name and
    power limit, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -298,7 +324,10 @@ over memory tables in one ``TorchContext(device="cuda")`` (session
 settings from ``--settings``, a JSON object), one cold and ``--warm``
 warm runs each, prints their seconds as one JSON line, and stops: run it
 once per checkout (``--root``) in one call to compare two trees' warm
-runs on one card.
+runs on one card. ``--aqe-only`` runs phase 1, builds both kernels,
+generates TPC-H at ``--sf``, runs phase 13 with the five queries held
+against one collect-mode run each on the card and the oracles, replays
+its launches, prints its results as one JSON line, and stops.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1321,12 +1350,9 @@ def profile_query(ctx, q: str, sql: str) -> dict:
     return res
 
 
-def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -> dict:
+def lineitem_columns(table) -> dict:
+    """The lineitem columns of the q1, q6 and wide oracles, on the host."""
     import numpy as np
-    import torch
-
-    from ballista_tpu_torch.exec.context import TorchContext
-    from ballista_tpu_torch.ops import onehot_agg
 
     cols = {}
     for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"):
@@ -1334,6 +1360,16 @@ def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -
     cols["l_shipdate"] = table.column("l_shipdate").cast("int32").to_numpy()
     for c in ("l_returnflag", "l_linestatus", "l_shipmode", "l_shipinstruct"):
         cols[c] = np.asarray(table.column(c).to_pylist())
+    return cols
+
+
+def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -> dict:
+    import torch
+
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.ops import onehot_agg
+
+    cols = lineitem_columns(table)
     oracles = {"q1": oracle_q1(cols), "q6": oracle_q6(cols), "wide": oracle_wide(cols)}
 
     ctx = TorchContext(device="cuda")
@@ -3882,6 +3918,307 @@ def process_cluster(pkg_root: pathlib.Path) -> dict:
     return out
 
 
+# -- phase 13: adaptive query execution on the card --------------------------
+
+# phase 10's cluster (K = 4) with AQE on, and eager shuffle off as in the
+# reference's adaptive-loop test: eager consumers claim a pending stage's
+# tasks early and close the window of a reactive rewrite
+AQE_SETTINGS = {**CLUSTER_SETTINGS, "ballista.tpu.aqe": "true", "ballista.tpu.eager_shuffle": "false"}
+AQE_OFF_SETTINGS = {**CLUSTER_SETTINGS, "ballista.tpu.eager_shuffle": "false"}
+# (a): the reference's wrong-side build (tests/test_aqe.py) at 6M fact rows:
+# dim JOIN fact puts the fact table on the build side of a string-keyed
+# collect join. (TPC-H's supplier JOIN lineitem plans as a partitioned join,
+# which no flip applies to, on the reference's cluster as on the port's.)
+AQE_FACT_ROWS = 6_000_000
+WRONG_BUILD_SQL = (
+    "SELECT f.key, count(*) AS c, sum(f.v) AS s "
+    "FROM dim d JOIN fact f ON d.skey = f.skey "
+    "GROUP BY f.key ORDER BY s DESC LIMIT 20"
+)
+
+
+def skewed_tables(n_fact: int, n_dim: int = 400, seed: int = 7) -> dict:
+    """The reference test's ``_skewed_tables``: a fact table of Zipf(1.5)
+    int64 keys capped at 2000, string join keys ``s<key mod 4*n_dim>`` and
+    uniform values in [0, 100); a dimension of ``s0``..``s<n_dim - 1>``."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    key = np.minimum(rng.zipf(1.5, size=n_fact), 2000).astype(np.int64)
+    vocab = np.array([f"s{i}" for i in range(n_dim * 4)])
+    fact = pa.table({
+        "key": pa.array(key),
+        "skey": pa.array(vocab[key % (n_dim * 4)]),
+        "v": pa.array(rng.uniform(0, 100, n_fact)),
+    })
+    dim = pa.table({
+        "skey": pa.array([f"s{i}" for i in range(n_dim)]),
+        "attr": pa.array((np.arange(n_dim) % 7).astype(np.int64)),
+    })
+    return {"fact": fact, "dim": dim}
+
+
+def max_rel_diff(got, want) -> float:
+    """Largest relative difference of two float columns."""
+    import numpy as np
+
+    a, b = got.to_numpy(), want.to_numpy()
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))) if len(b) else 0.0
+
+
+def aqe_path(data: dict, oracles: dict, collected: dict, rec: LaunchRecorder,
+             prec: PartitionRecorder) -> dict:
+    """(a)-(d) of phase 13: AQE on the port's cluster, two executors on the
+    card. ``collected``: collect mode's results of the five cluster
+    queries. The strategy store persists into a new hint directory, which
+    is deleted at the end; hints are ``off`` again after the phase."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.obs import prometheus as prom
+    from ballista_tpu_torch.ops import onehot_agg, partition
+    from ballista_tpu_torch.scheduler import aqe
+
+    sqls = {q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in CLUSTER_QUERIES}
+    t0 = time.perf_counter()
+    skew = skewed_tables(AQE_FACT_ROWS)
+    out: dict = {"tables_s": time.perf_counter() - t0}
+    launches = plaunches = glaunches = 0
+
+    def cluster(settings: dict, tables: dict) -> BallistaContext:
+        ctx = BallistaContext.standalone(
+            BallistaConfig(settings), device="cuda", n_executors=2, concurrent_tasks=2
+        )
+        for name, tab in tables.items():
+            ctx.register_table(name, tab)
+        return ctx
+
+    def one_run(ctx, sql: str, tag: str) -> dict:
+        """One query through the cluster, its counts set to 0 just before
+        and read just after; its decisions, rewrites and grouped K."""
+        nonlocal launches, plaunches, glaunches
+        sched = ctx._standalone_cluster.scheduler
+        seen = len(prec.shapes.get(tag, []))
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        jobs0 = set(sched.jobs)
+        rec.tag = prec.tag = tag
+        try:
+            t = time.perf_counter()
+            res = ctx.sql(sql).collect()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            rec.tag = prec.tag = None
+        launches += onehot_agg.launches
+        plaunches += partition.launches
+        glaunches += partition.group_launches
+        (job_id,) = set(sched.jobs) - jobs0
+        job = sched.jobs[job_id]
+        check(job.status == "completed", f"{tag}: job {job_id} {job.status} {job.error}")
+        grouped = [k for _, _, k, m in prec.shapes.get(tag, [])[seen:] if m == "grouped"]
+        return dict(
+            s=secs, table=res, stages=len(job.stages), rewrites=job.total_rewrites,
+            rejects=job.total_rewrite_rejects,
+            decisions=[
+                {k: d[k] for k in ("op", "source", "outcome", "stage_ids", "clause", "before")}
+                for d in job.aqe_decisions
+            ],
+            launches=onehot_agg.launches, plaunches=partition.launches, glaunches=partition.group_launches,
+            grouped_K=sorted(set(grouped)),
+        )
+
+    def brief(r: dict) -> dict:
+        return {k: v for k, v in r.items() if k != "table"}
+
+    def learned_only(tag: str, r: dict) -> None:
+        """A submission of a known class: every decision is a learned
+        strategy, at least one applied, and each applied one counted."""
+        applied = [d for d in r["decisions"] if d["outcome"] == "applied"]
+        check(
+            bool(applied) and all(d["source"] == "learned" for d in r["decisions"]),
+            f"{tag}: not only learned decisions: {r['decisions']}",
+        )
+        check(r["rewrites"] == len(applied), f"{tag}: {r['rewrites']} rewrites, {len(applied)} applied")
+        check(any(d["op"] == "flip" for d in applied), f"{tag}: no learned flip applied")
+
+    hint_dir = tempfile.mkdtemp(prefix="chip_smoke_aqe-")
+    os.environ["BALLISTA_TPU_HINT_CACHE"] = hint_dir
+    aqe.reset_store()
+    torch.cuda.reset_peak_memory_stats()
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = True
+    try:
+        # (a) the wrong-side build, AQE off then on
+        t0 = time.perf_counter()
+        ctx = cluster(AQE_OFF_SETTINGS, skew)
+        try:
+            off = [one_run(ctx, WRONG_BUILD_SQL, "wrong-build-off") for _ in range(3)]
+        finally:
+            ctx.close()
+        base = off[1]["table"]
+        check(not any(r["decisions"] or r["rewrites"] for r in off), "AQE off: a decision was made")
+        # keys and counts bit for bit; SUM(v) (no decimal scale, so not
+        # an exact sum) differs run to run on the card in its last bits,
+        # AQE or not: its spread is logged
+        for i in (0, 2):
+            compare_tables(f"wrong-build-off run {i + 1}", off[i]["table"], base)
+            check(off[i]["table"].drop(["s"]).equals(base.drop(["s"])), f"wrong-build-off run {i + 1}: keys differ")
+        out["off_s_spread"] = max_rel_diff(off[2]["table"].column("s"), base.column("s"))
+        ctx = cluster(AQE_SETTINGS, {**skew, **data})
+        try:
+            on = [one_run(ctx, WRONG_BUILD_SQL, "wrong-build-aqe") for _ in range(3)]
+            flips = [d for d in on[0]["decisions"] if d["op"] == "flip" and d["outcome"] == "applied"]
+            check(
+                bool(flips) and flips[0]["source"] == "reactive"
+                and flips[0]["before"]["build_bytes"] > flips[0]["before"]["probe_bytes"],
+                f"wrong-build run 1: no reactive flip of a larger build: {on[0]['decisions']}",
+            )
+            for i, r in enumerate(on):
+                if i:
+                    learned_only(f"wrong-build run {i + 1}", r)
+                # keys and counts bit for bit, SUM(v) within rtol 1e-9
+                compare_tables(f"wrong-build-aqe run {i + 1}", r["table"], base)
+                check(r["table"].drop(["s"]).equals(base.drop(["s"])), f"wrong-build-aqe run {i + 1}: keys differ")
+            out["wrong_build"] = dict(
+                fact_rows=AQE_FACT_ROWS, off=[brief(r) for r in off], on=[brief(r) for r in on],
+                off_warm_s=[r["s"] for r in off[1:]], on_warm_s=[r["s"] for r in on[1:]],
+                off_s_spread=out["off_s_spread"],
+                on_s_off_by=[max_rel_diff(r["table"].column("s"), base.column("s")) for r in on],
+            )
+            log(f"aqe (a) wrong-build: ok  {json.dumps(out['wrong_build'])}")
+            out["a_s"] = time.perf_counter() - t0
+
+            # (b) phase 10's five queries, twice each
+            t0 = time.perf_counter()
+            for q in CLUSTER_QUERIES:
+                runs = [one_run(ctx, sqls[q], f"{q}-aqe") for _ in range(2)]
+                for i, r in enumerate(runs):
+                    tag = f"{q}-aqe run {i + 1}"
+                    res, want = r["table"], collected[q]
+                    compare_tables(tag, res, want)
+                    for c in STAGED_EXACT.get(q, ()):
+                        check(res.column(c).equals(want.column(c)), f"{tag}: {c} not bit for bit")
+                    if q in oracles:
+                        compare(tag, res, oracles[q])
+                check(runs[0]["glaunches"] > 0, f"{q}-aqe: no grouped launch")
+                out[f"{q}-aqe"] = [brief(r) for r in runs]
+                log(f"aqe (b) {q}: ok  {json.dumps(out[f'{q}-aqe'])}")
+            out["b_s"] = time.perf_counter() - t0
+
+            # (c) the kill switch over a session that asks for AQE, with
+            # (a)'s and (b)'s strategies in the store: the wrong-side
+            # build as AQE off runs it, and q3 (every column exact: keys,
+            # dates and an exact decimal sum) bit for bit collect mode's
+            t0 = time.perf_counter()
+            os.environ["BALLISTA_AQE"] = "0"
+            try:
+                killed = [one_run(ctx, WRONG_BUILD_SQL, "wrong-build-killed"), one_run(ctx, sqls["q3"], "q3-killed")]
+            finally:
+                del os.environ["BALLISTA_AQE"]
+            for r in killed:
+                check(
+                    not r["decisions"] and r["rewrites"] == r["rejects"] == 0,
+                    f"BALLISTA_AQE=0: {r['decisions']}",
+                )
+            compare_tables("wrong-build-killed", killed[0]["table"], base)
+            check(killed[0]["table"].drop(["s"]).equals(base.drop(["s"])), "wrong-build-killed: keys differ")
+            check(killed[0]["stages"] == off[1]["stages"], "wrong-build-killed: not AQE off's stages")
+            check(killed[1]["table"].equals(collected["q3"]), "q3 with BALLISTA_AQE=0: not bit for bit AQE off's")
+            out["killed"] = [brief(r) for r in killed]
+            log(f"aqe (c) BALLISTA_AQE=0: ok  {json.dumps(out['killed'])}")
+            out["c_s"] = time.perf_counter() - t0
+
+            sched = ctx._standalone_cluster.scheduler
+            text = prom.render(prom.scheduler_families(sched))
+            prom.validate_exposition(text)
+            out["prometheus"] = [
+                line for line in text.splitlines()
+                if line.startswith(("ballista_aqe_rewrites_total", "ballista_plan_rewrite"))
+            ]
+            check(
+                any(line.startswith('ballista_aqe_rewrites_total{op="flip",outcome="applied"}')
+                    for line in out["prometheus"]),
+                f"no applied flip in the scrape: {out['prometheus']}",
+            )
+            with sched._lock:
+                jobs = list(sched.jobs.values())
+            out["rewrites"] = sum(j.total_rewrites for j in jobs)
+            out["rewrite_rejects"] = sum(j.total_rewrite_rejects for j in jobs)
+            log(f"aqe: {out['rewrites']} rewrites accepted, {out['rewrite_rejects']} rejected; "
+                f"scrape: {json.dumps(out['prometheus'])}")
+        finally:
+            ctx.close()
+
+        # (d) a new scheduler over the same hint directory, the process's
+        # store dropped: its first submission applies (a)'s strategies
+        t0 = time.perf_counter()
+        aqe.reset_store()
+        ctx = cluster(AQE_SETTINGS, skew)
+        try:
+            fresh = one_run(ctx, WRONG_BUILD_SQL, "wrong-build-fresh")
+        finally:
+            ctx.close()
+        learned_only("fresh cluster", fresh)
+        compare_tables("wrong-build-fresh", fresh["table"], base)
+        out["fresh"] = brief(fresh)
+        out["hint_file_bytes"] = os.path.getsize(os.path.join(hint_dir, "plan_hints.json"))
+        log(f"aqe (d) fresh cluster: ok  {json.dumps(out['fresh'])}; "
+            f"plan_hints.json {out['hint_file_bytes']} bytes")
+        out["d_s"] = time.perf_counter() - t0
+    finally:
+        rec.tag = prec.tag = None
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
+        os.environ["BALLISTA_TPU_HINT_CACHE"] = "off"
+        aqe.reset_store()
+        shutil.rmtree(hint_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"aqe: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    for r in (rec, prec):
+        for tag in r.shapes:
+            if tag.endswith("-aqe") or tag.startswith("wrong-build"):
+                missing = set(r.shapes[tag]) - set(r.inputs)
+                check(not missing, f"{tag}: no inputs kept for launch shapes {sorted(missing)}")
+    out["launches"] = launches
+    out["partition_launches"] = plaunches
+    out["grouped_launches"] = glaunches
+    out["peak_bytes"] = peak
+    return out
+
+
+def aqe_only(sf: float, seed: int) -> dict:
+    """``--aqe-only``: phase 13 alone, on TPC-H at ``sf``, the five cluster
+    queries held against one ``TorchContext(device="cuda")`` collect each
+    and the numpy oracles; then the launches replayed."""
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.tpch import gen_all
+
+    data = gen_all(sf, seed)
+    h = host_columns(data)
+    oracles = {
+        "q1": oracle_q1(lineitem_columns(data["lineitem"])),
+        "q3": oracle_q3(h), "q5": oracle_q5(h), "q18": oracle_q18(h),
+    }
+    ctx = TorchContext(device="cuda")
+    for name, t in data.items():
+        ctx.register_table(name, t)
+    collected = {
+        q: ctx.sql((ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()).collect()
+        for q in CLUSTER_QUERIES
+    }
+    del ctx
+    with LaunchRecorder() as rec, PartitionRecorder() as prec:
+        t0 = time.perf_counter()
+        out = aqe_path(data, oracles, collected, rec, prec)
+        out["replays"] = replay_launches(rec) + replay_partition_launches(prec)
+        out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def collect_timing(root: pathlib.Path, sf: float, seed: int, warm: int, settings: dict) -> dict:
     """Seconds of one cold and ``warm`` warm runs of each TPC-H query over
     memory tables in one ``TorchContext(device="cuda")``, the SQL of
@@ -3934,6 +4271,12 @@ def main() -> int:
         "--warm times each, print their seconds, then stop",
     )
     ap.add_argument(
+        "--aqe-only", action="store_true",
+        help="only run phase 13 (AQE on the port's cluster), holding the "
+        "five cluster queries against collect mode and the oracles computed "
+        "here, then stop",
+    )
+    ap.add_argument(
         "--settings", default="{}",
         help="session settings (a JSON object) of --collect-timing's context",
     )
@@ -3974,6 +4317,12 @@ def main() -> int:
         cuda_build.build_many([onehot_agg.SOURCE, partition.SOURCE])
         timing = collect_timing(pkg_root, args.sf, args.seed, args.warm, json.loads(args.settings))
         log(json.dumps({"collect_timing": timing, "root": str(pkg_root), "settings": args.settings}))
+        log(smi)
+        return 0
+
+    if args.aqe_only:
+        cuda_build.build_many([onehot_agg.SOURCE, partition.SOURCE])
+        log(json.dumps({"aqe": aqe_only(args.sf, args.seed), "root": str(pkg_root)}, default=str))
         log(smi)
         return 0
 
@@ -4109,6 +4458,16 @@ def main() -> int:
             log(f"phase 12 took {time.perf_counter() - t0:.1f}s; {smi}")
         finally:
             shutil.rmtree(files_dir, ignore_errors=True)
+
+        # 13. adaptive query execution on the port's cluster
+        t0 = time.perf_counter()
+        aq = aqe_path(data, oracles, fp["collect"], rec, prec)
+        aqe_replays = replay_launches(rec)
+        replays += aqe_replays
+        aqe_preplays = replay_partition_launches(prec)
+        preplays += aqe_preplays
+        check(bool(aqe_replays) and bool(aqe_preplays), "phase 13: no launch replayed")
+        log(f"phase 13 took {time.perf_counter() - t0:.1f}s; {smi}")
     for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget", "q1-files", f"q1-ladder-{LADDER_SPEC}",
               "q1-ladder-default"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
@@ -4130,6 +4489,12 @@ def main() -> int:
             any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-files-cluster", [])),
             f"{q}-files-cluster: no grouped launch recorded",
         )
+        check(
+            any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-aqe", [])),
+            f"{q}-aqe: no grouped launch recorded",
+        )
+    for q in ("q1-aqe", "q12-aqe"):
+        check(bool(rec.shapes.get(q)), f"{q}: no one-hot launch recorded")
     q1, q1_now = cases[0], cases[7]
     # the partition kernel's modes at the spills' shape (2^21 rows, one
     # int32 key, K = 64), from phase 3's timing
@@ -4142,14 +4507,15 @@ def main() -> int:
     plaunches = (
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
-        + fl["partition_launches"] + op["partition_launches"]
+        + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
         + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
+        + aq["grouped_launches"]
     )
 
-    # 13. results
+    # 14. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -4162,7 +4528,7 @@ def main() -> int:
         # the port's cluster, with the other TPC-H queries there
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
-            + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"]
+            + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -4244,6 +4610,10 @@ def main() -> int:
         "ops_launches": {"onehot": op["launches"], "partition": op["partition_launches"],
                          "grouped": op["grouped_launches"]},
         "ops_replays": ops_replays + ops_preplays,
+        "aqe": {k: v for k, v in aq.items() if not k.endswith("launches")},
+        "aqe_launches": {"onehot": aq["launches"], "partition": aq["partition_launches"],
+                         "grouped": aq["grouped_launches"]},
+        "aqe_replays": aqe_replays + aqe_preplays,
         "sf": args.sf,
     }))
     log(smi)

@@ -64,7 +64,8 @@ def test_no_forbidden_imports_in_source(target):
             "avro.py", "functions.py", "exec/scan.py", "compilecache/__init__.py",
             "compilecache/hints.py", "compilecache/metrics.py", "utils.py", "cli.py",
             "scheduler/rest.py", "obs/prometheus.py", "scheduler/external_scaler.py",
-            "scheduler/etcd_backend.py", "proto/etcd_pb2.py",
+            "scheduler/etcd_backend.py", "proto/etcd_pb2.py", "rewrite.py",
+            "compilecache/registry.py", "analysis/eqlint.py",
         } <= names
     bad = [
         f"{f.relative_to(ROOT)}: {m}"
@@ -330,19 +331,53 @@ def _wait_for(proc, needle: str, timeout: float = 60) -> str:
     return seen
 
 
+def _adapted_runs(cfg) -> list:
+    """Two runs of one GROUP BY on a fresh standalone cluster with four
+    shuffle partitions: the outcomes and sources of each job's AQE
+    decisions (a tiny input's buckets are learned as a coalesce by the
+    first run and applied at the second's submission)."""
+    import numpy as np
+    import pyarrow as pa
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.scheduler import aqe
+
+    settings = {**(cfg.settings() if cfg is not None else {}), "ballista.shuffle.partitions": "4"}
+    aqe.reset_store()
+    ctx = BallistaContext.standalone(BallistaConfig(settings), device="cpu")
+    try:
+        ctx.register_table("t", pa.table({"k": np.arange(200) % 7, "v": np.arange(200, dtype=np.float64)}))
+        sched = ctx._standalone_cluster.scheduler
+        out = []
+        for _ in range(2):
+            got = ctx.sql("SELECT k, SUM(v) AS s FROM t GROUP BY k").collect()
+            assert got.num_rows == 7
+            with sched._lock:
+                job = max(sched.jobs.values(), key=lambda j: j.submitted_s)
+            out.append({(d["outcome"], d["source"]) for d in job.aqe_decisions})
+        return out
+    finally:
+        ctx.close()
+        aqe.reset_store()
+
+
 @pytest.mark.parametrize(
     "case",
     ["session aqe", "env BALLISTA_AQE", "rest port", "etcd backend", "system table", "plugin dir"],
 )
 def test_unported_features_are_refused_naming_their_item(case, monkeypatch):
     """Each feature the port still lacks raises where the reference would
-    use it, naming its ROADMAP item: AQE (a session key or the process's
-    ``BALLISTA_AQE=1``, 9e) and a scheduler's plugin directory (10a). None
-    is ignored silently. The features ported since run and answer as the
-    reference does: the scheduler process's REST port (``/api/state`` with
-    the reference's keys), its etcd backend (a session saved under the
-    reference's key, over the in-process fake etcd) and the system tables
-    (``system.queries`` with the reference's schema)."""
+    use it, naming its ROADMAP item: a scheduler's plugin directory (10a).
+    None is ignored silently. The features ported since run and answer as
+    the reference does: AQE, turned on by a session key or by the
+    process's ``BALLISTA_AQE=1`` (a cluster whose second run of a query
+    applies the strategy its first run learned), with ``BALLISTA_AQE=0``
+    overriding a session that asks for it; the scheduler process's REST
+    port (``/api/state`` with the reference's keys), its etcd backend (a
+    session saved under the reference's key, over the in-process fake
+    etcd) and the system tables (``system.queries`` with the reference's
+    schema)."""
     import re
     import signal
     import time
@@ -353,17 +388,28 @@ def test_unported_features_are_refused_naming_their_item(case, monkeypatch):
     from ballista_tpu_torch.scheduler.server import SchedulerServer
 
     if case == "session aqe":
+        from ballista_tpu_torch.scheduler import aqe
+
         cfg = BallistaConfig({"ballista.tpu.aqe": "true"})
-        with pytest.raises(ConfigError, match="item 9e"):
-            BallistaContext.standalone(cfg, device="cpu")
-        with pytest.raises(ConfigError, match="item 9e"):
-            SchedulerServer(provider=None, config=cfg)
+        server = SchedulerServer(provider=None, config=cfg)
+        try:
+            assert aqe.enabled(server.config) and isinstance(server.aqe, aqe.AqePolicy)
+        finally:
+            server.shutdown()
+        assert _adapted_runs(cfg) == [{("learned", "reactive")}, {("applied", "learned")}]
     elif case == "env BALLISTA_AQE":
         monkeypatch.setenv("BALLISTA_AQE", "1")
-        with pytest.raises(ConfigError, match="BALLISTA_AQE.*item 9e"):
-            SchedulerServer(provider=None)
+        server = SchedulerServer(provider=None)
+        try:
+            from ballista_tpu_torch.scheduler import aqe
+
+            assert aqe.enabled(server.config)
+        finally:
+            server.shutdown()
+        assert _adapted_runs(None) == [{("learned", "reactive")}, {("applied", "learned")}]
+        # the kill switch wins over a session that asks for AQE
         monkeypatch.setenv("BALLISTA_AQE", "0")
-        SchedulerServer(provider=None).shutdown()
+        assert _adapted_runs(BallistaConfig({"ballista.tpu.aqe": "true"})) == [set(), set()]
     elif case == "rest port":
         import json
         import urllib.request

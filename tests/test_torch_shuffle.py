@@ -531,6 +531,7 @@ PORTED_SINCE = {
     "ballista.tpu.scan_stream_mb",
     "ballista.tpu.prefetch_depth",
     "ballista.tpu.capacity_buckets",
+    "ballista.tpu.aqe",
 }
 
 
@@ -597,6 +598,44 @@ def _honoured(key: str, cfg: BallistaConfig, tmp_path) -> None:
         finally:
             ref_set_buckets(specs[0])
             set_capacity_buckets(specs[1])
+    elif key == "ballista.tpu.aqe":
+        # a context accepts the key as the reference's does, and narrates
+        # the policy as on in EXPLAIN ANALYZE; a cluster with it learns a
+        # strategy on a query's first run and applies it on the second
+        from ballista_tpu.scheduler import aqe as ref_aqe
+        from ballista_tpu_torch.client.context import BallistaContext
+        from ballista_tpu_torch.scheduler import aqe
+
+        ref, port = _ref_context(cfg), TorchContext(cfg, device="cpu")
+        assert port.config.aqe() is ref.config.aqe() is True
+        t = pa.table({"k": np.arange(200) % 7, "v": np.arange(200, dtype=np.float64)})
+        sql = "SELECT k, SUM(v) AS s FROM t GROUP BY k"
+        rows = []
+        for c in (ref, port):
+            c.register_table("t", t)
+            out = c.sql(f"EXPLAIN ANALYZE {sql}").collect().to_pydict()
+            rows.append(dict(zip(out["plan_type"], out["plan"]))["aqe"])
+        assert rows[0] == rows[1] and rows[1].startswith("aqe=on class=")
+        aqe.reset_store()
+        ref_aqe.reset_store()
+        ctx = BallistaContext.standalone(
+            BallistaConfig({**cfg.settings(), "ballista.shuffle.partitions": "4"}), device="cpu"
+        )
+        try:
+            ctx.register_table("t", t)
+            sched = ctx._standalone_cluster.scheduler
+            results, outcomes = [], []
+            for _ in range(2):
+                results.append(ctx.sql(sql).collect().sort_by("k"))
+                with sched._lock:
+                    job = max(sched.jobs.values(), key=lambda j: j.submitted_s)
+                outcomes.append({d["outcome"] for d in job.aqe_decisions})
+            assert outcomes == [{"learned"}, {"applied"}]
+            assert results[0].column("k").equals(results[1].column("k"))
+            np.testing.assert_allclose(results[1].column("s").to_numpy(), results[0].column("s").to_numpy(), rtol=1e-9)
+        finally:
+            ctx.close()
+            aqe.reset_store()
     elif key == "ballista.tpu.scan_stream_mb":
         assert _file_scan_counters(tmp_path, {key: "1"})["stream_slices"] == 3
         assert _file_scan_counters(tmp_path, {key: NON_DEFAULT[key]})["stream_slices"] == 0
