@@ -4,7 +4,7 @@ physical operator may run, and the gate over it (port of the plan half of
 
 The reference's registry closes a jitted-kernel vocabulary, because a
 JAX engine pays a compile per distinct signature. The port compiles no
-per-signature program: its device work is two hand-written CUDA kernels,
+per-signature program: its device work is three hand-written CUDA kernels,
 built once per source, and torch programs that run eagerly. What stays
 is the plan-level closure that the certified rewrites need
 (``rewrite.certify``'s ``compile-vocab`` clause): every operator class a
@@ -57,6 +57,10 @@ PROGRAMS: dict[str, ProgramSpec] = {
         "cuda", f"{_CSRC}/partition_hash.cu",
         "stable bucket grouping (ops/partition.partition_groups)",
     ),
+    "cuda.prefix_sum_f64": ProgramSpec(
+        "cuda", f"{_CSRC}/prefix_sum.cu",
+        "fixed-order f64 prefix sums (ops/prefix_sum.prefix_sums)",
+    ),
     # torch programs, by module.function
     "expr.physical.compile_expr": ProgramSpec(
         "torch", "expr/physical.py", "fused expression evaluation"
@@ -80,7 +84,8 @@ PROGRAMS: dict[str, ProgramSpec] = {
         "torch", "ops/search.py", "sorted-key search"
     ),
     "ops.aggregate.group_aggregate": ProgramSpec(
-        "torch", "ops/aggregate.py", "sort-based segment aggregate"
+        "torch", "ops/aggregate.py",
+        "sort-based segment aggregate (launches cuda.prefix_sum_f64)",
     ),
     "ops.aggregate.dense_group_aggregate": ProgramSpec(
         "torch", "ops/aggregate.py",
@@ -123,7 +128,7 @@ _AGG = (
     "expr.physical.compile_expr",
     "ops.aggregate.group_aggregate", "ops.aggregate.dense_group_aggregate",
     "ops.aggregate.scalar_aggregate", "cuda.onehot_sums_f64",
-    "ops.perm.multi_key_perm", "ops.perm.take_batch",
+    "cuda.prefix_sum_f64", "ops.perm.multi_key_perm", "ops.perm.take_batch",
     "ops.concat.concat_batches",
 )
 _JOIN = (

@@ -198,7 +198,6 @@ _ENTRIES: dict[str, tuple[str, object]] = {
 # Keys whose feature the port lacks, with the ROADMAP item that ports it.
 # A non-default value raises where the reference would use it.
 UNPORTED: dict[str, str] = {
-    BALLISTA_PLUGIN_DIR: "ROADMAP queue 1, item 10a (UDF plugins)",
     BALLISTA_BUILD_CACHE_MB: "ROADMAP queue 1, item 6 (the build-table cache)",
     BALLISTA_PROFILE_DIR: "ROADMAP queue 1, item 10b (trace hooks)",
     # executors record and ship task and fetch spans; the local context

@@ -192,9 +192,20 @@ def decompose_aggregates(
                 "(split_percentiles) before physical planning"
             )
         if isinstance(a, L.UdafExpr):
-            raise NotImplementedError(
-                "aggregate UDFs are not ported yet (ROADMAP queue 1, item 10a)"
-            )
+            # each state is a SUM/COUNT/MIN/MAX slot over the argument or
+            # its hidden transform UDF; the final step calls ``finalize``
+            from ballista_tpu_torch.plugin import lookup_udaf
+
+            udaf = lookup_udaf(a.uname)
+            idxs = []
+            for suffix, op_s, has_transform in udaf.states:
+                arg = a.arg
+                if has_transform:
+                    arg = L.ScalarFunction(f"__udaf_{a.uname}_{suffix}", (arg,))
+                src = arg_slot(arg)
+                idxs.append(slot_for(_UDAF_OPS[op_s], src, f"{a.name()}#{suffix}"))
+            finals.append((a.name(), out_dtype, tuple(idxs), f"udaf:{a.uname}"))
+            continue
         if a.func == L.AggFunc.AVG:
             src = arg_slot(a.arg)
             i1 = slot_for(AggOp.SUM, src, f"{a.name()}#sum")
@@ -330,6 +341,25 @@ def _scalar_state_program(slots, schema: Schema, b: DeviceBatch) -> DeviceBatch:
     )
 
 
+_UDAF_OPS = {"sum": AggOp.SUM, "count": AggOp.COUNT, "min": AggOp.MIN, "max": AggOp.MAX}
+
+
+def _udaf_final(kind: str, col, idxs):
+    """A UDAF's final value, ``finalize`` over its merged state slots, and
+    its nulls: NULL for the groups whose count state saw no live rows
+    (without a count state the finalize result stands as computed)."""
+    from ballista_tpu_torch.plugin import lookup_udaf
+
+    udaf = lookup_udaf(kind[5:])
+    vals = udaf.finalize(*(col(i) for i in idxs))
+    nl = None
+    for (_, op_s, _), i in zip(udaf.states, idxs):
+        if op_s == "count":
+            nl = col(i) == 0
+            break
+    return vals, nl
+
+
 def _finalize_scalar_program(finals, schema: Schema, outs, nulls, device) -> DeviceBatch:
     """Scalar-aggregate finalization (AVG division, statistical finals,
     pass-through) to a one-live-row batch."""
@@ -341,6 +371,8 @@ def _finalize_scalar_program(finals, schema: Schema, outs, nulls, device) -> Dev
             nl = c == 0
         elif kind in ("var_samp", "var_pop", "stddev_samp", "stddev_pop", "corr"):
             v, nl = _stat_final(lambda i: outs[i], idxs, kind)
+        elif kind.startswith("udaf:"):
+            v, nl = _udaf_final(kind, lambda i: outs[i], idxs)
         else:
             v = outs[idxs[0]]
             nl = nulls[idxs[0]]
@@ -377,6 +409,8 @@ def finalize_state(state: DeviceBatch, spec: AggSpec, out_schema: Schema) -> Dev
                 nl = nl | base_null
         elif kind in ("var_samp", "var_pop", "stddev_samp", "stddev_pop", "corr"):
             vals, nl = _stat_final(lambda i: state.columns[n_groups + i], idxs, kind)
+        elif kind.startswith("udaf:"):
+            vals, nl = _udaf_final(kind, lambda i: state.columns[n_groups + i], idxs)
         else:
             vals = state.columns[n_groups + idxs[0]]
             nl = state.nulls[n_groups + idxs[0]]

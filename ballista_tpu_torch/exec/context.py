@@ -149,6 +149,11 @@ class TorchContext(Catalog, TableProvider):
         # features the port lacks: a non-default value raises here
         self.config.check_ported(*_CONTEXT_UNPORTED)
         self.device = resolve_device(device)
+        # UDF plugins (ref plugin/mod.rs: loaded once at context creation;
+        # both the ballista.plugin_dir key and $BALLISTA_PLUGIN_DIR count)
+        from ballista_tpu_torch.plugin import load_plugins
+
+        load_plugins(self.config.plugin_dir() or None)
         # the session's capacity ladder governs every batch built from here
         # on (process-wide, as in the reference)
         from ballista_tpu_torch.columnar.batch import set_capacity_buckets

@@ -11,9 +11,6 @@ Where the port differs from the reference:
 - **The device.** ``Executor(..., device="cuda")`` by default: every task
   runs on the card, and constructing an executor without one raises
   unless it is asked for the CPU (``device="cpu"``).
-- **UDF plugins** are not ported: a task whose session sets
-  ``ballista.plugin_dir`` fails with ``ConfigError`` (reported as a
-  failed task).
 - **Prewarm**: ``PollLoop(prewarm=...)`` accepts only ``off``.
 - **Compile metrics** shipped on the poll are the nvcc build seconds of
   ``ops/cuda_build``.
@@ -313,12 +310,13 @@ class Executor:
                 task.task_id.job_id, task.task_id.stage_id,
                 task.task_id.partition_id, attempt,
             )
-        # UDF plugins (the reference loads them here, before the decode)
-        # are not ported: a session that sets a plugin directory fails the
-        # task
-        BallistaConfig(
-            {k: v for k, v in props_early.items() if k == BALLISTA_PLUGIN_DIR}
-        ).check_ported(BALLISTA_PLUGIN_DIR)
+        plugin_dir = props_early.get(BALLISTA_PLUGIN_DIR, "")
+        if plugin_dir:
+            # UDF plugins must be resolvable before plan decode builds
+            # ScalarFunction nodes (ref plugin serde: names-only wire format)
+            from ballista_tpu_torch.plugin import load_plugins
+
+            load_plugins(plugin_dir)
         node = pb.PhysicalPlanNode()
         node.ParseFromString(task.plan)
         plan = self.codec.physical_from_proto(node)

@@ -13,8 +13,9 @@ arithmetic propagate null as the OR of the operand nulls.
 Every expression kind of the reference is ported. Host-side tables over a
 dictionary (LIKE, ``substr``) are built once per (dictionary, pattern) and
 kept on the device beside the dictionary (``dict_util.memo``), so a warm
-query gathers by code without rebuilding or uploading them. UDFs are not
-ported (ROADMAP queue 1, item 10a): their names do not resolve.
+query gathers by code without rebuilding or uploading them. A plugin UDF's body
+(``plugin.py``) runs eagerly on the argument tensors, on the batch's
+device, and must return one value a row there.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from ballista_tpu_torch.columnar import dict_util
 from ballista_tpu_torch.columnar.batch import DeviceBatch, Dictionary
 from ballista_tpu_torch.datatypes import DataType, Schema, common_type
-from ballista_tpu_torch.errors import PlanError
+from ballista_tpu_torch.errors import ExecutionError, PlanError
 from ballista_tpu_torch.expr import logical as L
 
 @dataclasses.dataclass
@@ -663,10 +664,41 @@ def _compile_scalar_fn(expr: L.ScalarFunction, schema: Schema):
 
         return fn
 
-    raise NotImplementedError(
-        f"scalar function {name!r}: UDF plugins are not ported yet "
-        "(ROADMAP queue 1, item 10a)"
-    )
+    # UDF plugins: the body runs on the batch's device like a built-in
+    # (ballista_tpu_torch/plugin.py, ref core/src/plugin/)
+    from ballista_tpu_torch.plugin import global_registry
+
+    udf = global_registry.get(name)
+    if udf is not None:
+        g = udf.fn
+
+        def fn(batch: DeviceBatch) -> ColumnValue:
+            vs = [a(batch) for a in args]
+            out = g(*[v.values for v in vs])
+            if not (
+                isinstance(out, torch.Tensor)
+                and tuple(out.shape) == (batch.capacity,)
+                and out.device == batch.device
+            ):
+                got = (
+                    f"a tensor of shape {tuple(out.shape)} on {out.device}"
+                    if isinstance(out, torch.Tensor) else type(out).__name__
+                )
+                raise ExecutionError(
+                    f"UDF {udf.name!r} returned {got}; it must return one "
+                    f"value a row: a tensor of shape ({batch.capacity},) on "
+                    f"{batch.device}, the batch's device"
+                )
+            # null-strict: result is NULL where any argument is NULL
+            nulls = None
+            for v in vs:
+                if v.nulls is not None:
+                    nulls = v.nulls if nulls is None else (nulls | v.nulls)
+            return ColumnValue(out.to(td), nulls, out_dtype)
+
+        return fn
+
+    raise PlanError(f"unknown scalar function {name!r}")
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ from enum import Enum
 import torch
 
 from ballista_tpu_torch.errors import ExecutionError
-from ballista_tpu_torch.ops import onehot_agg
+from ballista_tpu_torch.ops import onehot_agg, prefix_sum
 from ballista_tpu_torch.ops.perm import multi_key_perm, take_batch, take_many_split
 
 
@@ -193,8 +193,9 @@ def _stacked_reduce(
 # just before one segment's start is the prefix at the previous segment's
 # end, and no end positions are needed. MIN/MAX keep a scatter. The
 # reference builds its f64 prefix on the TPU from blocked triangular
-# matmuls (``_mm_prefix``), a compile-time workaround; here it is one
-# ``torch.cumsum`` in f64 (int64 and counts: exact integer cumsums). An f64
+# matmuls (``_mm_prefix``), a compile-time workaround that also fixes the
+# order of adds; here it is the fixed-order kernel ``ops/prefix_sum.py``
+# (int64 and counts: exact integer cumsums). An f64
 # prefix difference rounds like another summation order: its error is
 # relative to the running prefix, not to the group's sum, as in the
 # reference. Sums that must be exact go through the operator's decimal
@@ -259,10 +260,14 @@ def _seg_layouts(val_dtypes: tuple, null_sig: tuple, ops: tuple):
 
 def _column_cumsums(cols: list) -> torch.Tensor:
     """Prefix sums of equal-length columns, as the columns of one (n, k)
-    tensor. Each column is scanned on its own: the card scans a contiguous
-    1-D tensor in parallel, but a cumsum down dim 0 of an (n, k>1) tensor
-    was so slow on an H100 that q8 (two sums) took 1.7 s a warm run at
-    SF=1, and 0.035-0.050 s with this."""
+    tensor. Float columns take ``prefix_sum.prefix_sums`` (one launch
+    sequence for all k, in an order of adds fixed by n, so an f64 SUM is
+    bit-reproducible); integer columns are scanned each on its own by
+    ``torch.cumsum``, exact in any order (a cumsum down dim 0 of an
+    (n, k>1) tensor was so slow on an H100 that q8 took 1.7 s a warm run
+    at SF=1, and 0.035-0.050 s scanning each column alone)."""
+    if cols[0].dtype.is_floating_point:
+        return prefix_sum.prefix_sums(torch.stack(cols, dim=0)).T
     return torch.stack([torch.cumsum(c, 0) for c in cols], dim=1)
 
 

@@ -11,10 +11,10 @@ through the decoding side's ``TableProvider``; file scans (CSV, Parquet
 with its pushed-down predicates, Avro) travel by path and schema, and the
 decoding process opens the file itself.
 
-Kinds the port has no operator for raise ``PlanError`` naming the ROADMAP
-item that ports them: the mesh operators (``Mesh*Exec``, queue 1, item
-10b) and extension operators (``PhysicalExtensionCodec`` payloads: item
-10a).
+Third-party operators travel as extension nodes through the codec's
+``PhysicalExtensionCodec`` (its name, its payload, the children's plans),
+as in the reference. The mesh operators (``Mesh*Exec``) have no operator
+in the port and raise ``PlanError`` naming ROADMAP queue 1, item 10b.
 """
 
 from __future__ import annotations
@@ -58,7 +58,6 @@ from ballista_tpu_torch.proto import pb
 from ballista_tpu_torch.scheduler_types import PartitionLocation
 
 _MESH = "ROADMAP queue 1, item 10b (multi-device)"
-_EXTENSIONS = "ROADMAP queue 1, item 10a (plugin operators)"
 
 # ----------------------------------------------------------------- types ----
 
@@ -965,9 +964,11 @@ class BallistaCodec:
                 n.output_partition_count,
             )
         if kind == "extension":
-            raise PlanError(
-                f"cannot deserialize extension operator of codec {p.extension.codec!r}: "
-                f"extension operators are not ported ({_EXTENSIONS})"
+            n = p.extension
+            if n.codec != self.extension.name:
+                raise PlanError(f"no codec registered for extension {n.codec!r}")
+            return self.extension.try_decode(
+                n.payload, [self.physical_from_proto(c) for c in n.inputs]
             )
         raise PlanError(f"cannot deserialize physical node kind {kind!r}")
 

@@ -186,18 +186,34 @@ DATE_LO = _d(1992, 1, 1)
 DATE_HI = _d(1998, 12, 1)  # o_orderdate upper bound (spec: CURRENTDATE-151)
 
 
-def _phone(rng: np.random.Generator, nk: np.ndarray) -> list[str]:
+def _joined(parts: list, sep: str) -> pa.Array:
+    """Row-wise ``sep.join`` of equal-length string (or integer) arrays, in
+    Arrow's kernels (a Python loop over SF=1's lineitem took most of the
+    generator's time)."""
+    import pyarrow.compute as pc
+
+    cols = [
+        pc.cast(pa.array(np.ascontiguousarray(p)), pa.string()) if isinstance(p, np.ndarray) else p
+        for p in parts
+    ]
+    return pc.binary_join_element_wise(*cols, sep)
+
+
+def _words(vocab: list, idx: np.ndarray) -> pa.Array:
+    """The words ``vocab[idx[i, j]]`` of each row i, joined by spaces."""
+    words = pa.array(vocab)
+    return _joined([words.take(pa.array(np.ascontiguousarray(idx[:, k]))) for k in range(idx.shape[1])], " ")
+
+
+def _phone(rng: np.random.Generator, nk: np.ndarray) -> pa.Array:
     a = rng.integers(100, 1000, len(nk))
     b = rng.integers(100, 1000, len(nk))
     c = rng.integers(1000, 10000, len(nk))
-    return [
-        f"{10 + int(n)}-{x}-{y}-{z}" for n, x, y, z in zip(nk, a, b, c)
-    ]
+    return _joined([10 + nk.astype(np.int64), a, b, c], "-")
 
 
-def _comments(rng: np.random.Generator, n: int, nwords: int = 5) -> list[str]:
-    idx = rng.integers(0, len(COMMENT_WORDS), (n, nwords))
-    return [" ".join(COMMENT_WORDS[j] for j in row) for row in idx]
+def _comments(rng: np.random.Generator, n: int, nwords: int = 5) -> pa.Array:
+    return _words(COMMENT_WORDS, rng.integers(0, len(COMMENT_WORDS), (n, nwords)))
 
 
 def gen_table(table: str, scale: float = 0.01, seed: int = 42) -> pa.Table:
@@ -228,7 +244,7 @@ def gen_table(table: str, scale: float = 0.01, seed: int = 42) -> pa.Table:
         n = max(1, int(_CARD["part"] * scale))
         keys = np.arange(1, n + 1, dtype=np.int64)
         w = rng.integers(0, len(P_NAME_WORDS), (n, 5))
-        names = [" ".join(P_NAME_WORDS[j] for j in row) for row in w]
+        names = _words(P_NAME_WORDS, w)
         mfgr = rng.integers(1, 6, n)
         brand = mfgr * 10 + rng.integers(1, 6, n)
         t1 = rng.integers(0, len(TYPE_S1), n)
@@ -260,7 +276,7 @@ def gen_table(table: str, scale: float = 0.01, seed: int = 42) -> pa.Table:
         keys = np.arange(1, n + 1, dtype=np.int64)
         nk = rng.integers(0, len(NATIONS), n).astype(np.int64)
         # spec: 5 suppliers per 10000 have the Complaints text
-        comments = _comments(rng, n)
+        comments = _comments(rng, n).to_pylist()
         for i in rng.choice(n, max(1, n // 2000), replace=False):
             comments[i] = "wake Customer Complaints sleep"
         for i in rng.choice(n, max(1, n // 2000), replace=False):

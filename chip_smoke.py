@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``ballista_tpu_torch``) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--sf 1] [--seed 42] [--warm 3] [--profile]
+    python3 chip_smoke.py [--sf 1] [--seed 42] [--warm 2] [--profile]
+    python3 chip_smoke.py --prefix-only
     python3 chip_smoke.py --partition-timing [--root CHECKOUT]
     python3 chip_smoke.py --collect-timing [--root CHECKOUT] [--settings JSON]
     python3 chip_smoke.py --aqe-only [--sf 1]
@@ -11,10 +12,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Card: name, count, and ``nvidia-smi`` name and power limit. Without a
    CUDA device the script exits non-zero and prints no result.
-2. Build: compile ``ballista_tpu_torch/csrc/onehot_agg.cu`` and
-   ``csrc/partition_hash.cu`` for sm_90a, one nvcc each, started together
-   (``ops/cuda_build.build_many``), and print the build seconds and the
-   ``-Xptxas -v`` report.
+2. Build: compile ``ballista_tpu_torch/csrc/onehot_agg.cu``,
+   ``csrc/partition_hash.cu`` and ``csrc/prefix_sum.cu`` for sm_90a, one
+   nvcc each, started together (``ops/cuda_build.build_many``), and print
+   the build seconds and the ``-Xptxas -v`` report. Then TPC-H at ``--sf``
+   (seed 42) for phases 4-14, written as Arrow IPC files into a temporary
+   directory from which a process of its own (``CpuReference``, spawned,
+   never touching the card) runs phase 6's CPU runs beside phases 3-5.
 3. Kernel against its plain version at q1's shapes (n = 2^21 and 2^20,
    R = 14, P = 12, and q1's R = 6 once columns without nulls share a count
    row; at the two q1 shapes of n = 2^21 also the device time of a call by
@@ -23,8 +27,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its own slot, two launches bit-identical. Times (CUDA events, after a
    warm-up): the kernel, the plain version, and one library call
    (``index_add_``) as a yardstick; the bound from the bytes and f64 adds.
-   Then a sweep over slots P (1 to 65,536) and value rows R (1, 2, 6, 14,
-   64) at q1's batch size, timing the kernel against its plain version (each point checked,
+   Then a sweep over slots P (nine values, 1 to 65,536) and value rows R
+   (1, 2, 6, 14, 64) at q1's batch size, timing the kernel against its plain version (each point checked,
    two launches bit-identical), which finds for each R the P*R at which
    the kernel first loses to the plain scatter. Then the kernel's two
    launch modes ("lanes" and "owners", see ``ops/onehot_agg.launch_plan``)
@@ -32,6 +36,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    uniform slot ids, on Zipf-distributed ones (s = 1, hot slots scattered)
    and on ids of which 90% fall in one slot. Then the port's sort on the
    card against the CPU, on keys with +-0.0, NaN, a sign-bit NaN and +-inf.
+   Then the prefix-sum kernel (``ops/prefix_sum``): the fault it repairs,
+   ``torch.cumsum`` of one seed-made 6,000,000-row f64 column (uniform
+   [0, 100), as phase 13's skewed table) 20 times on the card, with its
+   distinct bit patterns counted, and the sort path's ``_column_cumsums``
+   20 times (one pattern); then the kernel against its plain version on the
+   CPU bit for bit (a NaN matching any NaN) at n = 6,000,000, 2^21, a
+   ragged n and 1, with k = 1, 2 and 6 columns holding -0.0, NaN and +-inf,
+   20 launches each bit-identical; at (6,000,000, 1), (2^21, 2) and (2^21,
+   6) its device time (``torch.profiler``, the ``chunk_*`` kernels), call
+   time, the plain version's time on the card, ``torch.cumsum`` along the
+   rows (the library yardstick) and the bound (16 bytes a row a column).
    Then the partition-hash kernel against its plain version and a numpy
    uint64 oracle, bit for bit, at n = 2^21, 2^20 and a ragged n, on one
    int64 key, (int32, int64) keys, an f64 key with -0.0, NaNs, +-inf and
@@ -94,8 +109,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``WINDOW_SQL``: ranking and running frame aggregates partitioned by
    customer) and a percentile query over ``lineitem`` (``PERCENTILE_SQL``:
    median and approx_percentile_cont by return flag). Each runs once
-   through ``TorchContext(device="cpu")``, the port's plain path (its
-   seconds printed); a query whose spec constants select nothing there runs
+   through ``TorchContext(device="cpu")``, the port's plain path, in the
+   process started before phase 3 (its seconds printed, and how long phase
+   6 waited for that process); a query whose spec constants select nothing there runs
    with constants chosen from the data (``tpch.spec_substitutions``, the
    choice of ``tests/test_tpch_oracle.py``) and must then select rows. Then
    one cold and ``--warm`` warm runs on the card, each held against the
@@ -111,8 +127,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    hash-packed join keys.
 7. Grace-hash spill and the distributed plans, on the tables of phase 5:
    q3, q5 and q18 in a ``TorchContext(device="cuda")`` with
-   ``ballista.tpu.hbm_budget_mb=16`` (``GRACE_BUDGET_MB``), one cold and
-   one warm run each, held against the same query's unbudgeted card run
+   ``ballista.tpu.hbm_budget_mb=16`` (``GRACE_BUDGET_MB``), q3 and q5 one
+   cold and one warm run each, q18 (some 20 s a run) one run, held against the same query's unbudgeted card run
    (schema, keys, counts and row order exact, floats within rtol 1e-9, the
    sort path's money sums of q3 and q18 bit for bit); each run must take
    at least 2 grace passes with spilled bytes (``plan_counters``), every
@@ -134,8 +150,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    queries' warm runs keep the inputs of their first launch at each shape
    (device copies, in the phase's peak memory), the distributed trees get
    one capture run each.
-8. The staged path, on the tables of phase 5: q1, q3, q5, q12 and q18
-   planned for the distributed tier (K = 4, ``STAGED_K``), split into
+8. The staged path, on the tables of phase 5: q1, q3, q5 and q12 (q18
+   runs on the distributed tier in phases 10 and 11 (e)) planned for the distributed tier (K = 4, ``STAGED_K``), split into
    stages (``distributed_plan.DistributedPlanner``), every stage's plan
    sent through proto bytes (``serde.BallistaCodec``; the decoded
    ``display()`` must equal the encoded one's), its inputs resolved to the
@@ -146,8 +162,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``executor/reader.ShuffleReaderExec``), ``run_staged``; the directory
    is removed after each run. One cold and two warm runs each, held
    against collect mode on the card (schema, keys, counts and row order
-   exact, floats within rtol 1e-9, the sort path's money sums of q3 and
-   q18 bit for bit) and, for q1, q3, q5 and q18, against the numpy oracles
+   exact, floats within rtol 1e-9, the sort path's money sums of q3 bit
+   for bit) and, for q1, q3 and q5, against the numpy oracles
    of phases 4 and 5; two warm runs bit-identical. Every hash-partitioned
    batch written must be grouped by the partition-hash kernel's grouped
    mode with one wait on the card, every query must record a grouped
@@ -165,7 +181,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    a scheduler stand-in written here (``StandInScheduler``, served through
    ``scheduler/rpc.add_service``; it isolates the executors from the
    port's scheduler, which phase 10 runs). It plans and
-   splits q1, q3, q5, q12 and q18 at K = 4 as ``run_staged`` does and hands
+   splits q1, q3, q5 and q12 at K = 4 as ``run_staged`` does and hands
    out each stage's TaskDefinitions, at most half a stage to one executor,
    once the stages before it completed, with their inputs resolved to the
    locations the statuses reported; the sessions turn off the local fast
@@ -194,7 +210,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    concurrent_tasks=2)``, pull-staged, at K = 4 and every other setting at
    its default (eager shuffle, push shuffle, the local fast path, the plan
    verifier and the skew monitor on): q1, q3, q5, q12 and q18 one cold and
-   two warm runs each, held against phase 9's collect-mode results and the
+   two warm runs each, held against collect-mode results (phase 9's;
+   q18's computed there without a fleet run) and the
    numpy oracles as phase 8 (money sums of q3 and q18 bit for bit); two
    warm runs bit-identical; each run recorded eager-fed or pushed reads
    (the readers' shipped ``eager_polls``, the executors' push registry),
@@ -211,7 +228,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scheduler reports the lost executor. (e) ``python -m
    ballista_tpu_torch.scheduler`` and ``python -m
    ballista_tpu_torch.executor --device cuda`` as subprocesses
-   (push-staged): the executor registers and heartbeats (the scheduler's
+   (push-staged), started on a thread of their own beside (a)-(d): the
+   executor registers and heartbeats (the scheduler's
    executor roster, ``GetHistory``), ``BallistaContext.remote(...,
    device="cuda")`` opens a session, and both exit 0 within 10 s of a
    SIGTERM. Prints per query the stages and tasks per executor, Flight MB
@@ -244,9 +262,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Avro (the port's ``write_avro``), the rest Parquet: q5 and q7 cold and
    warm, equal to (a)'s. (e) ``BallistaContext.standalone(device="cuda",
    n_executors=2, concurrent_tasks=2)`` at K = 4, the eight tables created
-   by DDL through the client (the executors open the files): q1, q3, q5,
-   q12 and q18 cold and twice warm, equal to (a)'s (money sums of q3 and
-   q18 bit for bit) and the numpy oracles, every run launching the grouped
+   by DDL through the client (the executors open the files): q1, q3, q5
+   and q12 (q18 runs on the cluster in phase 10) cold and twice warm,
+   equal to (a)'s (money sums of q3 bit for bit) and the numpy oracles,
+   every run launching the grouped
    mode, two warm runs bit-identical; ``GetFileMetadata`` of lineitem's
    file through the scheduler's stub returns its columns. Prints per query
    the cold and warm seconds and the scans' ``read_time``, pruned row
@@ -266,7 +285,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    run q2 and q4 cold over the files; the first retries, the second makes
    no capacity retry or speculation miss and returns the first's tables
    bit for bit, and a third child with the cache ``off`` retries as the
-   first did; prints each query's cold seconds, retries and launches in
+   first did (the shell, the first and the third child run side by side,
+   the second after the first); prints each query's cold seconds, retries and launches in
    each child and the size of ``plan_hints.json``. (c) The capacity
    ladder: q1, q6 and q18 over the memory tables, cold and warm, under
    ``ballista.tpu.capacity_buckets`` ``LADDER_SPEC`` and under the
@@ -295,9 +315,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    off and three times on: run 1 on applies a reactive flip of a build
    larger than its probe, runs 2 and 3 apply only learned strategies, a
    flip among them; keys and counts bit for bit AQE off's, ``SUM(v)``
-   within rtol 1e-9 (it has no decimal scale, and AQE off's own warm runs
-   differ in its last bits: the spread is printed). (b) q1, q3, q5, q12
-   and q18 twice each, held against phase 9's collect-mode results and
+   within rtol 1e-9 (it has no decimal scale, and the join's row order
+   changes with the flip); AQE off's two warm runs bit for bit (the sort
+   aggregate's f64 prefix is the fixed-order kernel's). (b) q1, q3, q5 and
+   q12 twice each, held against phase 9's collect-mode results and
    the numpy oracles as phase 10 holds them (money sums of q3 and q18 bit
    for bit); every decision printed (op, source, outcome, stages,
    clause), with each run's grouped partition-hash K. (c) ``BALLISTA_AQE=0``
@@ -310,10 +331,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and rejected, the size of ``plan_hints.json``, the phase's peak device
    memory, and replays one launch per distinct shape of each kernel of
    the phase against its plain version.
-14. One JSON line of kernel results (the one-hot kernel, and the
-   partition-hash kernel's ids and grouped modes), the card's name and
-   power limit, then the last line ``{"ok": true, "device": {...}}``.
+14. UDF and UDAF plugins, on lineitem of phase 5: a port plugin file
+   (``PLUGIN_SOURCE``: ``squareplus(x, y) = x*x + y``, ``clamp01``, the
+   UDAF ``geo_mean`` with a SUM of ``log x`` and a COUNT state, and the
+   UDAF ``spread`` with MAX, MIN and COUNT states) written into a new
+   ``ballista.plugin_dir``, deleted at the end. (a)
+   ``TorchContext(device="cuda")`` with that directory: the dense query
+   (``PLUGIN_DENSE_SQL``, by l_returnflag and l_linestatus, a UDF in the
+   filter and one under a SUM) and the sort-path query
+   (``PLUGIN_SORT_SQL``, geo_mean by l_suppkey, top 20) one cold and two
+   warm runs each, held against numpy oracles (``plugin_oracles``: keys
+   and counts exactly, floats within rtol 1e-9), two warm runs bit for bit
+   and no warm run retrying; the dense query must launch the one-hot
+   kernel, the sort-path query the prefix-sum kernel. (b) The port's
+   cluster (two executors on the card, K = 4) with the directory as a
+   session setting: both queries the same way, also held against (a)'s
+   results, and the sort-path query once more through ``functions.udaf``
+   in the DataFrame builder; every task loads the plugin directory (the
+   loader's calls counted against the jobs' tasks). Prints per query the
+   seconds and each kernel's launches and shapes, and replays one launch
+   per distinct shape of each kernel against its plain version (the
+   prefix-sum kernel's at the inputs the queries gave it, bit for bit,
+   with its call, plain, library and bound times, and device time at the
+   largest).
+15. One JSON line of kernel results (the one-hot kernel, the
+   partition-hash kernel's ids and grouped modes, and the prefix-sum
+   kernel at the largest shape the main path gave it, with its launches
+   on phases 4-14), then the card's name and power limit, then the last
+   line ``{"ok": true, "device": {...}}``.
 
+``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
+phase 3's prefix-sum checks, prints them, and stops.
 ``--partition-timing`` runs phase 1, builds the partition-hash kernel and
 prints ``partition_timing``'s results, and stops. With ``--root`` it
 imports another checkout's ``ballista_tpu_torch`` (unpacked into a
@@ -478,20 +526,40 @@ class LaunchRecorder:
     keeps a copy of its inputs for ``replay_launches`` (see
     ``capture_runs``), in host memory with ``keep_on_host`` (so that a
     counted run's peak device memory does not include it). The call itself
-    goes to the wrapper as before and counts its launch there."""
+    goes to the wrapper as before and counts its launch there. It stands
+    in for ``prefix_sum.prefix_sums`` (the sort aggregate's route) the same
+    way, with its (n, k) in ``prefix_shapes``; it keeps a prefix sum's
+    input only while ``keep_prefix`` is set too (``replay_prefix_launches``,
+    phase 14)."""
 
     def __init__(self) -> None:
         self.tag: str | None = None
         self.keep = False
         self.keep_on_host = False
+        self.keep_prefix = False
         self.counting = True
         self.shapes: dict = {}  # tag -> [(n, R, P), ...], one per launch
         self.inputs: dict = {}  # (n, R, P) -> (tag, rid, vals)
+        self.prefix_shapes: dict = {}  # tag -> [(n, k), ...], one per launch
+        self.prefix_inputs: dict = {}  # (n, k) -> (tag, x)
 
     def __enter__(self) -> "LaunchRecorder":
-        from ballista_tpu_torch.ops import onehot_agg
+        from ballista_tpu_torch.ops import onehot_agg, prefix_sum
 
         self._mod, self._real = onehot_agg, onehot_agg.onehot_sums
+        self._pmod, self._preal = prefix_sum, prefix_sum.prefix_sums
+
+        def recorded_prefix(x):
+            out = self._preal(x)
+            if self.tag is not None and x.is_cuda:
+                shape = (int(x.shape[1]), int(x.shape[0]))
+                if self.counting:
+                    self.prefix_shapes.setdefault(self.tag, []).append(shape)
+                if self.keep and self.keep_prefix and shape not in self.prefix_inputs:
+                    self.prefix_inputs[shape] = (self.tag, x.cpu() if self.keep_on_host else x.clone())
+            return out
+
+        prefix_sum.prefix_sums = recorded_prefix
 
         def recorded(rid, vals, P):
             out = self._real(rid, vals, P)
@@ -509,25 +577,37 @@ class LaunchRecorder:
 
     def __exit__(self, *exc) -> None:
         self._mod.onehot_sums = self._real
+        self._pmod.prefix_sums = self._preal
 
 
 def capture_runs(recs: list, runs: dict) -> None:
     """One more run of each tag in ``runs`` (tag -> callable) under which a
     recorder of ``recs`` saw a launch, every recorder keeping the inputs of
     its first launch at each shape. It comes after the path's counts and
-    peak memory were read, so that neither includes it or the copies."""
+    peak memory were read, so that neither includes it or the copies; the
+    prefix-sum kernel's launch count is set back to what it was before, as
+    these runs are comparisons and not the main path."""
+    from ballista_tpu_torch.ops import prefix_sum
+
+    plaunches = prefix_sum.launches
+
+    def prefix_kept(r):
+        return r.prefix_shapes if getattr(r, "keep_prefix", False) else {}
+
     for r in recs:
         r.keep, r.counting = True, False
     try:
         for q, run in runs.items():
-            if any(r.shapes.get(q) for r in recs):
+            if any(r.shapes.get(q) or prefix_kept(r).get(q) for r in recs):
                 for r in recs:
                     r.tag = q
                 run()
                 for r in recs:
                     missing = set(r.shapes.get(q, [])) - set(r.inputs)
+                    missing |= set(prefix_kept(r).get(q, [])) - set(getattr(r, "prefix_inputs", {}))
                     check(not missing, f"{q}: the capture run missed launch shapes {sorted(missing)}")
     finally:
+        prefix_sum.launches = plaunches
         for r in recs:
             r.keep, r.counting, r.tag = False, True, None
 
@@ -1166,6 +1246,169 @@ def sort_check(seed: int) -> dict:
     return res
 
 
+PREFIX_SHAPES = ((6_000_000, 1), (6_000_000, 2), (6_000_000, 6), (1 << 21, 1), (1 << 21, 2),
+                 (1 << 21, 6), (1_000_003, 1), (1_000_003, 2), (1_000_003, 6), (1, 1), (1, 2), (1, 6))
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit (host tensors), where a NaN matches any NaN: the card's
+    adds and the CPU's do not carry a NaN's payload alike."""
+    import torch
+
+    if a.shape != b.shape or not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return False
+    ok = ~torch.isnan(a)
+    return torch.equal(a[ok].view(torch.int64), b[ok].view(torch.int64))
+
+
+def prefix_columns(n: int, k: int, seed: int):
+    """k seed-made columns of n rows, uniform [0, 100) as the skewed
+    table's values, every third row scaled by -1e-3, with -0.0 in every
+    column, a NaN in the second and +-inf in the third (mod 3)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 100, (k, n))
+    x[:, ::3] *= -1e-3
+    for c in range(k):
+        at = rng.integers(0, n, 4)
+        x[c, at[0]] = -0.0
+        if c % 3 == 1:
+            x[c, at[1]] = np.nan
+        if c % 3 == 2 and n > 2:
+            x[c, at[2]], x[c, at[3]] = np.inf, -np.inf
+    return torch.from_numpy(x)
+
+
+def prefix_bound_ms(n: int, k: int) -> tuple[float, str]:
+    """Each input read once and each output written once (16 bytes a row a
+    column) at 3.35 TB/s; the adds (n k, plus the levels' n k / 16 + ...)
+    at the f64 rate are far smaller."""
+    return max(16 * n * k / HBM_BYTES_PER_S, 1.07 * n * k / FP64_FLOPS) * 1e3, "bytes"
+
+
+def prefix_case(x, repeats: int = 20, timed: bool = False) -> dict:
+    """The prefix-sum kernel on ``x`` (k, n) against its plain version on
+    the CPU, bit for bit, and ``repeats`` launches bit-identical with each
+    other; ``timed`` adds the device time (``torch.profiler``, the
+    ``chunk_*`` kernels), the call time (CUDA events), the plain version's
+    time on the card, ``torch.cumsum`` along the rows (the library
+    yardstick) and the bound."""
+    import torch
+
+    from ballista_tpu_torch.ops import prefix_sum
+
+    k, n = x.shape
+    xd = x.cuda()
+    first = prefix_sum.prefix_sums(xd)
+    for i in range(repeats - 1):
+        again = prefix_sum.prefix_sums(xd)
+        check(torch.equal(again.view(torch.int64), first.view(torch.int64)),
+              f"prefix n={n} k={k}: launch {i + 2} differs from launch 1")
+    torch.cuda.synchronize()
+    want = prefix_sum.prefix_sums_plain(x)
+    got = first.cpu()
+    check(same_bits(got, want), f"prefix n={n} k={k}: kernel differs from its plain version")
+    res = dict(n=n, k=k, launches=repeats, max_abs_err=0.0, bit_for_bit=True)
+    if timed:
+        bound, by = prefix_bound_ms(n, k)
+        device_ms, kernels = profiled_device_ms(lambda: prefix_sum.prefix_sums(xd), "chunk_")
+        res.update(
+            device_ms=device_ms, ms=time_ms(lambda: prefix_sum.prefix_sums(xd)),
+            plain_ms=time_ms(lambda: prefix_sum.prefix_sums_plain(xd)),
+            library_ms=time_ms(lambda: torch.cumsum(xd, dim=1)),
+            bound_ms=bound, bound_by=by, kernels=kernels,
+        )
+        res["bound_share"] = bound / device_ms
+    return res
+
+
+def prefix_phase(seed: int) -> dict:
+    """Phase 3's prefix-sum checks. First the fault it repairs: the old
+    sort-path prefix (one ``torch.cumsum`` of a 1-D column on the card) 20
+    times on one seed-made 6,000,000-row f64 column, uniform [0, 100) as
+    the skewed table's values, counting the distinct bit patterns; then
+    the new ``_column_cumsums`` 20 times on it (one pattern). Then the
+    kernel against its plain version at every ``PREFIX_SHAPES`` (n, k),
+    20 launches each bit-identical, timed at the main path's shapes."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops import aggregate, prefix_sum
+
+    col = torch.from_numpy(np.random.default_rng(seed).uniform(0, 100, 6_000_000)).cuda()
+    old = [torch.cumsum(col, 0).view(torch.int64) for _ in range(20)]
+    new = [aggregate._column_cumsums([col])[:, 0].contiguous().view(torch.int64) for _ in range(20)]
+    torch.cuda.synchronize()
+
+    def patterns(runs):
+        uniq = []
+        for r in runs:
+            if not any(torch.equal(r, u) for u in uniq):
+                uniq.append(r)
+        return len(uniq)
+
+    old_rel = max(
+        float(((r.view(torch.float64) - old[0].view(torch.float64)).abs()
+               / old[0].view(torch.float64).abs().clamp(min=1e-300)).max())
+        for r in old
+    )
+    cause = dict(rows=6_000_000, runs=20, cumsum_patterns=patterns(old),
+                 cumsum_max_rel_diff=old_rel, fixed_order_patterns=patterns(new))
+    log(f"prefix cause: {json.dumps(cause)}")
+    check(cause["fixed_order_patterns"] == 1, "prefix: _column_cumsums differs from run to run")
+    del old, new
+    timed_at = {(6_000_000, 1), (1 << 21, 2), (1 << 21, 6)}
+    before = prefix_sum.launches
+    cases = []
+    for i, (n, k) in enumerate(PREFIX_SHAPES):
+        res = prefix_case(prefix_columns(n, k, seed + i), timed=(n, k) in timed_at)
+        log(f"prefix case: ok  {json.dumps(res)}")
+        cases.append(res)
+    # comparisons, not the main path: the count is the main path's alone
+    prefix_sum.launches = before
+    return dict(cause=cause, cases=cases)
+
+
+def replay_prefix_launches(rec: "LaunchRecorder") -> list:
+    """The prefix-sum kernel on the inputs the queries gave it, one launch
+    per distinct (n, k): against its plain version on the CPU bit for bit,
+    two launches bit-identical, with call, plain, library and bound times.
+    The launch count is set back afterwards (comparisons, not the main
+    path)."""
+    import torch
+
+    from ballista_tpu_torch.ops import prefix_sum
+
+    before = prefix_sum.launches
+    out = []
+    largest = max(rec.prefix_inputs, key=lambda s: (s[0] * s[1], s), default=None)
+    for (n, k), (tag, x) in sorted(rec.prefix_inputs.items()):
+        xd = x.cuda() if not x.is_cuda else x
+        kernel = rec._preal
+        got, again = kernel(xd), kernel(xd)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int64), again.view(torch.int64)),
+              f"replay prefix {tag} n={n} k={k}: two launches differ")
+        check(same_bits(got.cpu(), prefix_sum.prefix_sums_plain(xd.cpu())),
+              f"replay prefix {tag} n={n} k={k}: kernel differs from its plain version")
+        bound, by = prefix_bound_ms(n, k)
+        res = dict(
+            query=tag, n=n, k=k, ms=time_ms(lambda: kernel(xd)),
+            plain_ms=time_ms(lambda: prefix_sum.prefix_sums_plain(xd)),
+            library_ms=time_ms(lambda: torch.cumsum(xd, dim=1)),
+            bound_ms=bound, bound_by=by, max_abs_err=0.0, bit_for_bit=True,
+        )
+        if (n, k) == largest:
+            res["device_ms"], res["kernels"] = profiled_device_ms(lambda: kernel(xd), "chunk_")
+        log(f"replay {tag} prefix launch n={n} k={k}: ok  {json.dumps(res)}")
+        out.append(res)
+    rec.prefix_inputs.clear()
+    prefix_sum.launches = before
+    return out
+
+
 # -- phase 4: the main path against a numpy oracle ---------------------------
 
 
@@ -1359,8 +1602,21 @@ def lineitem_columns(table) -> dict:
         cols[c] = table.column(c).to_numpy()
     cols["l_shipdate"] = table.column("l_shipdate").cast("int32").to_numpy()
     for c in ("l_returnflag", "l_linestatus", "l_shipmode", "l_shipinstruct"):
-        cols[c] = np.asarray(table.column(c).to_pylist())
+        cols[c] = host_strings(table.column(c))
     return cols
+
+
+def host_strings(col):
+    """A string column as a numpy unicode array, the same as
+    ``np.asarray(col.to_pylist())`` for a column without nulls, through its
+    dictionary (a few distinct values a column: fast at 6M rows)."""
+    import numpy as np
+    import pyarrow as pa
+
+    if col.null_count:
+        return np.asarray(col.to_pylist())
+    enc = col.dictionary_encode().combine_chunks()
+    return np.asarray(enc.dictionary.to_pylist())[enc.indices.to_numpy(zero_copy_only=False)]
 
 
 def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -> dict:
@@ -1436,23 +1692,29 @@ def main_path(table, sf: float, warm: int, profile: bool, rec: LaunchRecorder) -
 JOIN_QUERIES = ("q18", "q3", "q4", "q5", "q10")
 
 
-def host_columns(data: dict) -> dict:
-    """Every column of every table as numpy: dates as int32 days, strings
-    as numpy unicode arrays."""
-    import numpy as np
-    import pyarrow as pa
+class host_columns(dict):
+    """Every column of every table as numpy, converted at its first use:
+    dates as int32 days, strings as numpy unicode arrays (the oracles read
+    a few of the string columns; converting lineitem's comments alone took
+    most of phase 5's oracle time)."""
 
-    out = {}
-    for name, t in data.items():
-        for c in t.column_names:
-            col = t.column(c)
-            if pa.types.is_date32(col.type):
-                out[c] = col.cast(pa.int32()).to_numpy()
-            elif pa.types.is_string(col.type) or pa.types.is_large_string(col.type):
-                out[c] = np.asarray(col.to_pylist())
-            else:
-                out[c] = col.to_numpy()
-    return out
+    def __init__(self, data: dict) -> None:
+        super().__init__()
+        self._arrow = {c: t.column(c) for t in data.values() for c in t.column_names}
+
+    def __missing__(self, c: str):
+        import numpy as np
+        import pyarrow as pa
+
+        col = self._arrow[c]
+        if pa.types.is_date32(col.type):
+            v = col.cast(pa.int32()).to_numpy()
+        elif pa.types.is_string(col.type) or pa.types.is_large_string(col.type):
+            v = host_strings(col)
+        else:
+            v = col.to_numpy()
+        self[c] = v
+        return v
 
 
 def _day(y: int, m: int, d: int) -> int:
@@ -1877,55 +2139,152 @@ def selects_rows(t) -> bool:
     return t.num_rows > 0 and t.column(t.num_columns - 1).null_count < t.num_rows
 
 
+def rest_jobs() -> list:
+    """Phase 6's queries: (name, SQL, over lineitem with NOT NULL columns)."""
+    jobs = [(q, (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text(), False) for q in REST_QUERIES]
+    return jobs + [("window", WINDOW_SQL, False), ("percentile", PERCENTILE_SQL, True)]
+
+
+def not_null_lineitem(li):
+    import pyarrow as pa
+
+    return li.cast(pa.schema([f.with_nullable(False) for f in li.schema]))
+
+
+def cpu_reference(pkg_root: str, tables_dir: str, out_dir: str) -> None:
+    """Phase 6's CPU runs, in a process of their own that ``main`` starts
+    before phase 3 (``CpuReference``): the tables from ``tables_dir`` (Arrow
+    IPC files), each of ``rest_jobs()`` once through
+    ``TorchContext(device="cpu")`` (the port's plain path); a query whose
+    spec constants select nothing runs again with constants chosen from
+    the data, as tests/test_tpch_oracle.py does at SF=0.002. Each result
+    goes to ``out_dir/<q>.arrow``, its SQL, seconds and substitution to
+    ``out_dir/<q>.json``."""
+    import traceback
+
+    sys.path.insert(0, pkg_root)
+    try:
+        import pyarrow as pa
+
+        from ballista_tpu_torch.exec.context import TorchContext
+        from ballista_tpu_torch.tpch import spec_substitutions
+
+        data = {
+            p.stem: pa.ipc.open_file(pa.memory_map(str(p))).read_all()
+            for p in sorted(pathlib.Path(tables_dir).glob("*.arrow"))
+        }
+        cpu, cpu_nn = TorchContext(device="cpu"), TorchContext(device="cpu")
+        for name, t in data.items():
+            cpu.register_table(name, t)
+        cpu_nn.register_table("lineitem", not_null_lineitem(data["lineitem"]))
+        for q, sql, nn in rest_jobs():
+            on_cpu = cpu_nn if nn else cpu
+            t = time.perf_counter()
+            want = on_cpu.sql(sql).collect()
+            cpu_s = time.perf_counter() - t
+            subst = {}
+            if not selects_rows(want):
+                subst = spec_substitutions(q, data) if q in REST_QUERIES else {}
+                check(bool(subst), f"{q}: selects no rows")
+                for old, new in subst.items():
+                    sql = sql.replace(old, new)
+                t = time.perf_counter()
+                want = on_cpu.sql(sql).collect()
+                cpu_s = time.perf_counter() - t
+                check(selects_rows(want), f"{q}: selects no rows, even with {subst}")
+            with pa.OSFile(str(pathlib.Path(out_dir) / f"{q}.arrow"), "wb") as f:
+                with pa.ipc.new_file(f, want.schema) as w:
+                    w.write_table(want)
+            (pathlib.Path(out_dir) / f"{q}.json").write_text(
+                json.dumps({"sql": sql, "cpu_s": cpu_s, "subst": subst})
+            )
+    except BaseException:
+        (pathlib.Path(out_dir) / "error.txt").write_text(traceback.format_exc())
+        raise
+
+
+class CpuReference:
+    """Runs ``cpu_reference`` in a spawned process (it never touches the
+    card) over the tables written as Arrow IPC into a temporary directory,
+    side by side with the phases before 6; ``result(q)`` waits for it.
+    ``close`` stops the process if it still runs and deletes the files."""
+
+    def __init__(self, data: dict, pkg_root: pathlib.Path) -> None:
+        import multiprocessing
+        import tempfile
+
+        import pyarrow as pa
+
+        self.dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cpu-"))
+        (self.dir / "tables").mkdir()
+        (self.dir / "out").mkdir()
+        for name, t in data.items():
+            with pa.OSFile(str(self.dir / "tables" / f"{name}.arrow"), "wb") as f:
+                with pa.ipc.new_file(f, t.schema) as w:
+                    w.write_table(t)
+        self.t0 = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_reference,
+            args=(str(pkg_root), str(self.dir / "tables"), str(self.dir / "out")),
+            daemon=True,
+        )
+        self.proc.start()
+        self.waited_s = None
+
+    def result(self, q: str):
+        """(SQL, the CPU's result, its seconds, the substitution)."""
+        import pyarrow as pa
+
+        if self.waited_s is None:
+            t = time.perf_counter()
+            self.proc.join(timeout=600)
+            self.waited_s = time.perf_counter() - t
+            err = self.dir / "out" / "error.txt"
+            check(self.proc.exitcode == 0,
+                  f"CPU reference process: exit {self.proc.exitcode}\n"
+                  + (err.read_text() if err.exists() else ""))
+            log(f"rest: CPU reference process done {time.perf_counter() - self.t0:.1f}s after its "
+                f"start; phase 6 waited {self.waited_s:.1f}s for it")
+        meta = json.loads((self.dir / "out" / f"{q}.json").read_text())
+        want = pa.ipc.open_file(pa.memory_map(str(self.dir / "out" / f"{q}.arrow"))).read_all()
+        return meta["sql"], want, meta["cpu_s"], meta["subst"]
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=30)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def rest_path(
-    data: dict, warm: int, profile: bool, rec: "LaunchRecorder", prec: "PartitionRecorder"
+    data: dict, warm: int, profile: bool, rec: "LaunchRecorder", prec: "PartitionRecorder",
+    cpu: CpuReference,
 ) -> dict:
     """The TPC-H queries not yet on the card, the window query and the
-    percentile query: each once on the CPU (the port's plain path), then
-    cold and ``warm`` times on the card, every card run held against the
-    CPU's result."""
+    percentile query: each once on the CPU (the port's plain path, in the
+    ``cpu`` process), then cold and ``warm`` times on the card, every card
+    run held against the CPU's result."""
     import pyarrow as pa
     import torch
 
     from ballista_tpu_torch.exec.context import TorchContext
     from ballista_tpu_torch.ops import onehot_agg, partition
-    from ballista_tpu_torch.tpch import spec_substitutions
 
-    card, cpu = TorchContext(device="cuda"), TorchContext(device="cpu")
+    card = TorchContext(device="cuda")
     for name, t in data.items():
         card.register_table(name, t)
-        cpu.register_table(name, t)
-    li = data["lineitem"]
-    li_nn = li.cast(pa.schema([f.with_nullable(False) for f in li.schema]))
-    card_nn, cpu_nn = TorchContext(device="cuda"), TorchContext(device="cpu")
-    card_nn.register_table("lineitem", li_nn)
-    cpu_nn.register_table("lineitem", li_nn)
-    jobs = [
-        (q, (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text(), card, cpu)
-        for q in REST_QUERIES
-    ]
-    jobs += [("window", WINDOW_SQL, card, cpu), ("percentile", PERCENTILE_SQL, card_nn, cpu_nn)]
+    card_nn = TorchContext(device="cuda")
+    card_nn.register_table("lineitem", not_null_lineitem(data["lineitem"]))
     out: dict = {}
     sqls: dict = {}
     results: dict = {}  # query -> (SQL, the card's third run), for phase 10
     torch.cuda.reset_peak_memory_stats()
     launches = plaunches = 0
-    for q, sql, on_card, on_cpu in jobs:
-        t = time.perf_counter()
-        want = on_cpu.sql(sql).collect()
-        cpu_s = time.perf_counter() - t
-        subst = {}
-        if not selects_rows(want):
-            # a spec constant selects nothing in this data: choose one from
-            # the data, as tests/test_tpch_oracle.py does at SF=0.002
-            subst = spec_substitutions(q, data) if q in REST_QUERIES else {}
-            check(bool(subst), f"{q}: selects no rows")
-            for old, new in subst.items():
-                sql = sql.replace(old, new)
-            t = time.perf_counter()
-            want = on_cpu.sql(sql).collect()
-            cpu_s = time.perf_counter() - t
-            check(selects_rows(want), f"{q}: selects no rows, even with {subst}")
+    for q, _, nn in rest_jobs():
+        on_card = card_nn if nn else card
+        sql, want, cpu_s, subst = cpu.result(q)
         sqls[q] = (sql, on_card)
         runs = []
         rec.tag = prec.tag = q
@@ -2062,11 +2421,14 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
         tag = f"{q}-budget"
         runs = []
         rec.tag = prec.tag = tag
-        for i in range(2):
-            # the warm run keeps the inputs of its first launch at each
+        # q18 spills for some 20 s a run: one run (held against the
+        # unbudgeted run like the others)
+        n_runs = 1 if q == "q18" else 2
+        for i in range(n_runs):
+            # the last run keeps the inputs of its first launch at each
             # shape (device copies, no sync) for the replays: a capture run
             # of its own would cost a spilling run more
-            rec.keep = prec.keep = i == 1
+            rec.keep = prec.keep = i == n_runs - 1
             seen = (len(rec.shapes.get(tag, [])), len(prec.shapes.get(tag, [])))
             # this run starts here
             onehot_agg.launches = partition.launches = partition.group_launches = 0
@@ -2196,7 +2558,9 @@ def grace_path(data: dict, rec: LaunchRecorder, prec: PartitionRecorder) -> dict
 
 # -- phase 8: the staged path (plans across the wire, shuffle files) ----------
 
-STAGED_QUERIES = ("q1", "q3", "q5", "q12", "q18")
+# phases 8, 9 and 13 (b); q18 runs on the distributed tier in phase 10 (the
+# port's cluster, against the collect mode and the oracle) and 11 (e)
+STAGED_QUERIES = ("q1", "q3", "q5", "q12")
 STAGED_K = 4
 # the sort path's money sums (exact decimals): bit for bit against collect
 # mode; q1's and q5's sums go through the dense path's f64 sums, whose
@@ -2746,6 +3110,10 @@ def fleet_path(data: dict, oracles: dict, staged: dict, rec: LaunchRecorder, pre
                 log(f"{tag}: ok  {json.dumps(out[tag])}")
         rec.tag = prec.tag = None
         rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = False
+        # collect mode of the cluster's queries the fleet does not run
+        for q in CLUSTER_QUERIES:
+            if q not in collected:
+                collected[q] = ctx.sql((ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()).collect()
         peak = torch.cuda.max_memory_allocated()
         log(f"fleet: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
         for q in FLEET_QUERIES:
@@ -2798,7 +3166,7 @@ def fleet_path(data: dict, oracles: dict, staged: dict, rec: LaunchRecorder, pre
 
 # -- phase 10: the port's own cluster (scheduler, standalone, client) --------
 
-CLUSTER_QUERIES = STAGED_QUERIES
+CLUSTER_QUERIES = STAGED_QUERIES + ("q18",)
 # every session of phase 10 at K = 4; all else at its default
 CLUSTER_SETTINGS = {"ballista.shuffle.partitions": str(STAGED_K)}
 # (c): the TPC-H queries (a) does not run
@@ -2916,7 +3284,7 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
         check(r["eager_polls"] > 0 or r["pushed_mb"] > 0, f"{tag}: no eager-fed or pushed read")
 
     def summary(q: str, runs: list) -> dict:
-        fl = fleet[f"{q}-fleet"]
+        fl = fleet.get(f"{q}-fleet", dict.fromkeys(("cold_s", "warm_s", "collect_cold_s", "collect_warm_s")))
         return dict(
             stages=runs[0]["stages"], tasks_per_executor=[sorted(r["tasks"].values()) for r in runs],
             flight_mb=[r["flight_mb"] for r in runs], fetch_s=[r["fetch_s"] for r in runs],
@@ -2932,6 +3300,12 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
             grouped_launches=[r["glaunches"] for r in runs],
         )
 
+    # (e) runs beside (a)-(d) on a thread of its own: its processes take
+    # some 10 s to start and the executor heartbeats every 15 s
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    processes = pool.submit(process_cluster, pkg_root)
     torch.cuda.reset_peak_memory_stats()
     rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = True
     try:
@@ -3040,10 +3414,11 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
                 missing = set(r.shapes[tag]) - set(r.inputs)
                 check(not missing, f"{tag}: no inputs kept for launch shapes {sorted(missing)}")
 
-    # (e) the scheduler and executor processes
+    # (e) the scheduler and executor processes, started with the phase
     t0 = time.perf_counter()
-    out["processes"] = process_cluster(pkg_root)
-    out["processes_s"] = time.perf_counter() - t0
+    out["processes"] = processes.result(timeout=300)
+    pool.shutdown()
+    out["processes_wait_s"] = time.perf_counter() - t0
     out["launches"] = launches
     out["partition_launches"] = plaunches
     out["grouped_launches"] = glaunches
@@ -3325,7 +3700,8 @@ def files_path(data: dict, oracles: dict, earlier: dict, tmp: pathlib.Path, rec:
             for name in data:
                 check(cl.sql(ddl(name)).collect().to_pydict() == {"result": ["ok"]}, f"DDL of {name}")
             sched = cl._standalone_cluster.scheduler
-            for q in CLUSTER_QUERIES:
+            # q18 runs on the cluster in phase 10 (a), cold and twice warm
+            for q in STAGED_QUERIES:
                 tag = f"{q}-files-cluster"
                 runs = []
                 rec.tag = prec.tag = tag
@@ -3512,25 +3888,54 @@ def ops_path(data: dict, earlier: dict, files: dict, tmp: pathlib.Path, rec: Lau
         f"CREATE EXTERNAL TABLE {name} STORED AS PARQUET LOCATION '{tmp / f'{name}.parquet'}'" for name in data
     ]
 
-    def child(args: list, env: dict, timeout: float = 300):
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, *args], cwd=pkg_root, env=env, capture_output=True, text=True, timeout=timeout
+    started: list = []
+
+    def start(args: list, env: dict):
+        """A child on the card, its output into files (several run at once)."""
+        outs = [tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")]
+        proc = subprocess.Popen(
+            [sys.executable, *args], cwd=pkg_root, env=env, stdout=outs[0], stderr=outs[1], text=True
         )
-        return proc, time.perf_counter() - t
+        started.append(proc)
+        return proc, outs, time.perf_counter()
+
+    def finish(child, timeout: float = 300):
+        """(the child's CompletedProcess, its wall seconds)."""
+        proc, outs, t = child
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise SmokeFailure(f"child {proc.args[1:3]} took over {timeout} s")
+        secs = time.perf_counter() - t
+        for f in outs:
+            f.seek(0)
+        return subprocess.CompletedProcess(proc.args, rc, outs[0].read(), outs[1].read()), secs
+
+    hints = work / "hints"
+
+    def hint_child(tag: str, cache: str):
+        res_dir = work / f"hint-{tag}"
+        res_dir.mkdir()
+        spec = dict(ddl=ddl, queries={q: earlier[q][0] for q in HINT_QUERIES}, out=str(res_dir))
+        return start(["-c", HINT_CHILD, json.dumps(spec)], child_env(cache))
 
     try:
-        # (a) the shell as a child on the card: DDL, then q1, q6, q3
+        # (a) the shell as a child on the card: DDL, then q1, q6, q3; it
+        # runs beside (b)'s first child and its child with the cache off,
+        # which are independent of it and of each other
         t0 = time.perf_counter()
         script = work / "shell.sql"
         script.write_text(
             "".join(f"{s};\n" for s in ddl)
             + "".join(earlier[q][0].strip().rstrip(";") + ";\n" for q in SHELL_QUERIES)
         )
-        proc, secs = child(
+        shell = start(
             ["-m", "ballista_tpu_torch.cli", "-f", str(script), "--format", "csv", "-q", "--device", "cuda"],
             child_env(str(work / "hints-shell")),
         )
+        hint_children = {"first": hint_child("first", str(hints)), "off": hint_child("off", "off")}
+        proc, secs = finish(shell)
         check(proc.returncode == 0 and "error:" not in proc.stdout,
               f"shell exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
         blocks = read_csv_blocks(proc.stdout, [1] * len(ddl) + [files[q].num_rows for q in SHELL_QUERIES])
@@ -3542,15 +3947,15 @@ def ops_path(data: dict, earlier: dict, files: dict, tmp: pathlib.Path, rec: Lau
         out["shell_s"] = time.perf_counter() - t0
 
         # (b) persisted hints: two children over one fresh hint directory,
-        # a third with the cache off
+        # the second started when the first has ended, a third with the
+        # cache off
         t0 = time.perf_counter()
-        hints = work / "hints"
         runs = {}
-        for tag, cache in (("first", str(hints)), ("second", str(hints)), ("off", "off")):
+        for tag in ("first", "second", "off"):
+            if tag == "second":
+                hint_children["second"] = hint_child("second", str(hints))
             res_dir = work / f"hint-{tag}"
-            res_dir.mkdir()
-            spec = dict(ddl=ddl, queries={q: earlier[q][0] for q in HINT_QUERIES}, out=str(res_dir))
-            proc, secs = child(["-c", HINT_CHILD, json.dumps(spec)], child_env(cache))
+            proc, secs = finish(hint_children[tag])
             line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")), None)
             check(proc.returncode == 0 and line is not None,
                   f"hint child {tag} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
@@ -3813,6 +4218,10 @@ def ops_path(data: dict, earlier: dict, files: dict, tmp: pathlib.Path, rec: Lau
         check(all(rc == 0 for v in stops.values() for rc, _ in v), f"process entries on SIGTERM: {stops}")
         out["ops_s"] = time.perf_counter() - t0
     finally:
+        for proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
         shutil.rmtree(work, ignore_errors=True)
     for r in (rec, prec):
         for tag in r.shapes:
@@ -4062,12 +4471,13 @@ def aqe_path(data: dict, oracles: dict, collected: dict, rec: LaunchRecorder,
             ctx.close()
         base = off[1]["table"]
         check(not any(r["decisions"] or r["rewrites"] for r in off), "AQE off: a decision was made")
-        # keys and counts bit for bit; SUM(v) (no decimal scale, so not
-        # an exact sum) differs run to run on the card in its last bits,
-        # AQE or not: its spread is logged
+        # keys and counts bit for bit; SUM(v) (no decimal scale) takes its
+        # prefix from the fixed-order kernel: the two warm runs bit for bit,
+        # the cold run within rtol 1e-9 (its batches may differ)
         for i in (0, 2):
             compare_tables(f"wrong-build-off run {i + 1}", off[i]["table"], base)
             check(off[i]["table"].drop(["s"]).equals(base.drop(["s"])), f"wrong-build-off run {i + 1}: keys differ")
+        check(off[2]["table"].equals(base), "wrong-build-off: the two warm runs' SUM(v) differ")
         out["off_s_spread"] = max_rel_diff(off[2]["table"].column("s"), base.column("s"))
         ctx = cluster(AQE_SETTINGS, {**skew, **data})
         try:
@@ -4093,9 +4503,9 @@ def aqe_path(data: dict, oracles: dict, collected: dict, rec: LaunchRecorder,
             log(f"aqe (a) wrong-build: ok  {json.dumps(out['wrong_build'])}")
             out["a_s"] = time.perf_counter() - t0
 
-            # (b) phase 10's five queries, twice each
+            # (b) phase 10's queries but q18, twice each
             t0 = time.perf_counter()
-            for q in CLUSTER_QUERIES:
+            for q in STAGED_QUERIES:
                 runs = [one_run(ctx, sqls[q], f"{q}-aqe") for _ in range(2)]
                 for i, r in enumerate(runs):
                     tag = f"{q}-aqe run {i + 1}"
@@ -4190,6 +4600,245 @@ def aqe_path(data: dict, oracles: dict, collected: dict, rec: LaunchRecorder,
     return out
 
 
+# -- phase 14: UDF and UDAF plugins on the card --------------------------------
+
+# The port's plugin (torch bodies): two scalar UDFs and two algebraic UDAFs,
+# geo_mean (SUM of log x and a COUNT) and spread (MAX, MIN and a COUNT).
+PLUGIN_SOURCE = '''
+import torch
+from ballista_tpu_torch.datatypes import DataType
+
+
+def register(register_udf, register_udaf):
+    register_udf("squareplus", lambda x, y: x * x + y, DataType.FLOAT64,
+                 min_args=2, max_args=2)
+    register_udf("clamp01", lambda x: torch.clamp(x, 0.0, 1.0), DataType.FLOAT64)
+    register_udaf(
+        "geo_mean",
+        states=[("slog", "sum", lambda x: torch.log(x)), ("n", "count", None)],
+        finalize=lambda s, n: torch.exp(s / torch.clamp(n, min=1).to(torch.float64)),
+    )
+    register_udaf(
+        "spread",
+        states=[("hi", "max", None), ("lo", "min", None), ("n", "count", None)],
+        finalize=lambda hi, lo, n: hi - lo,
+    )
+'''
+PLUGIN_DENSE_SQL = (
+    "SELECT l_returnflag, l_linestatus, geo_mean(l_extendedprice) AS gm, "
+    "spread(l_quantity) AS sp, SUM(squareplus(l_discount, l_tax)) AS sq "
+    "FROM lineitem WHERE clamp01(l_discount * 10) < 1 "
+    "GROUP BY l_returnflag, l_linestatus ORDER BY 1, 2"
+)
+PLUGIN_SORT_SQL = (
+    "SELECT l_suppkey, geo_mean(l_extendedprice) AS gm, COUNT(*) AS c "
+    "FROM lineitem GROUP BY l_suppkey ORDER BY gm DESC, l_suppkey LIMIT 20"
+)
+
+
+def plugin_oracles(li) -> dict:
+    """numpy oracles of the two plugin queries over lineitem: f64 sums by
+    ``np.add.at``, MAX/MIN exact, counts exact."""
+    import numpy as np
+
+    q, p, d, t = (li.column(c).to_numpy() for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    rf, ls = host_strings(li.column("l_returnflag")), host_strings(li.column("l_linestatus"))
+    keep = np.minimum(np.maximum(d * 10, 0.0), 1.0) < 1
+    pairs, inv = np.unique(np.char.add(rf[keep], ls[keep]), return_inverse=True)
+    g = len(pairs)
+    slog, n, sq = np.zeros(g), np.zeros(g), np.zeros(g)
+    np.add.at(slog, inv, np.log(p[keep]))
+    np.add.at(n, inv, 1.0)
+    np.add.at(sq, inv, d[keep] * d[keep] + t[keep])
+    hi, lo = np.full(g, -np.inf), np.full(g, np.inf)
+    np.maximum.at(hi, inv, q[keep])
+    np.minimum.at(lo, inv, q[keep])
+    dense = {
+        "l_returnflag": [s[0] for s in pairs], "l_linestatus": [s[1] for s in pairs],
+        "gm": np.exp(slog / n), "sp": hi - lo, "sq": sq,
+    }
+    supp = li.column("l_suppkey").to_numpy()
+    keys, inv = np.unique(supp, return_inverse=True)
+    slog, n = np.zeros(len(keys)), np.zeros(len(keys))
+    np.add.at(slog, inv, np.log(p))
+    np.add.at(n, inv, 1.0)
+    gm = np.exp(slog / n)
+    top = np.lexsort((keys, -gm))[:20]
+    sort = {"l_suppkey": keys[top].tolist(), "gm": gm[top], "c": n[top].astype(np.int64).tolist()}
+    return {"dense": dense, "sort": sort}
+
+
+def plugin_path(data: dict, rec: "LaunchRecorder", prec: "PartitionRecorder") -> dict:
+    """Phase 14: a port plugin file written into a new ``ballista.plugin_dir``
+    (deleted at the end); (a) ``TorchContext(device="cuda")`` with it runs
+    the dense and the sort-path query cold and twice warm; (b) the port's
+    cluster (two executors on the card, K = 4) with the directory as a
+    session setting runs both the same way, and the sort-path query once
+    more through ``functions.udaf`` in the DataFrame builder. Every run is
+    held against the numpy oracles (rtol 1e-9, keys and counts exact), (b)
+    against (a), two warm runs bit for bit and no warm run retrying; the
+    dense query must launch the one-hot kernel, the sort-path one the
+    prefix-sum kernel; every task of (b) loads the plugin directory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ballista_tpu_torch import functions as F
+    from ballista_tpu_torch import plugin
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+
+    t0 = time.perf_counter()
+    oracles = plugin_oracles(data["lineitem"])
+    out: dict = {"oracles_s": time.perf_counter() - t0}
+    sqls = {"dense": PLUGIN_DENSE_SQL, "sort": PLUGIN_SORT_SQL}
+    plugin_dir = tempfile.mkdtemp(prefix="chip_smoke_plugins-")
+    (pathlib.Path(plugin_dir) / "smoke_fns.py").write_text(PLUGIN_SOURCE)
+    launches = {"onehot": 0, "prefix": 0, "partition": 0, "grouped": 0}
+    # every call of the loader, the tasks' among them
+    loads: list = []
+    real_load = plugin.load_plugins
+
+    def counted_load(d=None):
+        loads.append(d)
+        return real_load(d)
+
+    def one_run(tag: str, run) -> dict:
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        p0 = prefix_sum.launches
+        rec.tag = prec.tag = tag
+        try:
+            t = time.perf_counter()
+            res, stats = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            rec.tag = prec.tag = None
+        r = dict(s=secs, table=res, retries=stats, launches=onehot_agg.launches,
+                 plaunches=prefix_sum.launches - p0, hlaunches=partition.launches,
+                 glaunches=partition.group_launches)
+        launches["onehot"] += r["launches"]
+        launches["prefix"] += r["plaunches"]
+        launches["partition"] += r["hlaunches"]
+        launches["grouped"] += r["glaunches"]
+        return r
+
+    def held(tag: str, kind: str, runs: list) -> dict:
+        for i, r in enumerate(runs):
+            compare(f"{tag} run {i}", r["table"], oracles[kind])
+        check(runs[-1]["table"].equals(runs[-2]["table"]), f"{tag}: two warm runs differ")
+        check(not any(sum(r["retries"].values()) for r in runs[1:]), f"{tag}: a warm run retried")
+        return dict(
+            cold_s=runs[0]["s"], warm_s=[r["s"] for r in runs[1:]],
+            onehot_launches=[r["launches"] for r in runs], prefix_launches=[r["plaunches"] for r in runs],
+            partition_launches=[r["hlaunches"] for r in runs], grouped_launches=[r["glaunches"] for r in runs],
+            retries=[r["retries"] for r in runs],
+            onehot_shapes=sorted(set(rec.shapes.get(tag, []))),
+            prefix_shapes=sorted(set(rec.prefix_shapes.get(tag, []))),
+        )
+
+    torch.cuda.reset_peak_memory_stats()
+    plugin.load_plugins = counted_load
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = True
+    local: dict = {}
+    try:
+        # (a) the local context loads the directory at construction
+        t0 = time.perf_counter()
+        ctx = TorchContext(BallistaConfig({"ballista.plugin_dir": plugin_dir}), device="cuda")
+        ctx.register_table("lineitem", data["lineitem"])
+        check(plugin.global_registry.get_udaf("geo_mean") is not None, "the context loaded no plugin")
+
+        def local_run(sql):
+            df = ctx.sql(sql)
+            res = df.collect()
+            return res, {k: df.stats.get(k, 0) for k in ("capacity_retries", "speculation_misses")}
+
+        for kind, sql in sqls.items():
+            tag = f"plugin-{kind}"
+            runs = [one_run(tag, lambda: local_run(sql)) for _ in range(3)]
+            out[tag] = held(tag, kind, runs)
+            local[kind] = runs[-1]["table"]
+            log(f"{tag}: ok  {json.dumps(out[tag])}")
+        check(min(out["plugin-dense"]["onehot_launches"]) > 0, "plugin-dense: no one-hot launch")
+        check(min(out["plugin-sort"]["prefix_launches"]) > 0, "plugin-sort: no prefix-sum launch")
+        out["a_s"] = time.perf_counter() - t0
+
+        # (b) the port's cluster: the directory is a session setting that
+        # the scheduler and every task load
+        t0 = time.perf_counter()
+        del loads[:]
+        settings = {"ballista.shuffle.partitions": str(STAGED_K), "ballista.plugin_dir": plugin_dir}
+        cl = BallistaContext.standalone(BallistaConfig(settings), device="cuda", n_executors=2, concurrent_tasks=2)
+        try:
+            cl.register_table("lineitem", data["lineitem"])
+            sched = cl._standalone_cluster.scheduler
+            tasks: list = []  # the tasks of each run
+            with RetryCounter() as retries:
+
+                def cluster_run(run):
+                    retries.counts.clear()
+                    jobs0 = set(sched.jobs)
+                    res = run()
+                    (job_id,) = set(sched.jobs) - jobs0
+                    job = sched.jobs[job_id]
+                    check(job.status == "completed", f"plugin cluster job {job_id}: {job.status} {job.error}")
+                    tasks.append(sum(len(st["tasks"]) for st in job.stage_stats or []))
+                    return res, dict(retries.counts)
+
+                builder = (
+                    lambda: cl.table("lineitem")
+                    .aggregate(["l_suppkey"], [F.udaf("geo_mean", "l_extendedprice").alias("gm"),
+                                               F.count_star().alias("c")])
+                    .sort(F.col("gm").sort(False), F.col("l_suppkey"))
+                    .limit(20).collect()
+                )
+                for kind, run in (
+                    ("dense", lambda: cl.sql(PLUGIN_DENSE_SQL).collect()),
+                    ("sort", lambda: cl.sql(PLUGIN_SORT_SQL).collect()),
+                    ("builder", builder),
+                ):
+                    tag = f"plugin-{kind}-cluster"
+                    n = 3 if kind != "builder" else 1
+                    runs = [one_run(tag, lambda: cluster_run(run)) for _ in range(n)]
+                    want_kind = "sort" if kind == "builder" else kind
+                    for i, r in enumerate(runs):
+                        compare_tables(f"{tag} run {i}", r["table"], local[want_kind])
+                        compare(f"{tag} run {i}", r["table"], oracles[want_kind])
+                    if n > 1:
+                        out[tag] = held(tag, want_kind, runs)
+                    else:
+                        out[tag] = dict(s=runs[0]["s"], prefix_launches=runs[0]["plaunches"],
+                                        onehot_launches=runs[0]["launches"])
+                    check(sum(r["glaunches"] for r in runs) > 0, f"{tag}: no grouped launch")
+                    log(f"{tag}: ok  {json.dumps(out[tag])}")
+            out["task_loads"] = sum(1 for d in loads if d == plugin_dir)
+            out["tasks"] = sum(tasks)
+        finally:
+            cl.close()
+        check(
+            out["tasks"] > 0 and out["task_loads"] >= out["tasks"],
+            f"plugin cluster: {out['task_loads']} loads of the plugin directory for {out['tasks']} tasks",
+        )
+        check(min(out["plugin-sort-cluster"]["prefix_launches"]) > 0, "plugin-sort-cluster: no prefix-sum launch")
+        check(min(out["plugin-dense-cluster"]["onehot_launches"]) > 0, "plugin-dense-cluster: no one-hot launch")
+        out["b_s"] = time.perf_counter() - t0
+    finally:
+        plugin.load_plugins = real_load
+        rec.tag = prec.tag = None
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = False
+        shutil.rmtree(plugin_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"plugins: loads {out['task_loads']}, launches {json.dumps(launches)}, "
+        f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    out.update(launches=launches["onehot"], prefix_launches=launches["prefix"],
+               partition_launches=launches["partition"], grouped_launches=launches["grouped"],
+               peak_bytes=peak)
+    return out
+
+
 def aqe_only(sf: float, seed: int) -> dict:
     """``--aqe-only``: phase 13 alone, on TPC-H at ``sf``, the five cluster
     queries held against one ``TorchContext(device="cuda")`` collect each
@@ -4254,7 +4903,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--warm", type=int, default=2)
     ap.add_argument(
         "--profile", action="store_true",
         help="after the main path, trace one warm run of each query with "
@@ -4275,6 +4924,12 @@ def main() -> int:
         help="only run phase 13 (AQE on the port's cluster), holding the "
         "five cluster queries against collect mode and the oracles computed "
         "here, then stop",
+    )
+    ap.add_argument(
+        "--prefix-only", action="store_true",
+        help="only build the prefix-sum kernel and run phase 3's prefix-sum "
+        "checks (the old scan's spread, the kernel against its plain "
+        "version, its times), then stop",
     )
     ap.add_argument(
         "--settings", default="{}",
@@ -4299,7 +4954,9 @@ def main() -> int:
 
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run needs a card")
     sys.path.insert(0, str(pkg_root))
-    from ballista_tpu_torch.ops import cuda_build, onehot_agg, partition
+    from ballista_tpu_torch.ops import cuda_build, onehot_agg, partition, prefix_sum
+
+    sources = [onehot_agg.SOURCE, partition.SOURCE, prefix_sum.SOURCE]
 
     # 1. card
     name = torch.cuda.get_device_name(0)
@@ -4313,28 +4970,50 @@ def main() -> int:
         log(json.dumps({"partition_timing": partition_timing(seed=15), "root": str(pkg_root)}))
         log(smi)
         return 0
+    if args.prefix_only:
+        path, secs, report = cuda_build.build(prefix_sum.SOURCE, verbose=True)
+        log(f"build: {path.name} in {secs:.2f}s")
+        for line in report.splitlines():
+            log(f"  nvcc: {line.strip()}")
+        log(json.dumps({"prefix": prefix_phase(seed=17)}))
+        log(smi)
+        return 0
     if args.collect_timing:
-        cuda_build.build_many([onehot_agg.SOURCE, partition.SOURCE])
+        cuda_build.build_many(sources)
         timing = collect_timing(pkg_root, args.sf, args.seed, args.warm, json.loads(args.settings))
         log(json.dumps({"collect_timing": timing, "root": str(pkg_root), "settings": args.settings}))
         log(smi)
         return 0
 
     if args.aqe_only:
-        cuda_build.build_many([onehot_agg.SOURCE, partition.SOURCE])
+        cuda_build.build_many(sources)
         log(json.dumps({"aqe": aqe_only(args.sf, args.seed), "root": str(pkg_root)}, default=str))
         log(smi)
         return 0
 
-    # 2. build: both kernels, one nvcc each, started together
+    # 2. build: the three kernels, one nvcc each, started together
     t0 = time.perf_counter()
-    built = cuda_build.build_many([onehot_agg.SOURCE, partition.SOURCE], verbose=True)
+    built = cuda_build.build_many(sources, verbose=True)
     for path, secs, report in built:
         log(f"build: {path.name} in {secs:.2f}s")
         for line in report.splitlines():
             if "registers" in line or "smem" in line or "Compiling" in line or "warning" in line:
                 log(f"  nvcc: {line.strip()}")
-    log(f"build: both kernels in {time.perf_counter() - t0:.2f}s")
+    log(f"build: the kernels in {time.perf_counter() - t0:.2f}s")
+
+    # TPC-H at --sf for phases 4-14; phase 6's CPU runs start now, in a
+    # process of their own, beside phases 3-5
+    import atexit
+
+    from ballista_tpu_torch.tpch import gen_all
+
+    t0 = time.perf_counter()
+    data = gen_all(args.sf, args.seed)
+    log(f"tpch sf={args.sf} seed={args.seed}: "
+        + ", ".join(f"{k} {t.num_rows}" for k, t in data.items())
+        + f" rows, generated in {time.perf_counter() - t0:.1f}s")
+    cpu_ref = CpuReference(data, pkg_root)
+    atexit.register(cpu_ref.close)
 
     # 3. kernel vs plain; the sort on the card vs the CPU
     t0 = time.perf_counter()
@@ -4351,32 +5030,34 @@ def main() -> int:
     ]
     sweep = crossover(
         1 << 21, Rs=(1, 2, 6, 14, 64),
-        Ps=(1, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256, 512, 1024, 2048, 8192,
-            65536),
+        Ps=(1, 4, 12, 32, 128, 512, 2048, 8192, 65536),
         seed=6,
     )
     by_mode = modes(
-        1 << 21, Rs=(6, 14), Ps=(256, 1024, 2048, 8192, 65536),
+        1 << 21, Rs=(6, 14), Ps=(256, 2048, 65536),
         dists=("uniform", "zipf", "hot90"), seed=12,
     )
     sorted_ok = sort_check(seed=10)
+    pfx = prefix_phase(seed=17)
     pkernel = partition_kernel_phase(seed=14)
     pgroups = partition_groups_phase(seed=16)
     ptiming = partition_timing(seed=15)
     log(f"phase 3 took {time.perf_counter() - t0:.1f}s")
 
     # 4. main path (q1, q6, the wide GROUP BY)
-    from ballista_tpu_torch.tpch import gen_all
+    t0 = time.perf_counter()
+    # the prefix-sum kernel's launches on the main path (phases 4-14), by
+    # phase; capture runs and replays set the count back
+    prefix_sum.launches = 0
+    pl_by_phase: dict = {}
 
-    t0 = time.perf_counter()
-    data = gen_all(args.sf, args.seed)
-    log(f"tpch sf={args.sf} seed={args.seed}: "
-        + ", ".join(f"{k} {t.num_rows}" for k, t in data.items())
-        + f" rows, generated in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
+    def prefix_mark(phase: int) -> None:
+        pl_by_phase[phase] = prefix_sum.launches - sum(pl_by_phase.values())
+
     with LaunchRecorder() as rec, PartitionRecorder() as prec:
         mp = main_path(data["lineitem"], args.sf, args.warm, args.profile, rec)
         replays = replay_launches(rec)
+        prefix_mark(4)
         log(f"phase 4 took {time.perf_counter() - t0:.1f}s")
 
         # 5. joins and the sort-based aggregate
@@ -4386,13 +5067,16 @@ def main() -> int:
         jp = joins_path(data, args.warm, args.profile, rec, prec)
         replays += replay_launches(rec)
         preplays = replay_partition_launches(prec)
+        prefix_mark(5)
         log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
 
         # 6. the rest of TPC-H, windows and percentiles
         t0 = time.perf_counter()
-        rp = rest_path(data, args.warm, args.profile, rec, prec)
+        rp = rest_path(data, args.warm, args.profile, rec, prec, cpu_ref)
+        cpu_ref.close()
         replays += replay_launches(rec)
         preplays += replay_partition_launches(prec)
+        prefix_mark(6)
         log(f"phase 6 took {time.perf_counter() - t0:.1f}s")
 
         # 7. grace-hash spill under a device budget; the distributed plans
@@ -4401,6 +5085,7 @@ def main() -> int:
         replays += replay_launches(rec)
         grace_replays = replay_partition_launches(prec)
         preplays += grace_replays
+        prefix_mark(7)
         log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
 
         # 8. the staged path: plans across the wire, shuffle files
@@ -4410,6 +5095,7 @@ def main() -> int:
         replays += replay_launches(rec)
         staged_replays = replay_partition_launches(prec)
         preplays += staged_replays
+        prefix_mark(8)
         log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
 
         # 9. the executor fleet: two executors over Flight, the process entry
@@ -4418,6 +5104,7 @@ def main() -> int:
         replays += replay_launches(rec)
         fleet_replays = replay_partition_launches(prec)
         preplays += fleet_replays
+        prefix_mark(9)
         log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
 
         # 10. the port's own cluster: the scheduler, standalone, the client
@@ -4429,6 +5116,7 @@ def main() -> int:
         replays += replay_launches(rec)
         cluster_replays = replay_partition_launches(prec)
         preplays += cluster_replays
+        prefix_mark(10)
         log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
 
         # 11. file tables: Parquet, CSV and Avro through CREATE EXTERNAL TABLE
@@ -4444,6 +5132,7 @@ def main() -> int:
             file_preplays = replay_partition_launches(prec)
             preplays += file_preplays
             check(bool(file_replays) and bool(file_preplays), "phase 11: no launch replayed")
+            prefix_mark(11)
             log(f"phase 11 took {time.perf_counter() - t0:.1f}s; {smi}")
 
             # 12. the operator's surface: the shell, persisted hints, the
@@ -4455,6 +5144,7 @@ def main() -> int:
             ops_preplays = replay_partition_launches(prec)
             preplays += ops_preplays
             check(bool(ops_replays) and bool(ops_preplays), "phase 12: no launch replayed")
+            prefix_mark(12)
             log(f"phase 12 took {time.perf_counter() - t0:.1f}s; {smi}")
         finally:
             shutil.rmtree(files_dir, ignore_errors=True)
@@ -4467,7 +5157,26 @@ def main() -> int:
         aqe_preplays = replay_partition_launches(prec)
         preplays += aqe_preplays
         check(bool(aqe_replays) and bool(aqe_preplays), "phase 13: no launch replayed")
+        prefix_mark(13)
+        check(pl_by_phase[13] > 0 and bool(rec.prefix_shapes.get("wrong-build-off")),
+              "phase 13: SUM(v) did not launch the prefix-sum kernel")
         log(f"phase 13 took {time.perf_counter() - t0:.1f}s; {smi}")
+
+        # 14. UDF and UDAF plugins on the card
+        t0 = time.perf_counter()
+        pg = plugin_path(data, rec, prec)
+        plugin_replays = replay_launches(rec)
+        replays += plugin_replays
+        plugin_preplays = replay_partition_launches(prec)
+        preplays += plugin_preplays
+        prefix_replays = replay_prefix_launches(rec)
+        check(bool(plugin_replays) and bool(plugin_preplays) and bool(prefix_replays),
+              "phase 14: no launch replayed")
+        prefix_mark(14)
+        log(f"phase 14 took {time.perf_counter() - t0:.1f}s; prefix-sum launches by phase "
+            f"{json.dumps(pl_by_phase)}; {smi}")
+    prefix_launches = prefix_sum.launches
+    check(prefix_launches == sum(pl_by_phase.values()), "prefix-sum launches: the phases do not add up")
     for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget", "q1-files", f"q1-ladder-{LADDER_SPEC}",
               "q1-ladder-default"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
@@ -4476,12 +5185,13 @@ def main() -> int:
         f"{q}-{path}" for q in STAGED_QUERIES for path in ("stages", "fleet")
     ):
         check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
-    for q in STAGED_QUERIES:
+    for q in CLUSTER_QUERIES:
         for path in ("stages", "fleet", "cluster", "cluster-push"):
-            check(
-                any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-{path}", [])),
-                f"{q}-{path}: no grouped launch recorded",
-            )
+            if path in ("cluster", "cluster-push") or q in STAGED_QUERIES:
+                check(
+                    any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-{path}", [])),
+                    f"{q}-{path}: no grouped launch recorded",
+                )
     for path in ("stages", "fleet", "cluster", "cluster-push", "files-cluster"):
         check(bool(rec.shapes.get(f"q1-{path}")), f"q1-{path}: no one-hot launch recorded")
     for q in STAGED_QUERIES:
@@ -4489,6 +5199,7 @@ def main() -> int:
             any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-files-cluster", [])),
             f"{q}-files-cluster: no grouped launch recorded",
         )
+    for q in STAGED_QUERIES:
         check(
             any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-aqe", [])),
             f"{q}-aqe: no grouped launch recorded",
@@ -4508,14 +5219,15 @@ def main() -> int:
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
         + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
+        + pg["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
         + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
-        + aq["grouped_launches"]
+        + aq["grouped_launches"] + pg["grouped_launches"]
     )
 
-    # 14. results
+    # 15. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -4529,6 +5241,7 @@ def main() -> int:
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
             + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
+            + pg["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -4569,7 +5282,35 @@ def main() -> int:
         # hash-partitioned batch phases 8, 9 and 10 write
         ("partition_groups", grouped, glaunches),
     )]
+    # the prefix-sum kernel at the largest shape the main path gave it
+    # (phase 14's replays: call, plain, library and bound; device time by
+    # torch.profiler), and phase 3's 6,000,000-row case
+    pr = max(prefix_replays, key=lambda r: (r["n"] * r["k"], r["n"]))
+    p6m = next(c for c in pfx["cases"] if c["n"] == 6_000_000 and c["k"] == 1)
+    kernels.append({
+        "name": "prefix_sums",
+        "route": "cuda",
+        "source": "ballista_tpu_torch/csrc/prefix_sum.cu",
+        "replaces": "ballista_tpu/ops/aggregate.py:403",
+        "launches": prefix_launches,
+        # every comparison of phases 3 and 14 is bit for bit
+        "max_abs_err": max(r["max_abs_err"] for r in pfx["cases"] + prefix_replays),
+        "ms": pr["ms"],
+        "device_ms": pr["device_ms"],
+        "plain_ms": pr["plain_ms"],
+        "bound_ms": pr["bound_ms"],
+        "bound_by": pr["bound_by"],
+        "library_ms": pr["library_ms"],
+        "bound_share": pr["bound_ms"] / pr["device_ms"],
+        "shape": [pr["n"], pr["k"]],
+        "launches_by_phase": pl_by_phase,
+        "ms_at_6m": p6m["ms"], "device_ms_at_6m": p6m["device_ms"], "plain_ms_at_6m": p6m["plain_ms"],
+        "library_ms_at_6m": p6m["library_ms"], "bound_ms_at_6m": p6m["bound_ms"],
+    })
     log(json.dumps({
+        "prefix": pfx,
+        "prefix_replays": prefix_replays,
+        "plugins": {k: v for k, v in pg.items()},
         "cases": cases,
         "crossover": sweep["kernel_loses_at_PR"],
         "path_launches": replays,
@@ -4616,8 +5357,8 @@ def main() -> int:
         "aqe_replays": aqe_replays + aqe_preplays,
         "sf": args.sf,
     }))
-    log(smi)
     log(json.dumps({"kernels": kernels}))
+    log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0
 

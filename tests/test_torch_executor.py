@@ -172,10 +172,11 @@ def test_executor_writes_the_reference_executors_files(env, q, tmp_path):
 
 def test_executor_refusals_match_the_reference(env, tmp_path):
     """A plan whose root is not a ShuffleWriterExec raises ExecutionError in
-    both executors; a session that sets a plugin directory fails the port's
-    task with ConfigError naming its item. A session that sets the
-    capacity ladder installs it in both executors, whose tasks write the
-    same metas and files under it."""
+    both executors; a session that sets a plugin directory has each task
+    load it before the decode (the port's plugin in torch, the reference's
+    in jax), and the plan's error is still the reference's. A session that
+    sets the capacity ladder installs it in both executors, whose tasks
+    write the same metas and files under it."""
     from ballista_tpu.columnar.batch import capacity_ladder as ref_ladder
     from ballista_tpu.columnar.batch import set_capacity_buckets as ref_set_buckets
     from ballista_tpu_torch.columnar.batch import capacity_ladder, set_capacity_buckets
@@ -190,8 +191,26 @@ def test_executor_refusals_match_the_reference(env, tmp_path):
     with pytest.raises(ExecutionError, match="task plan root must be ShuffleWriterExec") as got:
         port_exec.execute_shuffle_write(bad)
     assert str(got.value) == str(want.value)
-    with pytest.raises(ConfigError, match="item 10a"):
-        port_exec.execute_shuffle_write(task_def(bad.plan, "j", 1, 0, {"ballista.plugin_dir": str(tmp_path)}))
+    from ballista_tpu.plugin import global_registry as ref_registry
+    from ballista_tpu_torch.plugin import global_registry
+
+    dirs = {}
+    for side, lib in (("port", "torch"), ("ref", "jax.numpy")):
+        d = dirs[side] = tmp_path / f"plugins-{side}"
+        d.mkdir()
+        (d / "task_fns.py").write_text(
+            f"import {lib} as m\n\ndef register(register_udf):\n"
+            "    register_udf('executor_task_udf', lambda x: m.abs(x))\n"
+        )
+    try:
+        for ex, side, err in ((ref_exec, "ref", Exception), (port_exec, "port", ExecutionError)):
+            with pytest.raises(err, match="task plan root must be ShuffleWriterExec"):
+                ex.execute_shuffle_write(task_def(bad.plan, "j", 1, 0, {"ballista.plugin_dir": str(dirs[side])}))
+        assert ref_registry.get("executor_task_udf") is not None
+        assert global_registry.get("executor_task_udf") is not None
+    finally:
+        global_registry.clear()
+        ref_registry.clear()
     # the capacity ladder: the first stage of a grouped scan under 4096:4
     props = {"ballista.shuffle.partitions": str(K), "ballista.tpu.capacity_buckets": "4096:4"}
     cfg = RefConfig(props)

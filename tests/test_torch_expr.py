@@ -131,13 +131,21 @@ def test_compile_expr_matches_reference(sql_expr, seed):
 
 @pytest.mark.parametrize("sql_expr", ["my_udf(a)", "sum(my_udaf(a))"])
 def test_unported_kinds_name_their_roadmap_item(sql_expr):
+    from ballista_tpu.columnar.arrow_interop import schema_from_arrow as ref_schema_from_arrow
     from ballista_tpu_torch.columnar.arrow_interop import schema_from_arrow
     from ballista_tpu_torch.errors import PlanError
 
     schema = schema_from_arrow(make_table(10, 0).schema)
-    # UDF plugins do not resolve: the name fails in the planner
-    with pytest.raises(PlanError, match="ROADMAP queue 1, item 10"):
+    # UDF plugins are ported: a name no plugin registered fails in the
+    # planner with the reference's message
+    with pytest.raises(PlanError, match="unknown scalar function 'my_uda?f'") as got:
         planned(sql_expr, port_parse, PortPlanner, PortCatalog, port_optimize, schema)
+    with pytest.raises(Exception) as want:
+        planned(
+            sql_expr, ref_parse, RefPlanner, RefCatalog, ref_optimize,
+            ref_schema_from_arrow(make_table(10, 0).schema),
+        )
+    assert str(got.value) == str(want.value)
 
 
 def test_civil_from_days_matches_the_calendar():

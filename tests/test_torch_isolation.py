@@ -366,11 +366,11 @@ def _adapted_runs(cfg) -> list:
     "case",
     ["session aqe", "env BALLISTA_AQE", "rest port", "etcd backend", "system table", "plugin dir"],
 )
-def test_unported_features_are_refused_naming_their_item(case, monkeypatch):
-    """Each feature the port still lacks raises where the reference would
-    use it, naming its ROADMAP item: a scheduler's plugin directory (10a).
-    None is ignored silently. The features ported since run and answer as
-    the reference does: AQE, turned on by a session key or by the
+def test_unported_features_are_refused_naming_their_item(case, monkeypatch, tmp_path):
+    """Every feature of these cases has been ported since, and each runs
+    and answers as the reference does: a scheduler's plugin directory,
+    from its config or ``$BALLISTA_PLUGIN_DIR``, loaded at construction;
+    AQE, turned on by a session key or by the
     process's ``BALLISTA_AQE=1`` (a cluster whose second run of a query
     applies the strategy its first run learned), with ``BALLISTA_AQE=0``
     overriding a session that asks for it; the scheduler process's REST
@@ -384,7 +384,6 @@ def test_unported_features_are_refused_naming_their_item(case, monkeypatch):
 
     from ballista_tpu_torch.client.context import BallistaContext
     from ballista_tpu_torch.config import BallistaConfig
-    from ballista_tpu_torch.errors import ConfigError
     from ballista_tpu_torch.scheduler.server import SchedulerServer
 
     if case == "session aqe":
@@ -476,9 +475,24 @@ def test_unported_features_are_refused_naming_their_item(case, monkeypatch):
             port_etcd.stop(grace=None)
             ref_etcd.stop(grace=None)
     elif case == "plugin dir":
-        cfg = BallistaConfig({"ballista.plugin_dir": "/plugins"})
-        with pytest.raises(ConfigError, match="item 10a"):
-            SchedulerServer(provider=None, config=cfg)
+        from ballista_tpu_torch.plugin import PLUGIN_DIR_ENV, global_registry
+
+        for name in ("config", "env"):
+            d = tmp_path / name
+            d.mkdir()
+            (d / f"sched_{name}.py").write_text(
+                "import torch\n\ndef register(register_udf):\n"
+                f"    register_udf('sched_{name}_udf', lambda x: torch.abs(x))\n"
+            )
+        monkeypatch.setenv(PLUGIN_DIR_ENV, str(tmp_path / "env"))
+        try:
+            server = SchedulerServer(
+                provider=None, config=BallistaConfig({"ballista.plugin_dir": str(tmp_path / "config")})
+            )
+            server.shutdown()
+            assert {"sched_config_udf", "sched_env_udf"} <= set(global_registry.names())
+        finally:
+            global_registry.clear()
     else:
         import pyarrow as pa
 

@@ -33,6 +33,7 @@ def test_programs_resolve_in_the_source():
     assert registry.check_programs() == []
     assert {n for n, s in registry.PROGRAMS.items() if s.route == "cuda"} == {
         "cuda.onehot_sums_f64", "cuda.partition_hash", "cuda.partition_groups",
+        "cuda.prefix_sum_f64",
     }
 
 

@@ -31,7 +31,7 @@ from ballista_tpu.serde import loc_to_proto as ref_loc_to_proto
 from ballista_tpu.serde import logical_to_proto as ref_logical_to_proto
 from ballista_tpu_torch.columnar.arrow_interop import batch_to_arrow
 from ballista_tpu_torch.config import BallistaConfig
-from ballista_tpu_torch.datatypes import DataType
+from ballista_tpu_torch.datatypes import DataType, Schema
 from ballista_tpu_torch.distributed_plan import (
     DistributedPlanner,
     UnresolvedShuffleExec,
@@ -40,7 +40,7 @@ from ballista_tpu_torch.distributed_plan import (
     resolve_shuffles_eager,
 )
 from ballista_tpu_torch.errors import ExecutionError, InternalError, PlanError
-from ballista_tpu_torch.exec.base import TaskContext, execute_to_batches
+from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, execute_to_batches
 from ballista_tpu_torch.exec.context import TorchContext
 from ballista_tpu_torch.exec.planner import PhysicalPlanner
 from ballista_tpu_torch.exec.sort import SortExec
@@ -53,6 +53,7 @@ from ballista_tpu_torch.proto import pb
 from ballista_tpu_torch.scheduler_types import PartitionLocation
 from ballista_tpu_torch.serde import (
     BallistaCodec,
+    PhysicalExtensionCodec,
     expr_from_proto,
     expr_to_proto,
     loc_from_proto,
@@ -305,18 +306,62 @@ UNPORTED_KINDS = {
         table_name="t", kind="avro", path="/d/t.avro", table_schema=_FILE_SCHEMA,
         projection=["k", "s"], has_projection=True, partitions=4,
     )), None),
+    # ported since: a registered PhysicalExtensionCodec round-trips it
     "extension": (
-        _node(extension=pb.PhysicalExtensionNode(codec="udf", payload=b"x")), "item 10a"
+        _node(extension=pb.PhysicalExtensionNode(codec="udf", payload=b"x")), "codec"
     ),
 }
+
+
+class _MarkerExec(ExecutionPlan):
+    """A third-party operator: its payload and its inputs."""
+
+    def __init__(self, payload: bytes, inputs: list) -> None:
+        super().__init__()
+        self.payload, self.inputs = payload, list(inputs)
+
+    def schema(self):
+        return self.inputs[0].schema() if self.inputs else Schema([])
+
+    def children(self) -> list:
+        return self.inputs
+
+
+class _MarkerCodec(PhysicalExtensionCodec):
+    name = "udf"
+
+    def try_encode(self, plan):
+        return plan.payload if isinstance(plan, _MarkerExec) else None
+
+    def try_decode(self, payload, inputs):
+        return _MarkerExec(payload, inputs)
 
 
 @pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS))
 def test_unported_kinds_raise_naming_their_item(features, kind):
     """Kinds without an operator raise naming their item; the file scans
     (ported since) decode and encode again to the same bytes, as the
-    reference's do, without opening the file."""
+    reference's do, without opening the file; an extension operator
+    (ported since) round-trips through its registered codec."""
     node, item = UNPORTED_KINDS[kind]
+    if item == "codec":
+        # an unregistered codec is refused by both with the reference's
+        # message; a registered one decodes the operator and its inputs
+        # and encodes them back to the same bytes
+        for codec in (BallistaCodec(), RefCodec()):
+            with pytest.raises(Exception, match="no codec registered for extension 'udf'"):
+                codec.physical_from_proto(node)
+        scan = UNPORTED_KINDS["csv"][0]
+        for n in (node, _node(extension=pb.PhysicalExtensionNode(codec="udf", payload=b"y", inputs=[scan]))):
+            wire = n.SerializeToString()
+            codec = BallistaCodec(extension=_MarkerCodec())
+            back = codec.physical_from_proto(pb.PhysicalPlanNode.FromString(wire))
+            assert isinstance(back, _MarkerExec) and back.payload == n.extension.payload
+            assert [c.display() for c in back.children()] == [
+                codec.physical_from_proto(c).display() for c in n.extension.inputs
+            ]
+            assert codec.physical_to_proto(back).SerializeToString() == wire
+        return
     if item is None:
         wire = node.SerializeToString()
         back = BallistaCodec().physical_from_proto(pb.PhysicalPlanNode.FromString(wire))

@@ -532,6 +532,7 @@ PORTED_SINCE = {
     "ballista.tpu.prefetch_depth",
     "ballista.tpu.capacity_buckets",
     "ballista.tpu.aqe",
+    "ballista.plugin_dir",
 }
 
 
@@ -636,6 +637,34 @@ def _honoured(key: str, cfg: BallistaConfig, tmp_path) -> None:
         finally:
             ctx.close()
             aqe.reset_store()
+    elif key == "ballista.plugin_dir":
+        # a directory that does not exist loads nothing (and is not cached:
+        # it may be mounted later); one with a plugin is loaded by a
+        # context, whose SQL then calls the UDF as the reference's does
+        from ballista_tpu.plugin import global_registry as ref_registry
+        from ballista_tpu_torch.plugin import global_registry
+
+        TorchContext(cfg, device="cpu")
+        dirs = {}
+        for side, lib in (("port", "torch"), ("ref", "jax.numpy")):
+            d = dirs[side] = tmp_path / f"plugins-{side}"
+            d.mkdir()
+            (d / "cfg_fns.py").write_text(
+                f"import {lib} as m\n\ndef register(register_udf):\n"
+                "    register_udf('config_key_udf', lambda x: m.sqrt(x))\n"
+            )
+        try:
+            ref = _ref_context(BallistaConfig({key: str(dirs["ref"])}))
+            port = TorchContext(BallistaConfig({key: str(dirs["port"])}), device="cpu")
+            t = pa.table({"x": pa.array([1.0, 4.0, 9.0])})
+            got = []
+            for c in (ref, port):
+                c.register_table("t", t)
+                got.append(c.sql("SELECT config_key_udf(x) AS r FROM t").collect())
+            assert got[0].equals(got[1]) and got[1].column("r").to_pylist() == [1.0, 2.0, 3.0]
+        finally:
+            global_registry.clear()
+            ref_registry.clear()
     elif key == "ballista.tpu.scan_stream_mb":
         assert _file_scan_counters(tmp_path, {key: "1"})["stream_slices"] == 3
         assert _file_scan_counters(tmp_path, {key: NON_DEFAULT[key]})["stream_slices"] == 0

@@ -126,10 +126,14 @@ def test_unported_plans_raise_with_their_roadmap_item(contexts, tmp_path):
     from ballista_tpu_torch.expr import logical as L
     from ballista_tpu_torch.plan.logical import JoinType
 
-    _, port = contexts
-    # a UDAF: plugins are not ported, so the name does not resolve
-    with pytest.raises(PlanError, match="ROADMAP queue 1, item 10"):
+    ref, port = contexts
+    # a name no plugin registered (plugins are ported since): the
+    # reference's error
+    with pytest.raises(PlanError, match="unknown scalar function 'my_udaf'") as got:
         port.sql("select my_udaf(l_quantity) from lineitem").collect()
+    with pytest.raises(Exception) as want:
+        ref.sql("select my_udaf(l_quantity) from lineitem").collect()
+    assert str(got.value) == str(want.value)
     # a file table: the DDL registers the file, and a query over it runs
     # (ported since; it raised naming item 3 before)
     path = tmp_path / "f.csv"
