@@ -10,6 +10,9 @@ counterpart of the reference's ``_prefix_sum_2d``/``_mm_prefix``
 take their prefixes from it (``ops/aggregate._column_cumsums``), so an f64
 SUM is bit-reproducible from run to run: ``torch.cumsum`` on a CUDA
 tensor is one device-wide scan whose order of adds can depend on timing.
+The kernel computes the same association in one pass: one launch a call
+(after one memset of its scratch), each input row read once and each output
+row written once.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 ``csrc/prefix_sum.cu`` (built with nvcc at first use, loaded with ctypes)
@@ -21,6 +24,7 @@ the kernel source for its bound on the card and its design.
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 import threading
 
@@ -31,27 +35,32 @@ from ballista_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "prefix_sum.cu"
 
 CHUNK = 16  # rows a chunk: the kernel's kChunk
+TILE = CHUNK ** 3  # rows a block scans (levels 0-2 of the rule): kTile
 
-# kernel launch sequences (the plain version does not count), counted
-# under the lock: task threads launch concurrently
+# kernel launches (the plain version does not count), counted under the
+# lock: task threads launch concurrently
 launches = 0
 _count_lock = threading.Lock()
 
 
 def levels(n: int) -> list[int]:
-    """The row counts of the levels that have more than one chunk: n, then
-    each level's chunk count, while it exceeds one chunk."""
-    out = []
-    while n > CHUNK:
-        out.append(n)
-        n = -(-n // CHUNK)
+    """The look-back entries a column of n rows has at each level above
+    the tile: its tiles of ``TILE`` rows, then the full groups of ``CHUNK``
+    entries of the level below, while there is one."""
+    out, t = [], -(-n // TILE)
+    while t:
+        out.append(t)
+        t //= CHUNK
     return out
 
 
-def scratch_rows(n: int) -> int:
-    """Scratch doubles a column needs: each level's totals and their
-    prefix."""
-    return sum(2 * -(-r // CHUNK) for r in levels(n))
+@functools.lru_cache(maxsize=1024)
+def scratch_words(n: int, k: int) -> int:
+    """64-bit words of one call's scratch, all cleared by the call: the
+    tile counter (two words), then a (value, ~value) pair for each tile's
+    total and two tail values, and for each group total above the tiles."""
+    lv = levels(n)
+    return 2 + 2 * k * (3 * lv[0] + sum(lv[1:]))
 
 
 def prefix_sums_plain(x: torch.Tensor) -> torch.Tensor:
@@ -81,18 +90,19 @@ def build(verbose: bool = False) -> tuple[pathlib.Path, float, str]:
 def _configure(lib) -> None:
     f = lib.prefix_sum_f64
     f.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ]
     f.restype = ctypes.c_int
-    lib.prefix_sum_chunk.argtypes = []
-    lib.prefix_sum_chunk.restype = ctypes.c_int
+    for name in ("prefix_sum_chunk", "prefix_sum_tile"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     lib.prefix_sum_error_string.argtypes = [ctypes.c_int]
     lib.prefix_sum_error_string.restype = ctypes.c_char_p
-    if lib.prefix_sum_chunk() != CHUNK:
+    if (lib.prefix_sum_chunk(), lib.prefix_sum_tile()) != (CHUNK, TILE):
         raise RuntimeError(
-            f"prefix_sum.cu chunks {lib.prefix_sum_chunk()} rows, "
-            f"ops/prefix_sum.py {CHUNK}"
+            f"prefix_sum.cu chunks {lib.prefix_sum_chunk()} rows in tiles of "
+            f"{lib.prefix_sum_tile()}, ops/prefix_sum.py {CHUNK} in {TILE}"
         )
 
 
@@ -116,23 +126,37 @@ def prefix_sums(x: torch.Tensor) -> torch.Tensor:
     k, n = x.shape
     if n == 0 or k == 0:
         return torch.empty_like(x)
-    if k > 65535:
-        raise ValueError(f"prefix_sums: {k} columns (the grid takes 65,535)")
+    if k * -(-n // TILE) > 2**31 - 1:
+        raise ValueError(f"prefix_sums: {k} columns of {n} rows (the grid takes 2^31 - 1 tiles)")
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch(x, k, n)
+    return _launch(x, k, n)
+
+
+def _launch(x: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """One memset and one launch on the current stream, with the output
+    and the scratch in one allocation."""
     lib = _library()
     global launches
-    with torch.cuda.device(x.device):
-        # the scratch is freed when this returns, before the kernels run:
-        # safe, because the caching allocator only hands the block out
-        # again to work queued after them on the same stream
-        scratch = torch.empty(max(1, k * scratch_rows(n)), dtype=torch.float64, device=x.device)
-        out = torch.empty_like(x)
-        rc = lib.prefix_sum_f64(
-            x.data_ptr(), n, k, scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        if rc != 0:
-            msg = lib.prefix_sum_error_string(rc).decode()
-            raise RuntimeError(f"prefix_sums kernel launch failed: {msg} ({rc})")
-        with _count_lock:
-            launches += 1
-    return out
+    words = scratch_words(n, k)
+    # the scratch (the tile counter and the published pairs, which the call
+    # clears; 16-byte aligned) follows the output in one block and lives as
+    # long as it: the caching allocator hands the block out again only to
+    # work queued after the kernel on the same stream, and a call on
+    # another stream gets a block of its own
+    at = (k * n + 1) & ~1
+    buf = torch.empty(at + words, dtype=torch.float64, device=x.device)
+    ptr = buf.data_ptr()
+    rc = lib.prefix_sum_f64(
+        x.data_ptr(), n, k, ptr + 8 * at, words, ptr,
+        # the current stream's handle, without building the Stream object
+        # that torch.cuda.current_stream returns
+        torch._C._cuda_getCurrentRawStream(x.device.index),
+    )
+    if rc != 0:
+        msg = lib.prefix_sum_error_string(rc).decode()
+        raise RuntimeError(f"prefix_sums kernel launch failed: {msg} ({rc})")
+    with _count_lock:
+        launches += 1
+    return buf.as_strided((k, n), (n, 1))

@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py [--sf 1] [--seed 42] [--warm 2] [--profile]
     python3 chip_smoke.py --prefix-only
+    python3 chip_smoke.py --prefix-queries [--root CHECKOUT] [--warm 5]
     python3 chip_smoke.py --partition-timing [--root CHECKOUT]
     python3 chip_smoke.py --collect-timing [--root CHECKOUT] [--settings JSON]
     python3 chip_smoke.py --aqe-only [--sf 1]
@@ -42,11 +43,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    distinct bit patterns counted, and the sort path's ``_column_cumsums``
    20 times (one pattern); then the kernel against its plain version on the
    CPU bit for bit (a NaN matching any NaN) at n = 6,000,000, 2^21, a
-   ragged n and 1, with k = 1, 2 and 6 columns holding -0.0, NaN and +-inf,
-   20 launches each bit-identical; at (6,000,000, 1), (2^21, 2) and (2^21,
-   6) its device time (``torch.profiler``, the ``chunk_*`` kernels), call
-   time, the plain version's time on the card, ``torch.cumsum`` along the
-   rows (the library yardstick) and the bound (16 bytes a row a column).
+   ragged n, 1, around tile boundaries (4,095, 4,097, 17 * 4,096 - 1) and
+   at 4,096^2 + 1 (four look-back levels), with k = 1, 2 and 6 columns
+   holding -0.0, NaN and +-inf, 20 launches each bit-identical; at
+   (6,000,000, 1 and 6) and (2^21, 1, 2 and 6) its device time
+   (``torch.profiler``: the ``fixed_order_scan`` kernel and the memset of
+   its flags), call time, host time, the plain version's time on the card,
+   ``torch.cumsum`` along the rows (the library yardstick) and the bound
+   (16 bytes a row a column).
    Then the partition-hash kernel against its plain version and a numpy
    uint64 oracle, bit for bit, at n = 2^21, 2^20 and a ragged n, on one
    int64 key, (int32, int64) keys, an f64 key with -0.0, NaNs, +-inf and
@@ -361,7 +365,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    line ``{"ok": true, "device": {...}}``.
 
 ``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
-phase 3's prefix-sum checks, prints them, and stops.
+phase 3's prefix-sum checks, prints them, and stops. ``--prefix-queries``
+runs phase 1, builds the kernels and times the two warm queries whose f64
+SUMs take the prefix-sum kernel (phase 14's sort-path query on the
+context, phase 13 (a)'s wrong-side build with AQE off on the cluster):
+run it once per checkout (``--root``) in one call to compare two trees'
+prefix kernels end to end on one card.
 ``--partition-timing`` runs phase 1, builds the partition-hash kernel and
 prints ``partition_timing``'s results, and stops. With ``--root`` it
 imports another checkout's ``ballista_tpu_torch`` (unpacked into a
@@ -907,20 +916,27 @@ def profiled_device_ms(fn, needle, iters: int = 20) -> tuple[float, dict]:
     for _ in range(3):
         fn()
     # a trace now and then comes back without the kernels (seen once in
-    # some 30 traces of one process): trace again, up to three times
+    # some 30 traces of one process): trace again, up to three times. It
+    # may also hold only some of the launches (a quarter of a prefix-sum
+    # replay's, seen once); every kernel named launches once a call (true
+    # of each caller), so a kernel's time a call is its mean over the
+    # launches the trace holds
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = {
-            e.key: dev_us(e) / 1e3 / iters
-            for e in prof.key_averages()
+        events = [
+            e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and any(n in e.key for n in ((needle,) if isinstance(needle, str) else needle))
-        }
-        if rows:
+        ]
+        if events:
+            for e in events:
+                if e.count != iters:
+                    log(f"profiler: {e.key[:60]}: {e.count} launches traced in {iters} calls")
+            rows = {e.key: dev_us(e) / 1e3 / e.count for e in events}
             return sum(rows.values()), {k[:60]: v for k, v in rows.items()}
     raise SmokeFailure(f"profiler: no kernel named *{needle}* in three traces")
 
@@ -1247,7 +1263,10 @@ def sort_check(seed: int) -> dict:
 
 
 PREFIX_SHAPES = ((6_000_000, 1), (6_000_000, 2), (6_000_000, 6), (1 << 21, 1), (1 << 21, 2),
-                 (1 << 21, 6), (1_000_003, 1), (1_000_003, 2), (1_000_003, 6), (1, 1), (1, 2), (1, 6))
+                 (1 << 21, 6), (1_000_003, 1), (1_000_003, 2), (1_000_003, 6), (1, 1), (1, 2), (1, 6),
+                 (4095, 1), (4097, 2), (17 * 4096 - 1, 3), (4096 * 4096 + 1, 1))
+# the kernel's device work a call: the scan and the memset of its flags
+PREFIX_DEVICE_OPS = ("fixed_order_scan", "Memset")
 
 
 def same_bits(a, b) -> bool:
@@ -1291,10 +1310,10 @@ def prefix_bound_ms(n: int, k: int) -> tuple[float, str]:
 def prefix_case(x, repeats: int = 20, timed: bool = False) -> dict:
     """The prefix-sum kernel on ``x`` (k, n) against its plain version on
     the CPU, bit for bit, and ``repeats`` launches bit-identical with each
-    other; ``timed`` adds the device time (``torch.profiler``, the
-    ``chunk_*`` kernels), the call time (CUDA events), the plain version's
-    time on the card, ``torch.cumsum`` along the rows (the library
-    yardstick) and the bound."""
+    other; ``timed`` adds the device time (``torch.profiler``, the scan
+    and its memset), the call time (CUDA events), the host time, the plain
+    version's time on the card, ``torch.cumsum`` along the rows (the
+    library yardstick) and the bound."""
     import torch
 
     from ballista_tpu_torch.ops import prefix_sum
@@ -1313,9 +1332,10 @@ def prefix_case(x, repeats: int = 20, timed: bool = False) -> dict:
     res = dict(n=n, k=k, launches=repeats, max_abs_err=0.0, bit_for_bit=True)
     if timed:
         bound, by = prefix_bound_ms(n, k)
-        device_ms, kernels = profiled_device_ms(lambda: prefix_sum.prefix_sums(xd), "chunk_")
+        device_ms, kernels = profiled_device_ms(lambda: prefix_sum.prefix_sums(xd), PREFIX_DEVICE_OPS)
         res.update(
             device_ms=device_ms, ms=time_ms(lambda: prefix_sum.prefix_sums(xd)),
+            host_us=host_us(lambda: prefix_sum.prefix_sums(xd)),
             plain_ms=time_ms(lambda: prefix_sum.prefix_sums_plain(xd)),
             library_ms=time_ms(lambda: torch.cumsum(xd, dim=1)),
             bound_ms=bound, bound_by=by, kernels=kernels,
@@ -1359,7 +1379,7 @@ def prefix_phase(seed: int) -> dict:
     log(f"prefix cause: {json.dumps(cause)}")
     check(cause["fixed_order_patterns"] == 1, "prefix: _column_cumsums differs from run to run")
     del old, new
-    timed_at = {(6_000_000, 1), (1 << 21, 2), (1 << 21, 6)}
+    timed_at = {(6_000_000, 1), (6_000_000, 6), (1 << 21, 1), (1 << 21, 2), (1 << 21, 6)}
     before = prefix_sum.launches
     cases = []
     for i, (n, k) in enumerate(PREFIX_SHAPES):
@@ -1401,7 +1421,7 @@ def replay_prefix_launches(rec: "LaunchRecorder") -> list:
             bound_ms=bound, bound_by=by, max_abs_err=0.0, bit_for_bit=True,
         )
         if (n, k) == largest:
-            res["device_ms"], res["kernels"] = profiled_device_ms(lambda: kernel(xd), "chunk_")
+            res["device_ms"], res["kernels"] = profiled_device_ms(lambda: kernel(xd), PREFIX_DEVICE_OPS)
         log(f"replay {tag} prefix launch n={n} k={k}: ok  {json.dumps(res)}")
         out.append(res)
     rec.prefix_inputs.clear()
@@ -4868,6 +4888,62 @@ def aqe_only(sf: float, seed: int) -> dict:
     return out
 
 
+def prefix_queries(sf: float, seed: int, warm: int) -> dict:
+    """``--prefix-queries``: the two queries whose f64 SUMs take the
+    prefix-sum kernel, each one cold and ``warm`` warm runs with its
+    seconds and prefix-sum launches, the warm runs bit for bit: phase 14's
+    sort-path plugin query on ``TorchContext(device="cuda")`` over TPC-H
+    lineitem at ``sf``, and phase 13 (a)'s wrong-side build with AQE off
+    on the port's cluster (two executors on the card). Uses only what the
+    port had before the kernel's redesign, so that ``--root`` can time an
+    earlier checkout's kernel on the same card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.ops import prefix_sum
+    from ballista_tpu_torch.tpch import gen_all
+
+    out: dict = {}
+
+    def timed(tag: str, run) -> None:
+        runs = []
+        for _ in range(1 + warm):
+            p0 = prefix_sum.launches
+            t = time.perf_counter()
+            table = run()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t, prefix_sum.launches - p0, table))
+        check(all(r[2].equals(runs[1][2]) for r in runs[2:]), f"{tag}: the warm runs differ")
+        check(runs[1][1] > 0, f"{tag}: no prefix-sum launch")
+        out[tag] = dict(cold_s=runs[0][0], warm_s=[r[0] for r in runs[1:]], launches=runs[1][1])
+        log(f"{tag}: ok  {json.dumps(out[tag])}")
+
+    lineitem = gen_all(sf, seed)["lineitem"]
+    plugin_dir = tempfile.mkdtemp(prefix="chip_smoke_plugins-")
+    try:
+        (pathlib.Path(plugin_dir) / "smoke_fns.py").write_text(PLUGIN_SOURCE)
+        ctx = TorchContext(BallistaConfig({"ballista.plugin_dir": plugin_dir}), device="cuda")
+        ctx.register_table("lineitem", lineitem)
+        timed("plugin-sort", lambda: ctx.sql(PLUGIN_SORT_SQL).collect())
+    finally:
+        shutil.rmtree(plugin_dir, ignore_errors=True)
+    cl = BallistaContext.standalone(
+        BallistaConfig(AQE_OFF_SETTINGS), device="cuda", n_executors=2, concurrent_tasks=2
+    )
+    try:
+        for name, tab in skewed_tables(AQE_FACT_ROWS).items():
+            cl.register_table(name, tab)
+        timed("wrong-build-off", lambda: cl.sql(WRONG_BUILD_SQL).collect())
+    finally:
+        cl.close()
+    return out
+
+
 def collect_timing(root: pathlib.Path, sf: float, seed: int, warm: int, settings: dict) -> dict:
     """Seconds of one cold and ``warm`` warm runs of each TPC-H query over
     memory tables in one ``TorchContext(device="cuda")``, the SQL of
@@ -4932,6 +5008,12 @@ def main() -> int:
         "version, its times), then stop",
     )
     ap.add_argument(
+        "--prefix-queries", action="store_true",
+        help="only time the two warm queries whose f64 SUMs take the "
+        "prefix-sum kernel (phase 14's sort-path query, phase 13 (a) with "
+        "AQE off), then stop",
+    )
+    ap.add_argument(
         "--settings", default="{}",
         help="session settings (a JSON object) of --collect-timing's context",
     )
@@ -4982,6 +5064,13 @@ def main() -> int:
         cuda_build.build_many(sources)
         timing = collect_timing(pkg_root, args.sf, args.seed, args.warm, json.loads(args.settings))
         log(json.dumps({"collect_timing": timing, "root": str(pkg_root), "settings": args.settings}))
+        log(smi)
+        return 0
+
+    if args.prefix_queries:
+        cuda_build.build_many(sources)
+        log(json.dumps({"prefix_queries": prefix_queries(args.sf, args.seed, args.warm),
+                        "root": str(pkg_root)}))
         log(smi)
         return 0
 
@@ -5306,6 +5395,10 @@ def main() -> int:
         "launches_by_phase": pl_by_phase,
         "ms_at_6m": p6m["ms"], "device_ms_at_6m": p6m["device_ms"], "plain_ms_at_6m": p6m["plain_ms"],
         "library_ms_at_6m": p6m["library_ms"], "bound_ms_at_6m": p6m["bound_ms"],
+        # phase 3's timed shapes: device, call and host time against the
+        # bound and torch.cumsum
+        "timed": [{key: c[key] for key in ("n", "k", "device_ms", "ms", "host_us", "library_ms", "bound_ms")}
+                  for c in pfx["cases"] if "device_ms" in c],
     })
     log(json.dumps({
         "prefix": pfx,

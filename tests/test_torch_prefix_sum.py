@@ -1,12 +1,19 @@
 """The fixed-order f64 prefix sum (``ops/prefix_sum.py``): its plain
 version against a numpy loop of the same association, bit for bit (ragged
-n, n below one chunk, empty, NaN, +-inf and -0.0); the sort aggregate's
-f64 sums, now taken from it, against the reference's within rtol 1e-9;
-integer prefixes unchanged; and, on a card, the CUDA kernel against the
-plain version bit for bit. The reference is imported inside the one test
-that runs it, so that the card's tests run without JAX."""
+n, n below one chunk, empty, NaN, +-inf and -0.0); a numpy model of the
+kernel's one-pass decomposition (tiles of 4,096 rows, each from its own
+data and what the tiles before it publish) against both, bit for bit, at
+n on and around tile and level boundaries, with the scratch sized for
+exactly what it publishes; the sort aggregate's f64 sums, now taken from
+it, against the reference's within rtol 1e-9; integer prefixes unchanged;
+the kernel source's fixed order (no float atomic, every f64 add
+``__dadd_rn``); and, on a card, the CUDA kernel against the plain version
+bit for bit (tile-boundary n, far more tiles than resident blocks, two
+streams at once). The reference is imported inside the one test that runs
+it, so that the card's tests run without JAX."""
 
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -38,6 +45,98 @@ def loop_prefix(col: np.ndarray) -> np.ndarray:
     incl = loop_prefix(np.array(totals)) if m > 1 else np.array(totals)
     out = [(0.0 if c == 0 else float(incl[c - 1])) + local[c * C + j] for c in range(m) for j in range(C)]
     return np.array(out[:n], dtype=np.float64)
+
+
+TILE = C ** 3  # rows a block of the kernel scans: levels 0-2 lie inside it
+
+
+def running(a: np.ndarray, axis: int) -> np.ndarray:
+    """Running sums from +0.0 along ``axis``, one IEEE add a step (each
+    element's chain left to right)."""
+    a = np.moveaxis(a, axis, -1)
+    out = np.empty_like(a)
+    acc = np.zeros(a.shape[:-1])
+    for i in range(a.shape[-1]):
+        acc = acc + a[..., i]
+        out[..., i] = acc
+    return np.moveaxis(out, -1, axis)
+
+
+def look_back(G: dict, t: int) -> tuple[float, float]:
+    """Tile t's look-back as the kernel's warp 0 does it: P(0, t - 1) and
+    P(0, t - 2), the inclusive prefixes of the tile totals (by the rule,
+    levels 3 and up) at the two tiles before t, from the published entries
+    ``G[(a, j)]`` alone: at level a the entries of the group that holds
+    index j_a up to j_a, and, where j_a opens its group, the whole previous
+    group's total G[(a + 1, q - 1)]. Also publishes, where t ends a group
+    at level a, that group's total G[(a + 1, g)], as the tile that ends it
+    does. Reading an entry no earlier tile (or t itself) published raises
+    KeyError."""
+    levels = []  # (j_a, loc(a, j_a), loc(a, j_a - 1) or None)
+    j, a = t - 1, 0
+    while True:
+        q = j // C
+        acc = prev = 0.0
+        for i in range(q * C, j + 1):
+            prev, acc = acc, acc + G[(a, i)]
+        loc2 = prev if j % C else (G[(a + 1, q - 1)] if j else None)
+        levels.append((j, acc, loc2))
+        if q == 0:
+            break
+        j, a = q - 1, a + 1
+    own, i = G[(0, t)], t
+    for a, (_, loc1, _) in enumerate(levels):
+        if i % C != C - 1:
+            break
+        own = loc1 + own
+        i //= C
+        G[(a + 1, i)] = own
+    p1 = p2 = None  # P(a + 1, j_(a + 1)) and P(a + 1, j_(a + 1) - 1)
+    for j, loc1, loc2 in reversed(levels):
+        q = j // C
+        off = p1 if q > 0 else 0.0
+        off_prev = p2 if q > 1 else 0.0
+        p1, p2 = off + loc1, (None if loc2 is None else (off if j % C else off_prev) + loc2)
+    return p1, (p2 if t >= 2 else 0.0)
+
+
+def one_pass_model(col: np.ndarray, published: dict | None = None) -> np.ndarray:
+    """The kernel's one-pass decomposition of the association, in numpy.
+    Each tile of TILE rows scans levels 0-2 from its own data: running sums
+    of its 16-row chunks (local0), of their totals in groups of 16 (local1)
+    and of those 16 totals (local2). It publishes its total G[(0, t)] and
+    its tail, A (the last level-2 total) and B (the running sum of the
+    first 15), then takes from the look-back X3 = P(0, t - 1) and
+    P(0, t - 2), and from those and tile t - 1's tail the three offsets it
+    starts from: X3 for its level-2 entries, X2 = P(0, t - 2) + G[(0, t -
+    1)] for its first level-1 group, X1 = (P(0, t - 2) + B) + A for its
+    first chunk (all +0.0 at t = 0). Tiles run in order here; in the
+    kernel any order gives the same bits, since each value is a fixed
+    chain of adds of published values. ``published`` receives the
+    entries, keyed (level, index)."""
+    n = len(col)
+    if n == 0:
+        return col.copy()
+    tiles = -(-n // TILE)
+    x = np.zeros(tiles * TILE)
+    x[:n] = col
+    local0 = running(x.reshape(tiles, C * C, C), 2)
+    local1 = running(local0[:, :, -1].reshape(tiles, C, C), 2)
+    t2 = local1[:, :, -1]
+    local2 = running(t2, 1)
+    a_tail, b_tail = t2[:, -1], local2[:, -2]
+    G = {} if published is None else published
+    G.update({(0, t): float(local2[t, -1]) for t in range(tiles)})
+    X = np.zeros((tiles, 3))
+    for t in range(1, tiles):
+        x3, o3 = look_back(G, t)
+        X[t] = ((o3 + b_tail[t - 1]) + a_tail[t - 1], o3 + G[(0, t - 1)], x3)
+    x1, x2, x3 = X.T
+    p2 = x3[:, None] + local2
+    off2 = np.concatenate([x2[:, None], p2[:, :-1]], axis=1)
+    p1 = (off2[:, :, None] + local1).reshape(tiles, C * C)
+    off1 = np.concatenate([x1[:, None], p1[:, :-1]], axis=1)
+    return (off1[:, :, None] + local0).reshape(-1)[:n]
 
 
 def same_bits(a, b) -> bool:
@@ -76,6 +175,23 @@ def test_plain_matches_the_loop_bit_for_bit(n, k):
         assert same_bits(got[c], loop_prefix(x[c])), (n, c)
 
 
+@pytest.mark.parametrize("n", [4095, 4096, 4097, 2 * 4096 - 1, C ** 4 - 1, C ** 4 + 1, 17 * 4096 + 5, C ** 5 + 3])
+@pytest.mark.parametrize("k", [1, 3])
+def test_one_pass_model_matches_the_loop_and_plain(n, k):
+    """The kernel's index algebra is the association: the one-pass model
+    equals the loop and the plain version bit for bit at n on and around
+    tile and level boundaries, with -0.0, NaN and +-inf in the columns."""
+    assert TILE == 4096
+    x = make_columns(k, n, seed=n + 7 * k, specials=True)
+    plain = prefix_sum.prefix_sums_plain(torch.from_numpy(x)).numpy()
+    for c in range(k):
+        with np.errstate(invalid="ignore"):  # inf - inf is NaN, as in the loop
+            got = one_pass_model(x[c])
+        assert not ((got == 0) & np.signbit(got)).any()  # never -0.0
+        assert same_bits(got, loop_prefix(x[c])), (n, c)
+        assert same_bits(got, plain[c]), (n, c)
+
+
 def test_negative_zero_and_specials():
     """-0.0 sums from +0.0 into +0.0; NaN and +-inf carry forward; inf
     minus inf is NaN; rows after a NaN stay NaN in its column only."""
@@ -88,12 +204,27 @@ def test_negative_zero_and_specials():
 
 
 def test_levels_and_scratch():
-    assert prefix_sum.levels(C) == [] and prefix_sum.scratch_rows(C) == 0
-    assert prefix_sum.levels(C + 1) == [C + 1] and prefix_sum.scratch_rows(C + 1) == 4
+    """The scratch has a slot for each entry the kernel publishes, and each
+    slot is published: the model's entries at level a are exactly 0 ..
+    levels(n)[a] - 1."""
+    T = prefix_sum.TILE
+    assert T == TILE
+    assert prefix_sum.levels(1) == [1] and prefix_sum.scratch_words(1, 1) == 2 + 2 * 3
+    assert prefix_sum.levels(T) == [1] and prefix_sum.levels(T + 1) == [2]
+    assert prefix_sum.levels(15 * T) == [15] and prefix_sum.levels(16 * T) == [16, 1]
     n = 6_000_000
     lv = prefix_sum.levels(n)
-    assert lv == [n, 375_000, 23_438, 1465, 92]  # then 6 rows: one chunk
-    assert prefix_sum.scratch_rows(n) == sum(2 * -(-r // C) for r in lv)
+    assert lv == [1465, 91, 5]  # tiles, then full groups of 16
+    # the counter (two words), then a (value, ~value) pair for each tile's
+    # total and tail values and for each group total above the tiles
+    assert prefix_sum.scratch_words(n, 6) == 2 + 2 * 6 * (3 * 1465 + 91 + 5)
+    for n in (1, T, T + 1, 16 * T, C ** 5 + 3, 256 * T + 1, 4096 * T + 1):
+        published = {}
+        one_pass_model(np.ones(n), published)
+        lv = prefix_sum.levels(n)
+        assert {a for a, _ in published} == set(range(len(lv))), n
+        for a, size in enumerate(lv):
+            assert sorted(j for b, j in published if b == a) == list(range(size)), (n, a)
 
 
 def test_wrapper_checks():
@@ -161,16 +292,28 @@ def test_sort_aggregate_f64_sums_match_the_reference(n):
 
 
 def test_kernel_source_adds_in_a_fixed_order():
-    """No atomics, and every float add is an explicit round-to-nearest add
-    (no contraction or fast math can reorder it)."""
+    """No atomic on a float operand: the one atomic is the integer tile
+    counter's; every f64 add is an explicit round-to-nearest add (no
+    contraction, fast math or other rounding can reorder or change it)."""
     src = prefix_sum.SOURCE.read_text()
-    assert not re.search(r"\batomic\w*\s*\(", src)
-    assert "kChunk = 16;" in src and prefix_sum.CHUNK == 16
-    assert src.count("__dadd_rn(") == 3
+    code = re.sub(r"//[^\n]*", "", src)
+    assert set(re.findall(r"\batomic\w*\s*\([^;]*", code)) == {"atomicAdd(counter, 1u)"}
+    assert "unsigned* __restrict__ counter" in code
+    assert not re.search(r"\b(atom|red)\.", code)  # no atomics in inline PTX
+    assert not re.search(r"fma|__dadd_r[duz]|__dmul|__fadd", code)
+    assert "kChunk = 16;" in code and prefix_sum.CHUNK == 16
+    assert code.count("__dadd_rn(") == 15
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k", [(6_000_000, 1), (1 << 21, 2), (1_000_003, 6), (1, 1), (C * 4096 + 3, 3)])
+@pytest.mark.parametrize(
+    "n,k",
+    [
+        (6_000_000, 1), (1 << 21, 2), (1_000_003, 6), (1, 1), (C * 4096 + 3, 3),
+        (4095, 1), (4097, 2), (17 * 4096 - 1, 3), (256 * 4096 + 1, 1), (4096 * 4096 + 1, 1),
+        (6_000_000, 6),  # far more tiles than resident blocks
+    ],
+)
 def test_cuda_kernel_matches_plain(n, k):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
@@ -184,3 +327,39 @@ def test_cuda_kernel_matches_plain(n, k):
     want = prefix_sum.prefix_sums_plain(torch.from_numpy(x))
     assert same_bits(got.cpu().numpy(), want.numpy())
     assert same_bits(again.cpu().numpy(), got.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_on_two_streams():
+    """Two threads, each on its own stream, call the kernel 20 times on
+    inputs of their own: each call's flags and counter are its own, so
+    every result equals its plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shapes = [(1_000_003, 2), (3 * 4096 + 5, 3)]
+    inputs = [[make_columns(k, n, seed=100 * i + j, specials=j % 2 == 0) for j in range(20)]
+              for i, (n, k) in enumerate(shapes)]
+    on_card = [[torch.from_numpy(x).cuda() for x in xs] for xs in inputs]
+    torch.cuda.synchronize()
+    results, errors = [[], []], []
+
+    def run(i):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for xd in on_card[i]:
+                    results[i].append(prefix_sum.prefix_sums(xd))
+            stream.synchronize()
+        except Exception as e:  # surfaced below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    for xs, outs in zip(inputs, results):
+        assert len(outs) == 20
+        for x, got in zip(xs, outs):
+            assert same_bits(got.cpu().numpy(), prefix_sum.prefix_sums_plain(torch.from_numpy(x)).numpy())
