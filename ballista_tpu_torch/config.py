@@ -198,7 +198,6 @@ _ENTRIES: dict[str, tuple[str, object]] = {
 # Keys whose feature the port lacks, with the ROADMAP item that ports it.
 # A non-default value raises where the reference would use it.
 UNPORTED: dict[str, str] = {
-    BALLISTA_BUILD_CACHE_MB: "ROADMAP queue 1, item 6 (the build-table cache)",
     BALLISTA_PROFILE_DIR: "ROADMAP queue 1, item 10b (trace hooks)",
     # executors record and ship task and fetch spans; the local context
     # does not trace
@@ -291,6 +290,9 @@ class BallistaConfig:
 
     def prefetch_depth(self) -> int:
         return self._get(BALLISTA_PREFETCH_DEPTH)
+
+    def build_cache_mb(self) -> int:
+        return self._get(BALLISTA_BUILD_CACHE_MB)
 
     def hbm_budget_mb(self) -> int:
         return self._get(BALLISTA_HBM_BUDGET_MB)

@@ -61,6 +61,8 @@
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -443,16 +445,56 @@ cudaError_t launch(const int* rid, const double* vals, long long n, int R,
                    int tree_bits, int Pc, int chunks, int nb,
                    long long rows_per_block, int smem, double* partials,
                    cudaStream_t s) {
-  auto kern = partial_sums<S>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<dim3(chunks, nb), threads, smem, s>>>(
+  partial_sums<S><<<dim3(chunks, nb), threads, smem, s>>>(
       rid, vals, n, R, P, Pc, copies, stride, rw, tree_bits, rows_per_block,
       partials);
   return cudaGetLastError();
+}
+
+// The most dynamic shared memory a launch plan asks for: ops/onehot_agg.py's
+// _SMEM_MAX, which both plans stay within (the H100's 227 KB opt-in).
+constexpr int kSmemMax = 232448;
+constexpr int kMaxDevices = 64;
+
+// Each kernel's limit on dynamic shared memory is raised once a device, to
+// kSmemMax or the card's opt-in limit if that is lower, before its first
+// launch. Raising it at each launch to that launch's size let one task
+// thread lower the limit between another's raise and its launch, which then
+// failed with "invalid argument".
+std::once_flag g_raise_once[kMaxDevices];
+int g_smem_limit[kMaxDevices];
+cudaError_t g_raise_error[kMaxDevices];
+
+void raise_limits(int device) {
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const int limit = optin < kSmemMax ? optin : kSmemMax;
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(partial_sums<4>),
+      reinterpret_cast<const void*>(partial_sums<8>),
+      reinterpret_cast<const void*>(partial_sums<16>),
+      reinterpret_cast<const void*>(owner_sums),
+  };
+  for (const void* k : kernels) {
+    if (e != cudaSuccess) break;
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             limit);
+  }
+  g_raise_error[device] = e;
+  g_smem_limit[device] = e == cudaSuccess ? limit : 0;
+}
+
+// The current device's raised limit (thread-safe; the first call on a
+// device raises it).
+cudaError_t smem_limit(int* limit) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(g_raise_once[device], raise_limits, device);
+  *limit = g_smem_limit[device];
+  return g_raise_error[device];
 }
 
 }  // namespace
@@ -473,18 +515,14 @@ int onehot_sums_f64(const int* rid, const double* vals, long long n, int R,
                     int Pc, int chunks, int nb, long long rows_per_block,
                     int smem, double* partials, double* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
+  int limit = 0;
+  cudaError_t e = smem_limit(&limit);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > limit) return (int)cudaErrorInvalidValue;
   if (tile_shift > 0) {
-    e = cudaSuccess;
-    if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(owner_sums,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    }
-    if (e == cudaSuccess) {
-      owner_sums<<<dim3(chunks, nb), threads, smem, s>>>(
-          rid, vals, n, R, P, Pc, stride, tile_shift, rows_per_block, partials);
-      e = cudaGetLastError();
-    }
+    owner_sums<<<dim3(chunks, nb), threads, smem, s>>>(
+        rid, vals, n, R, P, Pc, stride, tile_shift, rows_per_block, partials);
+    e = cudaGetLastError();
   } else {
     switch (stages) {
       case 4: e = launch<4>(LAUNCH_ARGS); break;
@@ -502,6 +540,10 @@ int onehot_sums_f64(const int* rid, const double* vals, long long n, int R,
 }
 
 #undef LAUNCH_ARGS
+
+// Raises the kernels' shared-memory limit on the current device if that was
+// not done yet, and writes it to `limit`. Returns a cudaError_t (0 = ok).
+int onehot_smem_limit(int* limit) { return (int)smem_limit(limit); }
 
 const char* onehot_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

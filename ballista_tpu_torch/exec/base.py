@@ -80,6 +80,11 @@ class TaskContext:
     learned_values: list = dataclasses.field(default_factory=list)
     # callables run at a clean task boundary only (see defer_commit)
     clean_commits: list = dataclasses.field(default_factory=list)
+    # Join build tables are kept on plan instances (exec/joins.py); a
+    # caller whose instances live for one task only (an executor decodes a
+    # fresh plan a task) turns this off, or the shared tally would count
+    # tables that die with the task.
+    cache_builds: bool = True
     # The attempt's grace-hash SpillManager (exec/spill.py), made on the
     # first spill; run_with_capacity_retry closes it (deleting its files)
     # at every attempt boundary, so a retry never reads stale buckets.
@@ -293,6 +298,7 @@ def run_with_capacity_retry(
     job_id: str = "",
     session_id: str = "",
     shuffle_locations=None,
+    cache_builds: bool = True,
 ):
     """The execution loop: build a TaskContext, run ``fn(ctx)``, raise
     the deferred device checks, and retry on two faults:
@@ -316,14 +322,15 @@ def run_with_capacity_retry(
     (``"capacity_retries"``, ``"speculation_misses"``). A ``plan_cache``
     grown past ``PLAN_CACHE_MAX_ENTRIES`` is first cut back by
     ``evict_plan_cache``, which keeps ``pinned_cache_keys``. ``work_dir``,
-    ``job_id``, ``session_id`` and ``shuffle_locations`` go to every
-    attempt's TaskContext (a shuffle-writing task's files, an executor's
-    poller of published shuffle locations)."""
+    ``job_id``, ``session_id``, ``shuffle_locations`` and ``cache_builds``
+    go to every attempt's TaskContext (a shuffle-writing task's files, an
+    executor's poller of published shuffle locations, whether joins keep
+    their built tables)."""
     from ballista_tpu_torch.columnar.batch import round_capacity
-    from ballista_tpu_torch.config import BALLISTA_BUILD_CACHE_MB, BALLISTA_PROFILE_DIR
+    from ballista_tpu_torch.config import BALLISTA_PROFILE_DIR
     from ballista_tpu_torch.errors import CapacityError, SpeculationMiss
 
-    config.check_ported(BALLISTA_PROFILE_DIR, BALLISTA_BUILD_CACHE_MB)
+    config.check_ported(BALLISTA_PROFILE_DIR)
 
     override: int | None = (hint or {}).get("agg_capacity")
     if override is not None and override <= config.agg_capacity():
@@ -339,7 +346,7 @@ def run_with_capacity_retry(
             config=config, device=device, agg_capacity_override=override,
             site_capacity=dict(sites), plan_cache=plan_cache,
             work_dir=work_dir, job_id=job_id, session_id=session_id,
-            shuffle_locations=shuffle_locations,
+            shuffle_locations=shuffle_locations, cache_builds=cache_builds,
         )
         # operators write some plan-cache entries during the run (join
         # build flags, probe-table sizes); a failed attempt may have taken
@@ -356,8 +363,17 @@ def run_with_capacity_retry(
         except (SpeculationMiss, CapacityError) as e:
             ctx._clear_deferred()
             if plan_cache is not None:
+                # the sticky keys keep their current values: a failed
+                # attempt committed no build table, and runs that share the
+                # cache may have committed or dropped some meanwhile
+                sticky = {k: plan_cache[k] for k in _PLAN_CACHE_STICKY if k in plan_cache}
                 plan_cache.clear()
                 plan_cache.update(before)
+                for k in _PLAN_CACHE_STICKY:
+                    if k in sticky:
+                        plan_cache[k] = sticky[k]
+                    else:
+                        plan_cache.pop(k, None)
             if isinstance(e, SpeculationMiss):
                 if plan_cache is not None:
                     for k in e.invalid_keys:

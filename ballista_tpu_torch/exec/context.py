@@ -61,12 +61,7 @@ from ballista_tpu_torch.columnar.arrow_interop import (
     schema_to_arrow,
 )
 from ballista_tpu_torch.columnar.batch import resolve_device
-from ballista_tpu_torch.config import (
-    BALLISTA_BUILD_CACHE_MB,
-    BALLISTA_PROFILE_DIR,
-    UNPORTED,
-    BallistaConfig,
-)
+from ballista_tpu_torch.config import BALLISTA_PROFILE_DIR, UNPORTED, BallistaConfig
 from ballista_tpu_torch.datatypes import Field, Schema
 from ballista_tpu_torch.errors import PlanError, SqlError
 from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, run_with_capacity_retry
@@ -130,10 +125,7 @@ def plan_fingerprint(obj):
     return (type(obj).__name__, obj)
 
 
-_CONTEXT_UNPORTED = tuple(
-    k for k in UNPORTED
-    if k not in (BALLISTA_PROFILE_DIR, BALLISTA_BUILD_CACHE_MB)
-)
+_CONTEXT_UNPORTED = tuple(k for k in UNPORTED if k != BALLISTA_PROFILE_DIR)
 
 
 class TorchContext(Catalog, TableProvider):
@@ -464,6 +456,9 @@ class TorchContext(Catalog, TableProvider):
             return cached
         if len(self._physical_cache) >= 128:
             self._physical_cache.clear()
+            # the join build tables went with their plan instances: reset
+            # the shared tally, or admission would starve
+            self._plan_cache.pop("__build_cache_bytes__", None)
         phys = self._planner().plan(optimized)
         if verify:
             from ballista_tpu_torch.analysis import verify_physical

@@ -31,10 +31,16 @@ the budget, both sides are hash-spilled to host Arrow IPC buckets and the
 join runs bucket range by bucket range (``_grace_build``,
 ``_execute_grace``) for INNER, LEFT, SEMI and ANTI.
 
-Not ported yet, with no effect on results: the cross-run build-table cache
-and the learned flip that skips collecting the right side (ROADMAP queue
-1, item 6), and the adaptive capacity shrink of the grace passes' outputs
-(item 5).
+Built tables are kept across runs on the plan instance (``_build_cache``),
+under ``ballista.tpu.build_cache_mb``: a warm collect-mode join reuses the
+sorted build side an earlier clean run made, and the budget check of
+``hbm_budget_mb`` is skipped when one is cached. A warm INNER join whose
+right side was learned to hold duplicates and whose left side was learned
+to be unique (integer keys) builds the left side (or takes it from the
+cache) and streams the right side through it without collecting it.
+
+Not ported yet, with no effect on results: the adaptive capacity shrink of
+the grace passes' and probes' outputs (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -117,6 +123,8 @@ class HashJoinExec(ExecutionPlan):
         self.join_type = join_type
         self.filter = filter
         self.partition_mode = partition_mode
+        # built tables kept across runs, by slot (see _build_cache_put)
+        self._build_cache: dict = {}
         # the right side's strategy flags are the same for every partition:
         # computed once per run without a plan cache
         self._decide_flags: tuple | None = None
@@ -183,6 +191,59 @@ class HashJoinExec(ExecutionPlan):
             )
         return build, probe
 
+    # -- cross-run build-table cache ------------------------------------------
+    # A warm run would collect and sort every build side again (and a SEMI
+    # build re-runs its whole subquery: q18's HAVING aggregate). Built
+    # tables are kept on this plan instance, which the context's physical
+    # plan cache keys by the registered data and the settings: new data or
+    # settings give a new instance, and the old tables go with the old one.
+    # Admission is bounded by ballista.tpu.build_cache_mb through a tally in
+    # the plan cache that all of the context's plans share. String-keyed
+    # builds are not kept: a probe's dictionary unification can rebuild them.
+
+    _CACHE_SLOTS = (("bt_probe", None), ("bt_right",), ("bt_flip",))
+
+    def _build_cache_put(
+        self, ctx: TaskContext, slot: tuple, build_batch: DeviceBatch,
+        bt: BuildTable | None, key_idxs: list[int],
+    ) -> None:
+        """Offer a built table for ``slot``; it is stored at the run's clean
+        task boundary, if the tally leaves room for it. Its size counts the
+        build batch, the sorted batch, the packed and the sorted key columns
+        and a direct-address table attached by then (one attached later is
+        not counted, as in the reference)."""
+        if slot in self._build_cache or bt is None:
+            return
+        cache = ctx.plan_cache
+        if cache is None or not ctx.cache_builds:
+            return
+        if any(build_batch.schema.fields[i].dtype == DataType.STRING for i in key_idxs):
+            return
+        budget = ctx.config.build_cache_mb() << 20
+        if budget <= 0:
+            return
+        size = sum(c.nbytes for c in build_batch.columns)
+        size += sum(c.nbytes for c in bt.batch.columns)
+        size += bt.keys.nbytes + sum(c.nbytes for c in bt.key_cols)
+        if bt.lut2 is not None:
+            size += bt.lut2.nbytes
+
+        def commit() -> None:
+            # only at a clean task boundary: a run that fails its deferred
+            # checks (an overflowed aggregate under a SEMI build, a stale
+            # speculation) built this table from truncated input
+            if slot in self._build_cache:
+                return
+            used = cache.get("__build_cache_bytes__", 0)
+            if used + size > budget:
+                self.metrics.add("build_cache_skip")
+                return
+            cache["__build_cache_bytes__"] = used + size
+            self._build_cache[slot] = (build_batch, bt)
+            self.metrics.add("build_cache_store")
+
+        ctx.defer_commit(commit)
+
     # -- execution ------------------------------------------------------------
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
         ls, rs = self.left.schema(), self.right.schema()
@@ -196,15 +257,23 @@ class HashJoinExec(ExecutionPlan):
                 left_keys, right_keys, self._KIND[self.join_type],
             )
             return
+        learned = (
+            self._learned_flip(ctx, left_keys, right_keys)
+            if self.join_type == JoinType.INNER else None
+        )
         budget = ctx.config.hbm_budget_mb() << 20
-        if budget:
+        if budget and learned is None and not any(s in self._build_cache for s in self._CACHE_SLOTS):
+            # no budget check where a warm path already settled it: a
+            # learned flip builds the unique left side and streams the right
+            # (the check would collect or spill the whole right subtree),
+            # and a cached table fitted the card when it was admitted
             grace = self._grace_build(ctx, right_keys, budget)
             if grace is not None:
                 yield from self._execute_grace(partition, ctx, grace, left_keys, right_keys)
                 return
         try:
             if self.join_type == JoinType.INNER:
-                yield from self._execute_inner(partition, ctx, left_keys, right_keys)
+                yield from self._execute_inner(partition, ctx, left_keys, right_keys, learned)
                 return
             # LEFT/SEMI/ANTI: the left side is preserved, so it probes
             yield from self._probe_loop(
@@ -390,8 +459,11 @@ class HashJoinExec(ExecutionPlan):
     ) -> Iterator[DeviceBatch]:
         """Probe each left batch against the collected right side: unify
         key dictionaries per batch (rebuilding only when that changed the
-        build side), then probe or expand and relabel to the plan schema."""
-        build_batch, bt = None, None
+        build side), then probe or expand and relabel to the plan schema.
+        The built table is kept across runs (a SEMI build may be a whole
+        subquery)."""
+        slot = ("bt_probe", partition if self.partition_mode == "partitioned" else None)
+        build_batch, bt = self._build_cache.get(slot, (None, None))
         fp = self._strategy_key(self.right, right_keys, partition)
         for b in self.left.execute(partition, ctx):
             if build_batch is None:
@@ -402,21 +474,92 @@ class HashJoinExec(ExecutionPlan):
                 with self.metrics.time("build_time"):
                     bt = build_side(bb, right_keys)
                 build_batch = bb
+                self._build_cache_put(ctx, slot, build_batch, bt, right_keys)
             out = self._probe_or_expand(bt, pb, left_keys, kind, ctx, fp, partition)
             if kind in (JoinSide.INNER, JoinSide.LEFT):
                 out = self._restore_column_order(out, pb, build_is_right=True)
             self.metrics.add("output_batches")
             yield out
 
+    def _learned_flip(self, ctx: TaskContext, left_keys: list[int], right_keys: list[int]):
+        """(left strategy key, left flags) when the plan cache has learned
+        that the right side cannot serve as a unique build (duplicates or a
+        collision overflow) and the left side can, with integer keys (no
+        dictionary unification, so the collected right side would only
+        decide); else None. Consulted before the budget check, which would
+        collect or spill the whole right subtree."""
+        cache = ctx.plan_cache
+        if cache is None:
+            return None
+        ls, rs = self.left.schema(), self.right.schema()
+        if any(ls.fields[i].dtype == DataType.STRING for i in left_keys) or any(
+            rs.fields[i].dtype == DataType.STRING for i in right_keys
+        ):
+            return None
+        rflags = cache.get(self._strategy_key(self.right, right_keys))
+        if rflags is None or not (rflags[0] or rflags[1]):
+            return None
+        lfp = self._strategy_key(self.left, left_keys)
+        lflags = cache.get(lfp)
+        if lflags is None or lflags[0] or lflags[1]:
+            return None
+        return lfp, lflags
+
+    def _execute_learned_flip(
+        self, partition: int, ctx: TaskContext, left_keys: list[int], right_keys: list[int],
+        learned: tuple,
+    ) -> Iterator[DeviceBatch]:
+        """The learned flip: build the unique left side (or take it from the
+        cache) and stream the right side through it, partition by
+        partition, from probe partition 0. The left side's uniqueness is
+        validated at the task boundary (stale: the retry drops the entry
+        and takes the general path); the right side's duplicates need no
+        check, since a unique build serves any probe side."""
+        lfp, lflags = learned
+        if partition != 0:
+            return
+        cached = self._build_cache.get(("bt_flip",))
+        if cached is not None:
+            lbt = cached[1]
+        else:
+            with self.metrics.time("build_time"):
+                left_batch = _collect(self.left, ctx)
+                lbt = build_side(left_batch, left_keys)
+            self._build_cache_put(ctx, ("bt_flip",), left_batch, lbt, left_keys)
+        ctx.defer_speculation(
+            lbt.spec_flag(),
+            "cached join build strategy went stale (flip side no longer unique)",
+            [lfp, ("join_lut", lfp)],
+        )
+        contig = self._contig_probe(lbt, lflags, True, ctx, lfp)
+        for p in range(self.right.output_partitioning().n):
+            for b in self.right.execute(p, ctx):
+                if not contig:
+                    # offered batch by batch: the cold path offers the
+                    # collected side's capacity, which the stream never has
+                    self._maybe_attach_lut(lbt, b.capacity, ctx, lfp)
+                joined = self._probe(lbt, b, right_keys, JoinSide.INNER, contig)
+                self.metrics.add("output_batches")
+                yield self._restore_column_order(joined, b, build_is_right=False)
+
     def _execute_inner(
-        self, partition: int, ctx: TaskContext, left_keys: list[int], right_keys: list[int]
+        self, partition: int, ctx: TaskContext, left_keys: list[int], right_keys: list[int],
+        learned: tuple | None = None,
     ) -> Iterator[DeviceBatch]:
         """INNER: build the right side. If it has duplicate keys, flip to a
         unique left side (fixed-capacity probe, no expansion); if both sides
-        have duplicates, run the m:n expansion."""
+        have duplicates, run the m:n expansion. ``learned`` is execute()'s
+        ``_learned_flip``: the flip without collecting the right side."""
+        if learned is not None:
+            yield from self._execute_learned_flip(partition, ctx, left_keys, right_keys, learned)
+            return
         ls, rs = self.left.schema(), self.right.schema()
-        with self.metrics.time("build_time"):
-            right_batch = self._collect_right(ctx)
+        cached_r = self._build_cache.get(("bt_right",))
+        if cached_r is not None:
+            right_batch = cached_r[0]
+        else:
+            with self.metrics.time("build_time"):
+                right_batch = self._collect_right(ctx)
         iter_left = iter(self.left.execute(partition, ctx))
         first = next(iter_left, None)
         if first is None:
@@ -551,12 +694,18 @@ class HashJoinExec(ExecutionPlan):
                 )
 
         bb, _ = self._unify_key_dicts(right_batch, first, right_keys, left_keys)
-        if bb is right_batch and decide is not None:
+        if bb is right_batch and cached_r is not None:
+            bt = cached_r[1]  # built by an earlier run: no collect, no sort
+            validate(bt)
+        elif bb is right_batch and decide is not None:
             bt = decide  # unification changed nothing: reuse the decision build
+            self._build_cache_put(ctx, ("bt_right",), right_batch, bt, right_keys)
         else:
             with self.metrics.time("build_time"):
                 bt = build_side(bb, right_keys)
             validate(bt)
+            if bb is right_batch:
+                self._build_cache_put(ctx, ("bt_right",), right_batch, bt, right_keys)
         base = bb
         # the contiguous probe holds only while bt is the build the flags
         # describe: unification remaps codes, which can open holes

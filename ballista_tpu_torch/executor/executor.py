@@ -409,6 +409,10 @@ class Executor:
                 # from — eviction at the bound must take newer-job
                 # entries first, never the working set mid-attempt
                 pinned_cache_keys=frozenset(attempt_cache),
+                # plan instances are decoded fresh a task: a build table
+                # kept on one would die with the task while the shared
+                # tally still counted it (see TaskContext.cache_builds)
+                cache_builds=False,
                 session_id=task.session_id,
                 job_id=task.task_id.job_id,
                 work_dir=self.work_dir,

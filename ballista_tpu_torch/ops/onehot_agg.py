@@ -226,6 +226,8 @@ def _configure(lib) -> None:
     f.restype = ctypes.c_int
     lib.onehot_error_string.argtypes = [ctypes.c_int]
     lib.onehot_error_string.restype = ctypes.c_char_p
+    lib.onehot_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.onehot_smem_limit.restype = ctypes.c_int
 
 
 def _library():
@@ -275,6 +277,19 @@ def onehot_sums(rid: torch.Tensor, vals: torch.Tensor, P: int) -> torch.Tensor:
     lib = _library()
     global launches
     with torch.cuda.device(rid.device):
+        # the kernels' shared-memory limit on this card: the library raises
+        # it once a device, before any launch, to the largest plan
+        # (``_SMEM_MAX``) or the card's opt-in limit if that is lower
+        limit = ctypes.c_int(0)
+        rc = lib.onehot_smem_limit(ctypes.byref(limit))
+        if rc != 0:
+            msg = lib.onehot_error_string(rc).decode()
+            raise RuntimeError(f"onehot_sums: raising the shared-memory limit failed: {msg} ({rc})")
+        if plan["smem"] > limit.value:
+            raise RuntimeError(
+                f"onehot_sums: the {plan['mode']} plan for n={n}, R={R}, P={P} needs "
+                f"{plan['smem']} bytes of shared memory, above the card's limit of {limit.value}"
+            )
         # ``partials`` is freed when this returns, before the kernel runs:
         # safe, because the caching allocator only hands the block out again
         # to work queued after it on the same stream

@@ -17,7 +17,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``csrc/partition_hash.cu`` and ``csrc/prefix_sum.cu`` for sm_90a, one
    nvcc each, started together (``ops/cuda_build.build_many``), and print
    the build seconds and the ``-Xptxas -v`` report. Then TPC-H at ``--sf``
-   (seed 42) for phases 4-14, written as Arrow IPC files into a temporary
+   (seed 42) for phases 4-15, written as Arrow IPC files into a temporary
    directory from which a process of its own (``CpuReference``, spawned,
    never touching the card) runs phase 6's CPU runs beside phases 3-5.
 3. Kernel against its plain version at q1's shapes (n = 2^21 and 2^20,
@@ -35,7 +35,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launch modes ("lanes" and "owners", see ``ops/onehot_agg.launch_plan``)
    against each other and against ``index_add_`` from 256 slots on, on
    uniform slot ids, on Zipf-distributed ones (s = 1, hot slots scattered)
-   and on ids of which 90% fall in one slot. Then the port's sort on the
+   and on ids of which 90% fall in one slot. Then 8 threads, each on its
+   own stream, launch the kernel 50 times each at once, alternating six
+   shapes whose plans take 33,816 to 215,184 bytes of shared memory on both
+   arms (``CONCURRENT_SHAPES``): every launch succeeds and equals the same
+   shape's launch from one thread bit for bit. Then the port's sort on the
    card against the CPU, on keys with +-0.0, NaN, a sign-bit NaN and +-inf.
    Then the prefix-sum kernel (``ops/prefix_sum``): the fault it repairs,
    ``torch.cumsum`` of one seed-made 6,000,000-row f64 column (uniform
@@ -213,11 +217,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (a) ``BallistaContext.standalone(device="cuda", n_executors=2,
    concurrent_tasks=2)``, pull-staged, at K = 4 and every other setting at
    its default (eager shuffle, push shuffle, the local fast path, the plan
-   verifier and the skew monitor on): q1, q3, q5, q12 and q18 one cold and
-   two warm runs each, held against collect-mode results (phase 9's;
-   q18's computed there without a fleet run) and the
-   numpy oracles as phase 8 (money sums of q3 and q18 bit for bit); two
-   warm runs bit-identical; each run recorded eager-fed or pushed reads
+   verifier and the skew monitor on): q1, q3, q5 and q12 one cold and two
+   warm runs each, q18 (some 11 s a run) one cold and one warm, held
+   against collect-mode results (phase 9's; q18's computed there without
+   a fleet run) and the numpy oracles as phase 8 (money sums of q3 and
+   q18 bit for bit); two warm runs bit-identical; each run recorded
+   eager-fed or pushed reads
    (the readers' shipped ``eager_polls``, the executors' push registry),
    every hash-partitioned batch was grouped by the kernel's grouped mode
    with one wait, and q1 launched the one-hot kernel. (b) The same five
@@ -358,10 +363,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    prefix-sum kernel's at the inputs the queries gave it, bit for bit,
    with its call, plain, library and bound times, and device time at the
    largest).
-15. One JSON line of kernel results (the one-hot kernel, the
+15. The join build-table cache and the learned flip, on the tables of
+   phase 5 and phase 13 (a)'s wrong-side build with an integer join key
+   (``skewed_tables(..., int_keys=True)``, 6,000,000 fact rows,
+   ``CACHE_FLIP_SQL``): one
+   ``TorchContext(device="cuda")``; q18, q8, q17, q3, q5 and the flip
+   query once cold, then three warm runs at ``ballista.tpu.build_cache_mb``
+   0 and three at its default 2048, in turns. Every run is held against
+   phases 5 and 6's results (keys and counts exactly, floats within rtol
+   1e-9, the sort path's money sums bit for bit) or a numpy oracle; all
+   warm runs of a query bit for bit; no warm run retries; at 2048 warm
+   runs keep no new table, at 0 no run offers one; the learned flip fires
+   on every warm run of the flip query and on no cold one. Prints per
+   query the warm seconds of both settings, the tables kept and skipped,
+   the flips, retries and launches, the bytes the cache holds, and the
+   peak device memory with the cache (its warm runs) and without it (one
+   more warm round at 0, after the 2048 plan instances were dropped).
+16. One JSON line of kernel results (the one-hot kernel, the
    partition-hash kernel's ids and grouped modes, and the prefix-sum
    kernel at the largest shape the main path gave it, with its launches
-   on phases 4-14), then the card's name and power limit, then the last
+   on phases 4-15), then the card's name and power limit, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
@@ -592,10 +613,12 @@ class LaunchRecorder:
 def capture_runs(recs: list, runs: dict) -> None:
     """One more run of each tag in ``runs`` (tag -> callable) under which a
     recorder of ``recs`` saw a launch, every recorder keeping the inputs of
-    its first launch at each shape. It comes after the path's counts and
+    its first launch at each shape, each on a fresh plan (so that its joins
+    build their tables again). It comes after the path's counts and
     peak memory were read, so that neither includes it or the copies; the
     prefix-sum kernel's launch count is set back to what it was before, as
     these runs are comparisons and not the main path."""
+    from ballista_tpu_torch.exec.context import TorchContext
     from ballista_tpu_torch.ops import prefix_sum
 
     plaunches = prefix_sum.launches
@@ -603,6 +626,17 @@ def capture_runs(recs: list, runs: dict) -> None:
     def prefix_kept(r):
         return r.prefix_shapes if getattr(r, "keep_prefix", False) else {}
 
+    # a capture run plans afresh, so that its joins build their tables
+    # again (a warm run takes them from the plan instance's build-table
+    # cache, and the launches that built them would not come again)
+    real_plan = TorchContext.create_physical_plan
+
+    def fresh_plan(self, logical, sql=None):
+        self._physical_cache.clear()
+        self._plan_cache.pop("__build_cache_bytes__", None)
+        return real_plan(self, logical, sql)
+
+    TorchContext.create_physical_plan = fresh_plan
     for r in recs:
         r.keep, r.counting = True, False
     try:
@@ -616,6 +650,7 @@ def capture_runs(recs: list, runs: dict) -> None:
                     missing |= set(prefix_kept(r).get(q, [])) - set(getattr(r, "prefix_inputs", {}))
                     check(not missing, f"{q}: the capture run missed launch shapes {sorted(missing)}")
     finally:
+        TorchContext.create_physical_plan = real_plan
         prefix_sum.launches = plaunches
         for r in recs:
             r.keep, r.counting, r.tag = False, True, None
@@ -1140,6 +1175,75 @@ def check_sums(tag: str, got, again, want, m: int) -> None:
     )
     check(torch.equal(got[:, :m], want[:, :m]), f"{tag}: counts differ")
     check(torch.allclose(got, want, rtol=1e-12, atol=0.0), f"{tag}: sums differ")
+
+
+# (R, P) of the concurrency check: plans of different shared memory on one
+# instantiation of each arm (the lanes arm's 4-stage ring at 62,720, 92,968
+# and 71,296 bytes: no lanes plan takes under 48 KB; the owners arm at
+# 33,816, 50,224 and 215,184 bytes, on both sides of 48 KB)
+CONCURRENT_SHAPES = ((6, 12), (64, 37), (14, 12), (1, 256), (2, 256), (6, 4096))
+
+
+def onehot_concurrency(seed: int, threads: int = 8, calls: int = 50, n: int = 1 << 18) -> dict:
+    """Task threads launching the one-hot kernel at once: ``threads``
+    threads, each on its own stream, make ``calls`` launches, alternating
+    the shapes of ``CONCURRENT_SHAPES``. Every launch must succeed, and each
+    result equal the same shape's launch from one thread bit for bit (and
+    so its plain version within the rounding bound that phase 3 checks). A
+    launch that raised its kernel's shared-memory limit per call could see
+    another thread lower it before its launch ("invalid argument")."""
+    import threading
+
+    import torch
+
+    from ballista_tpu_torch.ops import onehot_agg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for R, P in CONCURRENT_SHAPES:
+        rid = torch.randint(-1, P + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+        vals = torch.rand(R, n, generator=g, device=dev, dtype=torch.float64) * 1e4
+        vals[: R // 2] = (vals[: R // 2] < 9e3).to(torch.float64)  # count rows
+        want = onehot_agg.onehot_sums(rid, vals, P)
+        plain = onehot_agg.onehot_sums_plain(rid, vals, P)
+        torch.cuda.synchronize()
+        check_sums(f"concurrent R={R} P={P}", want, want, plain, R // 2)
+        cases.append((rid, vals, P, want, onehot_agg.launch_plan(n, R, P)))
+    errors: list = []
+    differ: list = []
+    launched = [0] * threads
+
+    def worker(t: int) -> None:
+        stream = torch.cuda.Stream()
+        try:
+            with torch.cuda.stream(stream):
+                for j in range(calls):
+                    rid, vals, P, want, _ = cases[(t + j) % len(cases)]
+                    got = onehot_agg.onehot_sums(rid, vals, P)
+                    launched[t] += 1
+                    stream.synchronize()
+                    if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+                        differ.append((t, j, P))
+        except Exception as e:  # noqa: BLE001 - every failure is reported below
+            errors.append(f"thread {t}: {e!r}")
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=300)
+    secs = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in pool), "concurrent one-hot launches: a thread did not finish")
+    check(not errors, f"concurrent one-hot launches failed: {errors[:3]}")
+    check(not differ, f"concurrent one-hot launches differ from one thread's: {differ[:3]}")
+    out = dict(
+        threads=threads, launches=sum(launched), s=secs,
+        smem={f"{c[4]['mode']} R={R} P={P}": c[4]["smem"] for (R, P), c in zip(CONCURRENT_SHAPES, cases)},
+    )
+    log(f"concurrent one-hot launches: ok  {json.dumps(out)}")
+    return out
 
 
 def modes(n: int, Rs: tuple, Ps: tuple, dists: tuple, seed: int) -> dict:
@@ -3345,10 +3449,11 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
                         tag = f"{q}-{part}"
                         rec.tag = prec.tag = tag
                         runs = []
-                        for i in range(n_runs):
+                        # q18 takes some 11 s a run: one warm run
+                        for i in range(min(n_runs, 2) if q == "q18" else n_runs):
                             runs.append(one_run(ctx, sqls[q]))
                             held(f"{tag} run {i}", q, runs[-1])
-                        if part == "cluster":
+                        if len(runs) == 3:
                             check(runs[1]["table"].equals(runs[2]["table"]), f"{tag}: two warm runs differ")
                         out[tag] = summary(q, runs)
                         log(f"{tag}: ok  {json.dumps(out[tag])}")
@@ -3720,7 +3825,7 @@ def files_path(data: dict, oracles: dict, earlier: dict, tmp: pathlib.Path, rec:
             for name in data:
                 check(cl.sql(ddl(name)).collect().to_pydict() == {"result": ["ok"]}, f"DDL of {name}")
             sched = cl._standalone_cluster.scheduler
-            # q18 runs on the cluster in phase 10 (a), cold and twice warm
+            # q18 runs on the cluster in phase 10 (a), cold and once warm
             for q in STAGED_QUERIES:
                 tag = f"{q}-files-cluster"
                 runs = []
@@ -4366,25 +4471,26 @@ WRONG_BUILD_SQL = (
 )
 
 
-def skewed_tables(n_fact: int, n_dim: int = 400, seed: int = 7) -> dict:
+def skewed_tables(n_fact: int, n_dim: int = 400, seed: int = 7, int_keys: bool = False) -> dict:
     """The reference test's ``_skewed_tables``: a fact table of Zipf(1.5)
     int64 keys capped at 2000, string join keys ``s<key mod 4*n_dim>`` and
-    uniform values in [0, 100); a dimension of ``s0``..``s<n_dim - 1>``."""
+    uniform values in [0, 100); a dimension of ``s0``..``s<n_dim - 1>``.
+    With ``int_keys`` the join key is the integer ``ikey`` (``key mod
+    4*n_dim`` on the fact, 0..n_dim - 1 on the dimension: the same pairs)
+    in place of ``skey``."""
     import numpy as np
     import pyarrow as pa
 
     rng = np.random.default_rng(seed)
     key = np.minimum(rng.zipf(1.5, size=n_fact), 2000).astype(np.int64)
-    vocab = np.array([f"s{i}" for i in range(n_dim * 4)])
-    fact = pa.table({
-        "key": pa.array(key),
-        "skey": pa.array(vocab[key % (n_dim * 4)]),
-        "v": pa.array(rng.uniform(0, 100, n_fact)),
-    })
-    dim = pa.table({
-        "skey": pa.array([f"s{i}" for i in range(n_dim)]),
-        "attr": pa.array((np.arange(n_dim) % 7).astype(np.int64)),
-    })
+    if int_keys:
+        fkey, dkey = ("ikey", pa.array(key % (n_dim * 4))), ("ikey", pa.array(np.arange(n_dim, dtype=np.int64)))
+    else:
+        vocab = np.array([f"s{i}" for i in range(n_dim * 4)])
+        fkey = ("skey", pa.array(vocab[key % (n_dim * 4)]))
+        dkey = ("skey", pa.array([f"s{i}" for i in range(n_dim)]))
+    fact = pa.table({"key": pa.array(key), fkey[0]: fkey[1], "v": pa.array(rng.uniform(0, 100, n_fact))})
+    dim = pa.table({dkey[0]: dkey[1], "attr": pa.array((np.arange(n_dim) % 7).astype(np.int64))})
     return {"fact": fact, "dim": dim}
 
 
@@ -4859,6 +4965,205 @@ def plugin_path(data: dict, rec: "LaunchRecorder", prec: "PartitionRecorder") ->
     return out
 
 
+# -- phase 15: the join build-table cache and the learned flip ----------------
+
+# TPC-H queries whose collect-mode joins build tables a warm run can keep:
+# q18's SEMI build over its HAVING subquery, q8's and q5's chains of
+# dimension builds, q17's build of part, q3's builds of customer and orders
+CACHE_QUERIES = ("q18", "q8", "q17", "q3", "q5")
+# phase 13 (a)'s wrong-side build with an integer join key
+# (``skewed_tables(..., int_keys=True)``: the string join's own pairs), on
+# one TorchContext: the fact, on the right, repeats its keys and the
+# dimension does not, so from the second run on the flip is learned and the
+# fact is streamed through the dimension's table without being collected
+CACHE_FLIP_SQL = (
+    "SELECT f.key AS key, count(*) AS c, sum(f.v) AS s "
+    "FROM dim d JOIN fact f ON d.ikey = f.ikey GROUP BY f.key ORDER BY key"
+)
+CACHE_WARM = 3  # warm runs a setting, in turns
+
+
+def oracle_flip(tables: dict) -> dict:
+    """CACHE_FLIP_SQL in numpy: the fact's rows whose ikey the dimension
+    holds, grouped by key (count, f64 sum), in key order."""
+    import numpy as np
+
+    key = tables["fact"].column("key").to_numpy()
+    ikey = tables["fact"].column("ikey").to_numpy()
+    v = tables["fact"].column("v").to_numpy()
+    keep = ikey < tables["dim"].num_rows
+    keys, inv = np.unique(key[keep], return_inverse=True)
+    return {
+        "key": keys,
+        "c": np.bincount(inv, minlength=len(keys)).astype(np.int64),
+        "s": np.bincount(inv, weights=v[keep], minlength=len(keys)),
+    }
+
+
+def cache_resident_bytes(ctx) -> int:
+    """Device bytes that the build tables kept on ``ctx``'s plan instances
+    hold, every tensor of them counted once by its storage: the tally's
+    columns, and the null masks, valid masks and direct-address tables it
+    does not count."""
+    from ballista_tpu_torch.exec import joins
+
+    seen: set = set()
+
+    def tensors(b) -> list:
+        return [*b.columns, *(m for m in b.nulls if m is not None), b.valid]
+
+    def walk(p) -> int:
+        total = 0
+        for batch, bt in getattr(p, "_build_cache", {}).values() if isinstance(p, joins.HashJoinExec) else ():
+            extra = [bt.keys, *bt.key_cols] + ([bt.lut2] if bt.lut2 is not None else [])
+            for t in tensors(batch) + tensors(bt.batch) + extra:
+                st = t.untyped_storage()
+                if st.data_ptr() not in seen:
+                    seen.add(st.data_ptr())
+                    total += st.nbytes()
+        return total + sum(walk(c) for c in p.children())
+
+    return sum(walk(p) for p in ctx._physical_cache.values())
+
+
+def build_cache_path(data: dict, earlier: dict, rec: "LaunchRecorder", prec: "PartitionRecorder") -> dict:
+    """Phase 15: one ``TorchContext(device="cuda")`` over phase 5's tables
+    and ``skewed_tables(AQE_FACT_ROWS, int_keys=True)``; each query of ``CACHE_QUERIES`` and
+    ``CACHE_FLIP_SQL`` once cold (``build_cache_mb`` at its default, 2048),
+    then ``CACHE_WARM`` warm runs at ``build_cache_mb`` 0 and at 2048 in
+    turns (the setting swapped on the context between runs; its plan cache
+    keys plan instances by the settings, so each setting runs its own).
+    Every run is held against phases 5 and 6's card results (keys and
+    counts exactly, floats within rtol 1e-9, the sort path's money sums bit
+    for bit) or the flip's numpy oracle; all warm runs of a query bit for
+    bit with each other; no warm run retries; at 2048 a warm run keeps no
+    new table, at 0 no run keeps one; the flip fires on every warm run of
+    CACHE_FLIP_SQL. Prints per query the warm seconds of both settings,
+    the tables kept and skipped, the flips, the retries, and the peak device
+    memory: of the turns at 2048, and of one more warm round at 0 after
+    the 2048 plan instances (and their tables) were dropped."""
+    import gc
+
+    import torch
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec import joins
+    from ballista_tpu_torch.exec.base import plan_counters
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+
+    # the earlier phases' garbage (reference cycles holding device tensors)
+    # goes first, so that the peaks below compare the two settings alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flip = skewed_tables(AQE_FACT_ROWS, int_keys=True)
+    flip_want = oracle_flip(flip)
+    out: dict = {"tables_s": time.perf_counter() - t0}
+    on, off = BallistaConfig(), BallistaConfig({"ballista.tpu.build_cache_mb": "0"})
+    ctx = TorchContext(on, device="cuda")
+    for name, t in {**data, **flip}.items():
+        ctx.register_table(name, t)
+    sqls = {q: earlier[q][0] for q in CACHE_QUERIES}
+    sqls["flip"] = CACHE_FLIP_SQL
+    launches = {"onehot": 0, "prefix": 0, "partition": 0, "grouped": 0}
+    # learned flips taken (each probe partition enters the path once)
+    flips = [0]
+    real_flip = joins.HashJoinExec._execute_learned_flip
+
+    def counted_flip(self, partition, *a, **kw):
+        if partition == 0:
+            flips[0] += 1
+        return real_flip(self, partition, *a, **kw)
+
+    def one_run(q: str, cfg) -> dict:
+        ctx.config = cfg
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        p0, f0 = prefix_sum.launches, flips[0]
+        rec.tag = prec.tag = f"{q}-cache"
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t = time.perf_counter()
+            df = ctx.sql(sqls[q])
+            res, plan = df.collect_with_plan()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            rec.tag = prec.tag = None
+        r = dict(
+            s=secs, table=res, peak=torch.cuda.max_memory_allocated(),
+            retries=sum(df.stats.values()), flips=flips[0] - f0,
+            **plan_counters(plan, ("build_cache_store", "build_cache_skip")),
+            launches=onehot_agg.launches, plaunches=prefix_sum.launches - p0,
+            hlaunches=partition.launches, glaunches=partition.group_launches,
+        )
+        launches["onehot"] += r["launches"]
+        launches["prefix"] += r["plaunches"]
+        launches["partition"] += r["hlaunches"]
+        launches["grouped"] += r["glaunches"]
+        if q == "flip":
+            compare(f"flip-cache run ({'on' if cfg is on else 'off'})", res, flip_want)
+        else:
+            held_as(f"{q}-cache run ({'on' if cfg is on else 'off'})", q, res, earlier[q][1], exact=True)
+        return r
+
+    joins.HashJoinExec._execute_learned_flip = counted_flip
+    try:
+        for q in sqls:
+            cold = one_run(q, on)
+            turns = {"off": [], "on": []}
+            for _ in range(CACHE_WARM):
+                turns["off"].append(one_run(q, off))
+                turns["on"].append(one_run(q, on))
+            warm = turns["off"] + turns["on"]
+            first = warm[0]["table"]
+            for r in warm[1:]:
+                check(r["table"].equals(first), f"{q}-cache: two warm runs differ")
+            check(not any(r["retries"] for r in warm), f"{q}-cache: a warm run retried")
+            check(all(r["build_cache_store"] == r["build_cache_skip"] == 0 for r in turns["off"]),
+                  f"{q}-cache: a run at build_cache_mb 0 kept or offered a table")
+            check(all(r["build_cache_store"] == 0 for r in turns["on"][1:]),
+                  f"{q}-cache: a warm run at 2048 kept a new table")
+            if q == "flip":
+                check(cold["flips"] == 0 and all(r["flips"] == 1 for r in warm),
+                      f"flip-cache: the learned flip fired {[r['flips'] for r in [cold] + warm]}")
+            out[q] = dict(
+                cold_s=cold["s"], cold_retries=cold["retries"],
+                warm_off_s=[r["s"] for r in turns["off"]], warm_on_s=[r["s"] for r in turns["on"]],
+                stores=[r["build_cache_store"] for r in [cold] + turns["on"]],
+                skips=[r["build_cache_skip"] for r in [cold] + turns["on"]],
+                flips=[r["flips"] for r in [cold] + warm],
+                peak_on=max(r["peak"] for r in turns["on"]),
+                peak_off_turns=max(r["peak"] for r in turns["off"]),
+                onehot_launches=[r["launches"] for r in [cold] + warm],
+                prefix_launches=[r["plaunches"] for r in [cold] + warm],
+                partition_launches=[r["hlaunches"] for r in [cold] + warm],
+            )
+            log(f"{q}-cache: ok  {json.dumps(out[q])}")
+        out["cache_bytes"] = ctx._plan_cache.get("__build_cache_bytes__", 0)
+        out["cache_resident_bytes"] = cache_resident_bytes(ctx)
+        out["allocated_with_tables_bytes"] = torch.cuda.memory_allocated()
+        out["peak_on_bytes"] = max(out[q]["peak_on"] for q in sqls)
+        out["peak_off_turns_bytes"] = max(out[q]["peak_off_turns"] for q in sqls)
+        # without the cache: the 2048 instances go, and their tables with them
+        for key in [k for k in ctx._physical_cache if not k[1]]:
+            del ctx._physical_cache[key]
+        ctx._plan_cache.pop("__build_cache_bytes__", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["allocated_after_drop_bytes"] = torch.cuda.memory_allocated()
+        out["peak_off_bytes"] = max(one_run(q, off)["peak"] for q in sqls)
+    finally:
+        joins.HashJoinExec._execute_learned_flip = real_flip
+        ctx.config = on
+    log(f"build cache: tables {out['cache_bytes']} bytes by the tally, {out['cache_resident_bytes']} "
+        f"resident; peak device memory with the cache {out['peak_on_bytes']} bytes, without "
+        f"{out['peak_off_bytes']} bytes; launches {json.dumps(launches)}")
+    out.update(launches=launches["onehot"], prefix_launches=launches["prefix"],
+               partition_launches=launches["partition"], grouped_launches=launches["grouped"])
+    return out
+
+
 def aqe_only(sf: float, seed: int) -> dict:
     """``--aqe-only``: phase 13 alone, on TPC-H at ``sf``, the five cluster
     queries held against one ``TorchContext(device="cuda")`` collect each
@@ -5090,7 +5395,7 @@ def main() -> int:
                 log(f"  nvcc: {line.strip()}")
     log(f"build: the kernels in {time.perf_counter() - t0:.2f}s")
 
-    # TPC-H at --sf for phases 4-14; phase 6's CPU runs start now, in a
+    # TPC-H at --sf for phases 4-15; phase 6's CPU runs start now, in a
     # process of their own, beside phases 3-5
     import atexit
 
@@ -5126,6 +5431,7 @@ def main() -> int:
         1 << 21, Rs=(6, 14), Ps=(256, 2048, 65536),
         dists=("uniform", "zipf", "hot90"), seed=12,
     )
+    concurrent = onehot_concurrency(seed=18)
     sorted_ok = sort_check(seed=10)
     pfx = prefix_phase(seed=17)
     pkernel = partition_kernel_phase(seed=14)
@@ -5135,7 +5441,7 @@ def main() -> int:
 
     # 4. main path (q1, q6, the wide GROUP BY)
     t0 = time.perf_counter()
-    # the prefix-sum kernel's launches on the main path (phases 4-14), by
+    # the prefix-sum kernel's launches on the main path (phases 4-15), by
     # phase; capture runs and replays set the count back
     prefix_sum.launches = 0
     pl_by_phase: dict = {}
@@ -5262,7 +5568,15 @@ def main() -> int:
         check(bool(plugin_replays) and bool(plugin_preplays) and bool(prefix_replays),
               "phase 14: no launch replayed")
         prefix_mark(14)
-        log(f"phase 14 took {time.perf_counter() - t0:.1f}s; prefix-sum launches by phase "
+        log(f"phase 14 took {time.perf_counter() - t0:.1f}s; {smi}")
+
+        # 15. the join build-table cache and the learned flip
+        t0 = time.perf_counter()
+        bc = build_cache_path(data, earlier, rec, prec)
+        replays += replay_launches(rec)
+        preplays += replay_partition_launches(prec)
+        prefix_mark(15)
+        log(f"phase 15 took {time.perf_counter() - t0:.1f}s; prefix-sum launches by phase "
             f"{json.dumps(pl_by_phase)}; {smi}")
     prefix_launches = prefix_sum.launches
     check(prefix_launches == sum(pl_by_phase.values()), "prefix-sum launches: the phases do not add up")
@@ -5308,15 +5622,15 @@ def main() -> int:
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
         + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
-        + pg["partition_launches"]
+        + pg["partition_launches"] + bc["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
         + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
-        + aq["grouped_launches"] + pg["grouped_launches"]
+        + aq["grouped_launches"] + pg["grouped_launches"] + bc["grouped_launches"]
     )
 
-    # 15. results
+    # 16. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -5330,7 +5644,7 @@ def main() -> int:
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
             + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
-            + pg["launches"]
+            + pg["launches"] + bc["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -5406,6 +5720,7 @@ def main() -> int:
         "plugins": {k: v for k, v in pg.items()},
         "cases": cases,
         "crossover": sweep["kernel_loses_at_PR"],
+        "concurrent": concurrent,
         "path_launches": replays,
         "modes": by_mode["points"],
         "sort": sorted_ok,
@@ -5448,6 +5763,7 @@ def main() -> int:
         "aqe_launches": {"onehot": aq["launches"], "partition": aq["partition_launches"],
                          "grouped": aq["grouped_launches"]},
         "aqe_replays": aqe_replays + aqe_preplays,
+        "build_cache": {k: v for k, v in bc.items() if not k.endswith("launches")},
         "sf": args.sf,
     }))
     log(json.dumps({"kernels": kernels}))

@@ -187,6 +187,79 @@ def test_cuda_kernel_matches_plain(n, R, P):
     torch.testing.assert_close(got[ok], want[ok], rtol=1e-12, atol=0)
 
 
+# Shapes whose plans ask for different shared memory on one instantiation:
+# the lanes arm (4 stages; every lanes plan takes over 48 KB) at 62,720,
+# 92,968 and 71,296 bytes, the owners arm at 33,816 (under 48 KB) and
+# 50,224 and 215,184 bytes.
+CONCURRENT_SHAPES = [(6, 12), (64, 37), (14, 12), (1, 256), (2, 256), (6, 4096)]
+
+
+def test_concurrent_shapes_straddle_48_kb_on_both_arms():
+    plans = [onehot_agg.launch_plan(1 << 16, R, P) for R, P in CONCURRENT_SHAPES]
+    for mode in ("lanes", "owners"):
+        sizes = {p["smem"] for p in plans if p["mode"] == mode}
+        assert len(sizes) >= 3
+        if mode == "owners":
+            assert min(sizes) < 48 << 10 < max(sizes)
+    assert {p["stages"] for p in plans if p["mode"] == "lanes"} == {4}
+
+
+def test_kernel_source_raises_its_shared_memory_limit_once():
+    """No launch sets the kernels' shared-memory attribute: one raise a
+    device, under std::call_once, to the largest plan's size, so task
+    threads launching at once cannot lower it under each other."""
+    src = onehot_agg.SOURCE.read_text()
+    assert src.count("cudaFuncSetAttribute(") == 1
+    raise_fn = src[src.index("void raise_limits(int device)"):src.index("cudaError_t smem_limit(")]
+    assert "cudaFuncSetAttribute(" in raise_fn
+    assert "cudaDevAttrMaxSharedMemoryPerBlockOptin" in raise_fn
+    assert "std::call_once(g_raise_once[device], raise_limits, device)" in src
+    assert f"constexpr int kSmemMax = {onehot_agg._SMEM_MAX};" in src
+
+
+@pytest.mark.gpu
+def test_concurrent_launches_at_mixed_shared_memory():
+    """8 threads, 48 launches each, alternating shapes whose plans take
+    different amounts of shared memory on both arms: every launch
+    succeeds and equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import threading
+
+    cases = []
+    for i, (R, P) in enumerate(CONCURRENT_SHAPES):
+        m = R // 2
+        rid, vals = make_case(1 << 16, m, R - m, P, seed=100 + i)
+        rid_d, vals_d = torch.from_numpy(rid).cuda(), torch.from_numpy(vals).cuda()
+        cases.append((rid_d, vals_d, P, m, onehot_agg.onehot_sums_plain(rid_d, vals_d, P)))
+    errors: list = []
+    bad: list = []
+
+    def worker(t: int) -> None:
+        stream = torch.cuda.Stream()
+        try:
+            with torch.cuda.stream(stream):
+                for j in range(48):
+                    rid_d, vals_d, P, m, want = cases[(t + j) % len(cases)]
+                    got = onehot_agg.onehot_sums(rid_d, vals_d, P)
+                    stream.synchronize()
+                    if not (torch.equal(got[:, :m], want[:, :m])
+                            and torch.allclose(got, want, rtol=1e-12, atol=0)):
+                        bad.append((t, j))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    torch.cuda.synchronize()
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:3]
+    assert not bad, bad[:3]
+
+
 def test_kernel_source_has_no_float_atomics():
     """Determinism rests on the kernel adding floats in a fixed order: no
     atomicAdd, and no atomic but the integer atomicOr that gathers the

@@ -533,6 +533,7 @@ PORTED_SINCE = {
     "ballista.tpu.capacity_buckets",
     "ballista.tpu.aqe",
     "ballista.plugin_dir",
+    "ballista.tpu.build_cache_mb",
 }
 
 
@@ -665,6 +666,24 @@ def _honoured(key: str, cfg: BallistaConfig, tmp_path) -> None:
         finally:
             global_registry.clear()
             ref_registry.clear()
+    elif key == "ballista.tpu.build_cache_mb":
+        # 0 keeps no join build table; the default keeps one (a plan's
+        # counters, as the reference's)
+        from ballista_tpu.exec.base import plan_counters as ref_plan_counters
+        from ballista_tpu_torch.exec.base import plan_counters
+
+        t = pa.table({"k": pa.array(np.arange(300, dtype=np.int64) % 50), "v": pa.array(np.arange(300, dtype=np.int64))})
+        d = pa.table({"k": pa.array(np.arange(50, dtype=np.int64)), "w": pa.array(np.arange(50, dtype=np.int64) * 3)})
+        sql = "SELECT COUNT(*) AS c, SUM(d.w) AS w FROM t JOIN d ON t.k = d.k"
+        for settings, stored in (({key: NON_DEFAULT[key]}, 0), ({}, 1)):
+            c = BallistaConfig({"ballista.shuffle.partitions": "1", **settings})
+            got = []
+            for ctx, counters in ((_ref_context(c), ref_plan_counters), (TorchContext(c, device="cpu"), plan_counters)):
+                ctx.register_table("t", t)
+                ctx.register_table("d", d)
+                out, plan = ctx.sql(sql).collect_with_plan()
+                got.append((out.to_pydict(), counters(plan, ("build_cache_store",))["build_cache_store"]))
+            assert got[0] == got[1] == ({"c": [300], "w": [3 * 6 * 1225]}, stored)
     elif key == "ballista.tpu.scan_stream_mb":
         assert _file_scan_counters(tmp_path, {key: "1"})["stream_slices"] == 3
         assert _file_scan_counters(tmp_path, {key: NON_DEFAULT[key]})["stream_slices"] == 0
@@ -692,7 +711,7 @@ def test_unported_feature_key_raises_at_its_point_of_use(key, tmp_path):
         return
     item = UNPORTED[key].split(" (")[0]
     with pytest.raises(ConfigError, match=item):
-        if key in ("ballista.tpu.profile_dir", "ballista.tpu.build_cache_mb"):
+        if key == "ballista.tpu.profile_dir":
             run_with_capacity_retry(cfg, lambda ctx: None, device="cpu")
         else:
             TorchContext(cfg, device="cpu")

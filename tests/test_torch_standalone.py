@@ -12,9 +12,10 @@ sorted, keys and counts exactly, floats within rtol 1e-9, and the money
 sums bit for bit against the reference's third run (its exact one, see
 ``tests/test_torch_stages.py``). q1, q3, q5, q12 and q18 run push-staged
 too, and with eager shuffle, push shuffle and the local fast path off (so
-every read crosses Flight). An executor killed between q3's stages leaves
-q3 equal, and a query submitted to a scheduler with no executor uploads
-nothing to a device and reads no file. q1, q3, q5, q12 and q18 also run
+every read crosses Flight). An executor killed between q3's stages, one
+that holds output of the stage just finished, leaves q3 equal, and a
+query submitted to a scheduler with no executor uploads nothing to a
+device and reads no file. q1, q3, q5, q12 and q18 also run
 over Parquet tables created by DDL through the client, each executor
 opening the files itself, against the reference reading the same files.
 """
@@ -173,17 +174,20 @@ def test_standalone_every_read_crosses_flight(data, off_cluster, q):
 
 
 def test_kill_executor_between_q3_stages_recomputes(data):
-    """A two-executor cluster with tight liveness knobs loses executor 1
-    when q3's first stage finishes (its loops stop, its Flight service
-    goes down, its shuffle files are deleted): the scheduler reports it
-    lost, recomputes its work, and q3 still equals the reference.
+    """A two-executor cluster with tight liveness knobs loses, when q3's
+    first stage finishes, an executor that holds output of that stage (its
+    loops stop, its Flight service goes down, its shuffle files are
+    deleted): the scheduler reports it lost, recomputes its work, and q3
+    still equals the reference.
 
-    The eager wait is one of the knobs: eager consumers may hold every
-    slot of the surviving executor while the producers they wait for are
-    requeued, and then only the eager-wait deadline (60 s by default)
-    frees a slot, as in the reference's scheduler."""
+    Eager shuffle is off, so that no consumer of the stage runs, or reads
+    the lost output, before the stage finishes and the kill is made: with
+    it on, eager consumers could read every partition of that output first
+    and finish before the executor expired, and then nothing was left to
+    recompute (the kill also hit a fixed executor, which may have held no
+    output of the stage)."""
     ctx = cluster_of(
-        data, BallistaConfig({"ballista.tpu.eager_wait_s": "5"}),
+        data, BallistaConfig({"ballista.tpu.eager_shuffle": "false"}),
         executor_timeout_s=5.0, expiry_check_interval_s=1.0,
     )
     try:
@@ -196,7 +200,12 @@ def test_kill_executor_between_q3_stages_recomputes(data):
 
         def on_stage_finished(job_id, stage_id):
             if not killed:
-                killed.append(cluster.kill_executor(1))
+                # the executor of the stage's first completed task
+                holders = [e for _, e, _ in sched.stage_manager.completed_partitions(job_id, stage_id)]
+                victim = next(
+                    i for i, h in enumerate(cluster.executors) if h.executor.executor_id == holders[0]
+                )
+                killed.append(cluster.kill_executor(victim))
             finished(job_id, stage_id)
 
         def check_expired():
