@@ -309,6 +309,20 @@ class DeviceBatch:
             out.keys_unique = True
         return out
 
+    def head(self, capacity: int) -> "DeviceBatch":
+        """The first ``capacity`` rows of every column, null mask and the
+        valid mask, as views (no copy); the caller must know that the live
+        rows fit the prefix."""
+        if capacity >= self.capacity:
+            return self
+        return DeviceBatch(
+            schema=self.schema,
+            columns=tuple(c[:capacity] for c in self.columns),
+            valid=self.valid[:capacity],
+            nulls=tuple(None if m is None else m[:capacity] for m in self.nulls),
+            dictionaries=dict(self.dictionaries),
+        )
+
     # -- host materialization ------------------------------------------------
     def to_host(self) -> tuple[Schema, list[np.ndarray], list[np.ndarray | None]]:
         """Live rows back to host numpy arrays (compacted). One sync for

@@ -2,8 +2,12 @@
 (port of ``ballista_tpu/compilecache/hints.py``).
 
 Until the adaptive machinery has observed the data, a fresh process
-learns join build strategies, decimal scales and probe-table sizes, and
-pays the capacity retries of an aggregate that outgrows its group
+learns join build strategies, decimal scales, probe-table sizes, the
+capacity shrink's capacities (``("shrink", site, partition, capacity)``,
+0 = do not shrink), the aggregates' clustered-input flags
+(``("agg_sorted", ...)``) and their learned state-slice capacities and
+prefix flags (``("agg_state_cap", ...)``, ``("agg_state_prefix", ...)``),
+and pays the capacity retries of an aggregate that outgrows its group
 capacity or a join whose m:n expansion outgrows its output: each retry
 runs the whole query again. All of it is process-local state in
 ``TaskContext.plan_cache`` and the owner's capacity hint, re-derived from

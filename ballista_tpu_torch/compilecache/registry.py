@@ -68,6 +68,10 @@ PROGRAMS: dict[str, ProgramSpec] = {
     "ops.compact.compact": ProgramSpec(
         "torch", "ops/compact.py", "front-valid compaction"
     ),
+    "exec.shrink.maybe_shrink": ProgramSpec(
+        "torch", "exec/shrink.py",
+        "live rows to the front, cut to a learned capacity (adaptive shrink)",
+    ),
     "ops.concat.concat_batches": ProgramSpec(
         "torch", "ops/concat.py", "batch concatenation"
     ),
@@ -122,6 +126,7 @@ PROGRAMS: dict[str, ProgramSpec] = {
 # surface); check_programs fails on a mapping naming an unknown program.
 _PIPELINE = (
     "expr.physical.compile_expr", "ops.compact.compact", "ops.perm.take_batch",
+    "exec.shrink.maybe_shrink",
 )
 _SCAN = ("ops.concat.concat_batches",)
 _AGG = (
@@ -135,7 +140,7 @@ _JOIN = (
     "expr.physical.compile_expr",
     "ops.join.build_side", "ops.join.probe_side", "ops.join.expand_join",
     "ops.compact.compact", "ops.perm.take_batch", "ops.search.searchsorted",
-    "ops.concat.concat_batches",
+    "ops.concat.concat_batches", "exec.shrink.maybe_shrink",
 )
 _SORT = (
     "ops.sort.sort_perm", "ops.perm.take_batch", "ops.concat.concat_batches",
@@ -167,7 +172,7 @@ OPERATOR_KERNELS: dict[str, tuple[str, ...]] = {
     "HashJoinExec": _JOIN,
     "CrossJoinExec": _JOIN,
     "WindowExec": _SORT,
-    "PercentileExec": _SORT,
+    "PercentileExec": _SORT + ("exec.shrink.maybe_shrink",),
     # exchange boundary
     "HashRepartitionExec": _EXCHANGE,
     "ShuffleWriterExec": _EXCHANGE + ("ops.concat.concat_batches",),

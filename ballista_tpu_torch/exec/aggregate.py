@@ -16,9 +16,26 @@ plan cache (``_dec_scaled_sums``). Groups past the capacity
 (``ballista.tpu.agg_capacity``, or the retry's grown one) raise a
 CapacityError at the task boundary, and the run is retried.
 
-Not ported yet (ROADMAP queue 1, item 4; none changes a result): the
-clustered-input speculation that skips the sort, the disjoint-clustered
-partial path and the learned state slicing (``_slice_states``).
+Three learned layouts skip work, each kept in the plan cache, taken on
+warm runs and validated by a deferred device flag (a stale guess raises
+SpeculationMiss and the run is retried); none changes a result:
+
+- the clustered-input speculation (``("agg_sorted", job, site,
+  from_state, capacity)``): a site whose rows a sort-path run found
+  grouped-adjacent already (TPC-H lineitem by l_orderkey) skips the sort
+  and the gather (``group_aggregate(presorted=True)``);
+- the disjoint-clustered partial path: a single integer group key whose
+  per-batch states have key ranges that do not overlap emits each state as
+  it is, with no fold; the final trims the one group two neighbouring
+  states share (``_merge_boundary``) and finalizes the states together
+  with no merge (counters ``input_batches``, ``disjoint_break``,
+  ``boundary_trims``, ``final_disjoint_skip``, ``final_disjoint_miss``).
+  Key bounds are fetched exactly as int64, one copy per chunk of
+  ``_SETTLE_CHUNK`` batches;
+- the learned state slicing (``_slice_states``, keys ``("agg_state_cap",
+  job, site, partition)`` and ``("agg_state_prefix", ...)``): partial
+  states whose live groups form a prefix are cut to a learned capacity
+  before a merge.
 
 Under a device-memory budget (``ballista.tpu.hbm_budget_mb``) the final
 aggregate collects its partial states incrementally and, once they cross
@@ -283,6 +300,75 @@ def _state_batch(res: GroupAggResult, state_schema: Schema) -> DeviceBatch:
     )
 
 
+# -- disjoint clustered states -------------------------------------------------
+#
+# A GROUP BY over an input clustered on an integer key (TPC-H lineitem by
+# l_orderkey) gives per-batch states whose key ranges are disjoint, except
+# for at most the one group that spans each batch boundary. Folding such
+# states through the general merge re-sorts every group seen so far;
+# instead the shared boundary group is trimmed into the previous state and
+# the states are finalized together after a check that their ranges are
+# disjoint. No merge runs.
+
+_INT_KEY_DTYPES = (
+    DataType.INT32, DataType.INT64, DataType.DATE32, DataType.TIMESTAMP_US,
+)
+
+
+def _state_bounds_dev(st: DeviceBatch) -> torch.Tensor:
+    """(min live key, max live key, live count, has a NULL-key group) of a
+    single-int-key state, as one int64 device tensor of four. A state that
+    holds the NULL-key group (stored as key 0 and a null mask) must leave
+    the disjoint path: its bounds would alias a real key-0 group."""
+    kcol, knl, valid = st.columns[0], st.nulls[0], st.valid
+    info = torch.iinfo(kcol.dtype)
+    kmin = torch.where(valid, kcol, info.max).min()
+    kmax = torch.where(valid, kcol, info.min).max()
+    n = valid.sum()
+    has_null = (valid & knl).any() if knl is not None else torch.zeros((), dtype=torch.bool, device=valid.device)
+    return torch.stack([kmin.to(torch.int64), kmax.to(torch.int64), n.to(torch.int64), has_null.to(torch.int64)])
+
+
+def _slice_state(st: DeviceBatch, n: int) -> DeviceBatch:
+    """A state whose live groups are its first ``n`` rows, cut to the
+    capacity of ``n`` (views, no compaction)."""
+    from ballista_tpu_torch.columnar.batch import round_capacity
+
+    return st.head(round_capacity(max(int(n), 16)))
+
+
+def _merge_boundary(
+    prev: DeviceBatch, nxt: DeviceBatch, merge_ops: tuple, key: int
+) -> tuple[DeviceBatch, DeviceBatch]:
+    """Merge the one group that two otherwise disjoint states share: fold
+    ``nxt``'s row of ``key`` into ``prev``'s with the slots' merge ops (a
+    null slot means "no value seen"), then drop ``nxt``'s row. Element
+    updates only: no sort, no capacity change."""
+    ip = (prev.valid & (prev.columns[0] == key)).to(torch.uint8).argmax().reshape(1)
+    inx = (nxt.valid & (nxt.columns[0] == key)).to(torch.uint8).argmax().reshape(1)
+    cols, nulls = [prev.columns[0]], [prev.nulls[0]]
+    for j, op in enumerate(merge_ops):
+        c = j + 1  # the state's layout: the key, then the slots
+        a, b = prev.columns[c][ip], nxt.columns[c][inx]
+        a_nl = prev.nulls[c][ip] if prev.nulls[c] is not None else torch.zeros(1, dtype=torch.bool, device=a.device)
+        b_nl = nxt.nulls[c][inx] if nxt.nulls[c] is not None else torch.zeros(1, dtype=torch.bool, device=a.device)
+        if op == AggOp.SUM:
+            both = a + b
+        elif op == AggOp.MIN:
+            both = torch.minimum(a, b)
+        else:  # MAX (COUNT merges as SUM)
+            both = torch.maximum(a, b)
+        v = torch.where(a_nl, b, torch.where(b_nl, a, both))
+        cols.append(prev.columns[c].index_put((ip,), v.to(prev.columns[c].dtype)))
+        nulls.append(None if prev.nulls[c] is None else prev.nulls[c].index_put((ip,), a_nl & b_nl))
+    nx_valid = nxt.valid.index_put((inx,), torch.zeros(1, dtype=torch.bool, device=inx.device))
+    return (
+        DeviceBatch(schema=prev.schema, columns=tuple(cols), valid=prev.valid,
+                    nulls=tuple(nulls), dictionaries=dict(prev.dictionaries)),
+        nxt.with_valid(nx_valid),
+    )
+
+
 def _stat_final(outs_at, idxs, kind):
     """var/stddev/corr finalization over state slots (raw-moment formulas,
     as in the reference, with its numerical-domain caveats)."""
@@ -437,6 +523,9 @@ class HashAggregateExec(ExecutionPlan):
 
     # Per-batch partial states held before an incremental fold.
     _FOLD_WIDTH = 4
+    # The disjoint path settles its states' key bounds once per this many
+    # batches: one host copy a chunk.
+    _SETTLE_CHUNK = 8
 
     def __init__(
         self,
@@ -620,13 +709,31 @@ class HashAggregateExec(ExecutionPlan):
             val_cols, dec_unscale, picks = self._dec_scaled_sums(
                 val_cols, val_nulls, ops, batch, ctx, site, from_state
             )
+            # the clustered-input speculation: a site whose rows an earlier
+            # sort-path run found grouped-adjacent already skips the sort
+            # and the gather; a deferred flag validates the guess
+            cache = ctx.plan_cache
+            skey = (
+                ("agg_sorted", ctx.job_id, site, from_state, batch.capacity)
+                if cache is not None else None
+            )
+            presorted = skey is not None and cache.get(skey) is True
             # a picked slot is summed twice, in f64 and at its picked scale
             res = group_aggregate(
                 key_cols, key_nulls, batch.valid,
                 val_cols + [p[2] for p in picks],
                 val_nulls + [val_nulls[p[0]] for p in picks],
-                list(ops) + [AggOp.SUM] * len(picks), cap,
+                list(ops) + [AggOp.SUM] * len(picks), cap, presorted=presorted,
             )
+            if presorted:
+                ctx.defer_speculation(
+                    ~res.sorted_ok,
+                    "clustered-input aggregate speculation went stale (rows no "
+                    "longer grouped-adjacent)",
+                    [skey],
+                )
+            elif skey is not None and cache.get(skey) is None and res.input_was_sorted is not None:
+                ctx.defer_learn(skey, res.input_was_sorted)
             if picks:
                 n = len(val_cols)
                 values = list(res.values[:n])
@@ -722,37 +829,102 @@ class HashAggregateExec(ExecutionPlan):
             return
 
         merge_ops = [s.op.merge_op for s in self.spec.slots]
-        # the plan-cache site of this operator's learned decimal scales
+        # the plan-cache site of this operator's learned scales and layouts
         site = self.display()
 
         def fold(states: list[DeviceBatch]) -> DeviceBatch:
+            # states are cut to a learned capacity first (their live groups
+            # form a prefix), so a fold scales with groups, not capacities
+            states = self._slice_states(states, ctx, site, partition)
             return self._run_group_agg(
                 concat_batches(states), merge_ops, n_groups, cap, from_state=True,
                 ctx=ctx, site=site + "|fold",
             )
 
-        # fold every few batches: bounds the live states (merge ops are
-        # associative)
+        # The disjoint-clustered path (a single integer key): states are
+        # kept one by one, cut to their live prefix, and never folded while
+        # their key ranges do not overlap; the final trims the group two
+        # neighbours share and finalizes them with no merge. Bounds are
+        # settled a chunk of batches at a time (one host copy a chunk); an
+        # input shorter than a chunk fetches none here and leaves its
+        # device bounds to the final's one fetch.
+        disjoint = n_groups == 1 and self._schema.fields[0].dtype in _INT_KEY_DTYPES
+        prev_last = None
         partials: list[DeviceBatch] = []
+        entries: list = []  # queued (state, device bounds)
+
+        def settle_entries() -> None:
+            """Resolve the queued states' bounds in one copy, cut each state
+            to its live prefix and give it its host bounds. A NULL-key
+            group or a key range that goes back leaves the disjoint path
+            (the loop then folds as the general path does)."""
+            nonlocal prev_last, disjoint
+            if not entries:
+                return
+            vals = torch.stack([dev for _, dev in entries]).tolist()
+            ok = disjoint
+            for (st, _), (first, last, n, has_null) in zip(entries, vals):
+                if n == 0:
+                    continue
+                st = _slice_state(st, n)
+                if has_null or (ok and prev_last is not None and first < prev_last):
+                    self.metrics.add("disjoint_break")
+                    ok = False
+                elif ok:
+                    # ranges that touch (first == prev_last) stay disjoint:
+                    # the final trims the shared group
+                    st.host_bounds = (first, last, n, 0)
+                    prev_last = last
+                partials.append(st)
+            entries.clear()
+            disjoint = ok
+
         for b in self._pre_plan.execute(partition, ctx):
             with self.metrics.time("agg_time"):
-                partials.append(
-                    self._run_group_agg(
-                        b, ops, n_groups, cap, from_state=False, ctx=ctx, site=site
-                    )
+                st = self._run_group_agg(
+                    b, ops, n_groups, cap, from_state=False, ctx=ctx, site=site
                 )
-                if len(partials) >= self._FOLD_WIDTH:
+                if disjoint:
+                    entries.append((st, _state_bounds_dev(st)))
+                    if len(entries) >= self._SETTLE_CHUNK:
+                        settle_entries()
+                else:
+                    partials.append(st)
+                # fold every few batches: bounds the live states (merge ops
+                # are associative)
+                if not disjoint and len(partials) >= self._FOLD_WIDTH:
                     partials = [fold(partials)]
             self.metrics.add("input_batches")
+        if entries:
+            with self.metrics.time("agg_time"):
+                if not partials:
+                    # a short input (every state still queued): no bounds
+                    # fetch here; the states are cut by the learned slice
+                    # and carry their device bounds to the final
+                    sliced = self._slice_states([st for st, _ in entries], ctx, site, partition)
+                    for st, (_, dev) in zip(sliced, entries):
+                        st.dev_bounds = dev
+                        partials.append(st)
+                    entries.clear()
+                else:
+                    settle_entries()
         if not partials:
             return
         # every state this partial emits is key-unique on its own (a
         # per-batch grouping or a fold), which lets the final skip a merge
-        if len(partials) > 1:
-            with self.metrics.time("agg_time"):
-                partials = [fold(partials)]
-        partials[0].keys_unique = True
-        yield partials[0]
+        if len(partials) == 1:
+            partials[0].keys_unique = True
+            yield partials[0]
+            return
+        if disjoint:
+            for st in partials:
+                st.keys_unique = True
+            yield from partials
+            return
+        with self.metrics.time("agg_time"):
+            out = fold(partials)
+        out.keys_unique = True
+        yield out
 
     def _execute_final(
         self, partition: int, ctx: TaskContext, cap: int, n_groups: int
@@ -794,12 +966,122 @@ class HashAggregateExec(ExecutionPlan):
                 out = finalize_state(states[0], self.spec, self._schema)
             yield out
             return
+        if (
+            n_groups == 1
+            and self._schema.fields[0].dtype in _INT_KEY_DTYPES
+            # disjoint ranges prove nothing about duplicates inside one
+            # state: every state must be key-unique on its own
+            and all(getattr(st, "keys_unique", False) for st in states)
+        ):
+            out = self._finalize_disjoint(states, merge_ops)
+            if out is not None:
+                yield from out
+                return
+            self.metrics.add("final_disjoint_miss")
+        site = self.display()
+        states = self._slice_states(states, ctx, site, partition)
         with self.metrics.time("merge_time"):
             state = self._run_group_agg(
                 concat_batches(states), merge_ops, n_groups, cap, from_state=True,
-                ctx=ctx, site=self.display(),
+                ctx=ctx, site=site,
             )
         yield finalize_state(state, self.spec, self._schema)
+
+    def _finalize_disjoint(self, states: list, merge_ops: list) -> list | None:
+        """Key-unique single-int-key states whose key ranges do not overlap
+        (the disjoint partial's, or a shuffle layout that happens to split
+        cleanly): trim each group two neighbours share and finalize them
+        together, with no merge. Returns the output batches (none when every
+        state is empty), or None when the ranges overlap or a state holds
+        the NULL-key group (the caller merges). The bounds that the partial
+        did not settle are fetched here in one copy, as int64."""
+        bounds: list = [getattr(st, "host_bounds", None) for st in states]
+        missing = [i for i, hb in enumerate(bounds) if hb is None]
+        if missing:
+            devs = [
+                getattr(states[i], "dev_bounds", None) for i in missing
+            ]
+            devs = [d if d is not None else _state_bounds_dev(states[i]) for d, i in zip(devs, missing)]
+            for i, vals in zip(missing, torch.stack(devs).tolist()):
+                bounds[i] = tuple(vals)
+        live = sorted(
+            (b for b in zip(bounds, states) if b[0][2] > 0), key=lambda p: p[0][0]
+        )
+        if not live:
+            return []
+        # touching ranges (a group split across two batches or partitions)
+        # are trimmed; a real overlap, or a NULL-key group (key 0 and a
+        # null mask, aliasing a real key 0), needs the merge
+        if any(b[0][3] for b in live) or not all(
+            a[0][1] <= b[0][0] for a, b in zip(live, live[1:])
+        ):
+            return None
+        merge_ops_t = tuple(merge_ops)
+        with self.metrics.time("merge_time"):
+            out_states: list = []
+            for (lo, hi, n, _), st in live:
+                if out_states and out_states[-1][0][1] == lo:
+                    pm, st = _merge_boundary(out_states[-1][1], st, merge_ops_t, lo)
+                    out_states[-1] = (out_states[-1][0], pm)
+                    self.metrics.add("boundary_trims")
+                    if n == 1:
+                        continue
+                out_states.append(((lo, hi, n), st))
+            self.metrics.add("final_disjoint_skip")
+            # group keys are unique across the disjoint states: one concat
+            # and one finalize
+            merged = (
+                out_states[0][1] if len(out_states) == 1
+                else concat_batches([st for _, st in out_states])
+            )
+            return [finalize_state(merged, self.spec, self._schema)]
+
+    def _slice_states(
+        self, states: list[DeviceBatch], ctx: TaskContext, site: str, partition: int
+    ) -> list[DeviceBatch]:
+        """Cut partial states to a learned capacity before a merge. A
+        partial state's live groups are a prefix (valid = iota < n_groups),
+        so the cut is a slice with no compaction, and the merge's sort and
+        segment work then scales with the groups, not the padded capacity.
+        The capacity (``("agg_state_cap", job, site, partition)``, the
+        largest live count, with a quarter's headroom) and whether the
+        states' live rows form a prefix (``("agg_state_prefix", ...)``,
+        false for states that came through an in-place-masking hash
+        repartition) are learned on the first run; every cut is validated
+        by "no live row beyond the slice"."""
+        cache = ctx.plan_cache
+        if cache is None:
+            return states
+        from ballista_tpu_torch.columnar.batch import round_capacity
+
+        # job-scoped, like the join strategies: one executor serves many
+        # jobs whose plans can collide structurally
+        key = ("agg_state_cap", ctx.job_id, site, partition)
+        pkey = ("agg_state_prefix", ctx.job_id, site, partition)
+        learned, prefix_ok = cache.get(key), cache.get(pkey)
+        if learned is None or prefix_ok is None:
+            for st in states:
+                n = st.count_valid()
+                ctx.defer_learn(key, n)
+                iota = torch.arange(st.capacity, dtype=torch.int32, device=st.device)
+                ctx.defer_learn(pkey, (st.valid == (iota < n)).all())
+            return states
+        if prefix_ok is not True:
+            return states
+        slice_cap = round_capacity(max(16, int(learned * 5 // 4)))
+        out = []
+        for st in states:
+            if slice_cap >= st.capacity:
+                out.append(st)
+                continue
+            ctx.defer_speculation(
+                st.valid[slice_cap:].any(),
+                "learned aggregate-state capacity went stale (live rows beyond "
+                "the slice)",
+                [key, pkey],
+            )
+            out.append(st.head(slice_cap))
+        return out
 
     # Bucket fan-out of the spill files. K passes (a power of two dividing
     # it, chosen once the states' total is known) take consecutive bucket

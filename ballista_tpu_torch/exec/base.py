@@ -80,6 +80,13 @@ class TaskContext:
     learned_values: list = dataclasses.field(default_factory=list)
     # callables run at a clean task boundary only (see defer_commit)
     clean_commits: list = dataclasses.field(default_factory=list)
+    # Per-attempt scratch, fresh on every attempt. ``"synced_caps"`` holds
+    # the plan-cache keys that this run has already decided by a host sync
+    # (exec/shrink.py): later batches of the same run keep deciding them
+    # instead of speculating against a value a smaller earlier batch just
+    # wrote, so a site that sees many batches converges. Apart from
+    # ``site_capacity``, the capacities earlier retries grew.
+    run_state: dict = dataclasses.field(default_factory=dict)
     # Join build tables are kept on plan instances (exec/joins.py); a
     # caller whose instances live for one task only (an executor decodes a
     # fresh plan a task) turns this off, or the shared tally would count
@@ -524,6 +531,8 @@ def replace_children(plan: ExecutionPlan, children: list[ExecutionPlan]) -> Exec
         raise PlanError("child arity mismatch")
     if all(a is b for a, b in zip(old, children)):
         return plan
+    # a shrink site names the subtree below it (exec/pipeline.py)
+    plan.__dict__.pop("_shrink_sites", None)
     if hasattr(plan, "input") and len(children) == 1:
         plan.input = children[0]
         return plan

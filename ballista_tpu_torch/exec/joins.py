@@ -39,8 +39,13 @@ right side was learned to hold duplicates and whose left side was learned
 to be unique (integer keys) builds the left side (or takes it from the
 cache) and streams the right side through it without collecting it.
 
-Not ported yet, with no effect on results: the adaptive capacity shrink of
-the grace passes' and probes' outputs (ROADMAP queue 1, item 5).
+Four output sites go through the adaptive capacity shrink
+(``exec/shrink.maybe_shrink``), as in the reference: the grace passes
+(site ``display() + "|grace"``), the probe loop of LEFT, SEMI, ANTI and
+partitioned joins, and the two streamed INNER flips, learned and cold
+(probe partition 0). A selective join (q18's SEMI against a small HAVING
+set) then hands the rest of the plan a batch at the data's scale. The
+unique-build INNER probe and the m:n expansion do not shrink.
 """
 
 from __future__ import annotations
@@ -373,6 +378,7 @@ class HashJoinExec(ExecutionPlan):
         together are the one-shot join for INNER, LEFT, SEMI and ANTI (a
         preserved probe row lies in exactly one bucket)."""
         from ballista_tpu_torch.columnar.arrow_interop import table_from_arrow
+        from ballista_tpu_torch.exec.shrink import maybe_shrink
         from ballista_tpu_torch.exec.spill import spill_batch_by_keys, tables_string_dicts
 
         sset, k = grace
@@ -388,6 +394,7 @@ class HashJoinExec(ExecutionPlan):
         self.metrics.add("spill_bytes", spilled)
         batch_rows = ctx.config.tpu_batch_rows()
         group = self._GRACE_BUCKETS // k
+        site = self.display() + "|grace"
         for pass_i in range(k):
             buckets = range(pass_i * group, (pass_i + 1) * group)
             ptabs = [t for bk in buckets if (t := pset.read(bk)) is not None and t.num_rows]
@@ -434,7 +441,7 @@ class HashJoinExec(ExecutionPlan):
                 if kind in (JoinSide.INNER, JoinSide.LEFT):
                     out = self._restore_column_order(out, pb2, build_is_right=True)
                 self.metrics.add("output_batches")
-                yield out
+                yield maybe_shrink(out, ctx, site, partition)
         pset.close()
 
     def _null_extend(self, pb: DeviceBatch) -> DeviceBatch:
@@ -461,10 +468,14 @@ class HashJoinExec(ExecutionPlan):
         key dictionaries per batch (rebuilding only when that changed the
         build side), then probe or expand and relabel to the plan schema.
         The built table is kept across runs (a SEMI build may be a whole
-        subquery)."""
+        subquery). A selective join (q18's SEMI against a small HAVING set)
+        leaves a near-empty batch at the probe's capacity: it is shrunk."""
+        from ballista_tpu_torch.exec.shrink import maybe_shrink
+
         slot = ("bt_probe", partition if self.partition_mode == "partitioned" else None)
         build_batch, bt = self._build_cache.get(slot, (None, None))
         fp = self._strategy_key(self.right, right_keys, partition)
+        site = None
         for b in self.left.execute(partition, ctx):
             if build_batch is None:
                 with self.metrics.time("build_time"):
@@ -479,7 +490,9 @@ class HashJoinExec(ExecutionPlan):
             if kind in (JoinSide.INNER, JoinSide.LEFT):
                 out = self._restore_column_order(out, pb, build_is_right=True)
             self.metrics.add("output_batches")
-            yield out
+            if site is None:
+                site = self.display()
+            yield maybe_shrink(out, ctx, site, partition)
 
     def _learned_flip(self, ctx: TaskContext, left_keys: list[int], right_keys: list[int]):
         """(left strategy key, left flags) when the plan cache has learned
@@ -515,6 +528,8 @@ class HashJoinExec(ExecutionPlan):
         validated at the task boundary (stale: the retry drops the entry
         and takes the general path); the right side's duplicates need no
         check, since a unique build serves any probe side."""
+        from ballista_tpu_torch.exec.shrink import maybe_shrink
+
         lfp, lflags = learned
         if partition != 0:
             return
@@ -532,6 +547,7 @@ class HashJoinExec(ExecutionPlan):
             [lfp, ("join_lut", lfp)],
         )
         contig = self._contig_probe(lbt, lflags, True, ctx, lfp)
+        site = self.display()
         for p in range(self.right.output_partitioning().n):
             for b in self.right.execute(p, ctx):
                 if not contig:
@@ -540,7 +556,8 @@ class HashJoinExec(ExecutionPlan):
                     self._maybe_attach_lut(lbt, b.capacity, ctx, lfp)
                 joined = self._probe(lbt, b, right_keys, JoinSide.INNER, contig)
                 self.metrics.add("output_batches")
-                yield self._restore_column_order(joined, b, build_is_right=False)
+                out = self._restore_column_order(joined, b, build_is_right=False)
+                yield maybe_shrink(out, ctx, site, 0)
 
     def _execute_inner(
         self, partition: int, ctx: TaskContext, left_keys: list[int], right_keys: list[int],
@@ -631,12 +648,16 @@ class HashJoinExec(ExecutionPlan):
                 # int keys: stream the right side batch by batch (probing
                 # the collected fact side whole would allocate every gather
                 # at its full capacity); the collected copy only decided
+                from ballista_tpu_torch.exec.shrink import maybe_shrink
+
                 right_batch = rb = lb = decide = None
+                site = self.display()
                 for p in range(self.right.output_partitioning().n):
                     for b in self.right.execute(p, ctx):
                         joined = self._probe(lbt, b, right_keys, JoinSide.INNER, contig)
                         self.metrics.add("output_batches")
-                        yield self._restore_column_order(joined, b, build_is_right=False)
+                        out = self._restore_column_order(joined, b, build_is_right=False)
+                        yield maybe_shrink(out, ctx, site, 0)
                 return
             # both sides duplicated: m:n expansion, building a side whose
             # runs can be counted (no collision overflow)

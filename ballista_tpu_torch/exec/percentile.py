@@ -7,9 +7,10 @@ group; each group's live non-null values are then a prefix of its segment
 [ps, pe], and the percentile q interpolates linearly between the two order
 statistics around ``t = q * (cnt - 1)``. The answer is exact (the reference
 computes it the same way, in place of DataFusion's t-digest). The operator
-gathers every input partition into one batch, as the reference does. Not
-ported: the reference's adaptive capacity shrink of the output (it changes
-no result; ROADMAP queue 1, item 5).
+gathers every input partition into one batch, as the reference does. Its
+output (one live row per group, at the input's capacity) goes through the
+adaptive capacity shrink (``exec/shrink.maybe_shrink``) at its
+``display()`` site.
 """
 
 from __future__ import annotations
@@ -112,6 +113,8 @@ class PercentileExec(ExecutionPlan):
         return f"PercentileExec: groupBy=[{g}], [{r}]"
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        from ballista_tpu_torch.exec.shrink import maybe_shrink
+
         batches = []
         for p in range(self.input.output_partitioning().n):
             batches.extend(self.input.execute(p, ctx))
@@ -131,10 +134,11 @@ class PercentileExec(ExecutionPlan):
             )
         dicts = (b.dictionaries.get(b.schema.fields[i].name) for i in self._gk)
         self.metrics.add("output_batches")
-        yield DeviceBatch(
+        out = DeviceBatch(
             schema=self._schema,
             columns=tuple([c for c, _ in key_pairs] + outs),
             valid=starts,
             nulls=tuple([m for _, m in key_pairs] + nulls),
             dictionaries={n: d for n, d in zip(self.group_names, dicts) if d is not None},
         )
+        yield maybe_shrink(out, ctx, self.display(), partition)

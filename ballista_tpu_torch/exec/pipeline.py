@@ -6,9 +6,13 @@ outermost operator of a Filter/Projection chain runs the whole chain on
 each batch of the chain's source; here that is a plain Python loop over the
 operators (eager torch has no program to fuse). Inside :func:`unfused`
 (EXPLAIN ANALYZE) every operator runs on its own, so each one meters its
-own rows. RenameExec relabels a subquery's columns. The reference's
-adaptive capacity shrink (``exec/shrink.py``) does not change results and
-is ROADMAP queue 1, item 5.
+own rows. RenameExec relabels a subquery's columns.
+
+The chain's output goes through the adaptive capacity shrink
+(``exec/shrink.maybe_shrink``) once, at the outermost FilterExec's site
+(its ``display()``), so the shrink sees the chain's whole selectivity; a
+chain without a filter does not shrink. Unfused, each FilterExec shrinks
+its own output at its own site, as the reference's unfused path does.
 """
 
 from __future__ import annotations
@@ -110,9 +114,23 @@ def fusable_chain(plan: ExecutionPlan):
 class _ChainPipeline:
     """Shared execute() body for the outermost operator of a chain."""
 
+    def _shrink_site(self, ops: list) -> str | None:
+        """The chain's shrink site: the outermost FilterExec's
+        ``display()``, kept per fusion mode (a display walks the subtree)."""
+        off = getattr(_FUSION, "off", False)
+        sites = self.__dict__.setdefault("_shrink_sites", {})
+        if off not in sites:
+            sites[off] = next(
+                (o.display() for o in reversed(ops) if isinstance(o, FilterExec)), None
+            )
+        return sites[off]
+
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[DeviceBatch]:
+        from ballista_tpu_torch.exec.shrink import maybe_shrink
+
         source, ops = fusable_chain(self)
         fns = [op.batch_fn() for op in ops]
+        shrink_site = self._shrink_site(ops)
         timer = "filter_time" if isinstance(self, FilterExec) else "project_time"
         for b in source.execute(partition, ctx):
             with self.metrics.time(timer):
@@ -120,6 +138,8 @@ class _ChainPipeline:
                     b = f(b)
             self.metrics.add("input_batches")
             self.metrics.counters["fused_ops"] = len(ops)
+            if shrink_site is not None:
+                b = maybe_shrink(b, ctx, shrink_site, partition)
             yield b
 
 

@@ -7,7 +7,10 @@
   COUNT by differences of prefix sums at the segment starts, MIN/MAX by a
   scatter, keys gathered at each segment's first row. Output has a fixed
   group capacity; more groups than that set the ``overflow`` flag, which
-  the operator defers to the task boundary.
+  the operator defers to the task boundary. With ``presorted=True`` the
+  sort and the gather are skipped: the rows are speculated to arrive
+  grouped in key order (a clustered input), each row is compared with the
+  previous live row, and the ``sorted_ok`` flag validates the guess.
 - ``dense_group_aggregate``: grouping over dictionary-coded or boolean
   keys, where the group slot is the mixed-radix index over (vocab + 1)
   values per key (the +1 is NULL). No sort; every reduction is one pass over
@@ -90,6 +93,12 @@ class GroupAggResult:
     valid: torch.Tensor  # bool[capacity]: which output slots are groups
     n_groups: torch.Tensor  # int32 scalar
     overflow: torch.Tensor  # bool scalar: more groups than capacity
+    # device bools of the clustered-input speculation (exec/aggregate.py):
+    # ``input_was_sorted`` says whether the rows came grouped-adjacent
+    # already (a sort-path run reads it off the stable sort's permutation);
+    # ``sorted_ok`` validates a presorted run (None on the sort path)
+    input_was_sorted: torch.Tensor | None = None
+    sorted_ok: torch.Tensor | None = None
 
 
 def _scatter_minmax(idx, capacity: int, stacked: torch.Tensor, kind: str):
@@ -210,12 +219,6 @@ def _same_val(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return same
 
 
-# ``_gt_val`` and ``_ffill_tuple`` are the pieces of the reference's
-# clustered-input path (rows speculated to arrive grouped, no sort), which
-# is not ported yet (ROADMAP queue 1, item 4); they are held against the
-# reference's in the tests.
-
-
 def _gt_val(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Sort-order 'greater': NaN sorts after every number."""
     if a.dtype.is_floating_point:
@@ -271,26 +274,90 @@ def _column_cumsums(cols: list) -> torch.Tensor:
     return torch.stack([torch.cumsum(c, 0) for c in cols], dim=1)
 
 
+def _shift_down(x: torch.Tensor) -> torch.Tensor:
+    """``x`` moved one row down, a zero (False) in the first row."""
+    return torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device), x[:-1]])
+
+
 def _seg_part1(
-    valid, key_cols, key_nulls, val_cols, val_nulls, ops, capacity,
-    sum_layout, live_layout, mm_idx,
+    valid, key_cols, key_nulls, val_cols, val_nulls, perm, ops, capacity,
+    clustered, sum_layout, live_layout, mm_idx,
 ):
-    """Segment starts, running sums and MIN/MAX over SORTED operands (live
-    rows first, groups adjacent)."""
+    """Segment starts, running sums and MIN/MAX.
+
+    ``clustered=False``: the operands are SORTED (live rows first, groups
+    adjacent); ``perm`` is the stable sort's permutation, read only for
+    ``input_was_sorted`` (its live prefix strictly increasing means the
+    input was grouped-adjacent already: the learning signal of the
+    presorted path).
+
+    ``clustered=True``: the operands are in their original order,
+    speculated to be grouped-adjacent among live rows (dead rows
+    anywhere). A row's group boundary compares it with the previous LIVE
+    row (a forward fill), and ``sorted_ok`` says whether the speculation
+    held. The prefixes' inputs are then moved live rows first, in order
+    (one scatter a column, no sort): where the speculation holds that is
+    the sequence the sort path's prefixes read, so the f64 sums, whose
+    fixed order of adds depends on the positions, come out with the sort
+    path's bits. (The reference's arm leaves dead rows in place as zeros;
+    its sequential CPU cumsum does not see the difference.)
+
+    Returns (n_groups, overflow, input_was_sorted, sorted_ok, segment
+    starts in the prefixes' rows, count prefixes, sum prefixes, MIN/MAX
+    values, segment starts in the key columns' rows)."""
     n = valid.shape[0]
     dev = valid.device
     iota = torch.arange(n, device=dev)
-    head = torch.ones(1, dtype=torch.bool, device=dev)
-    changed = torch.zeros(n, dtype=torch.bool, device=dev)
-    changed[0] = True
-    for kc, kn in zip(key_cols, key_nulls):
-        z = kc
-        if kn is not None:
-            # the group identity of a null key is (null flag, zeroed value)
-            z = torch.where(kn, torch.zeros_like(kc), kc)
-            changed = changed | torch.cat([head, kn[1:] != kn[:-1]])
-        changed = changed | torch.cat([head, ~_same_val(z[1:], z[:-1])])
-    changed = changed & valid
+    # the group identity of a key: (null flag, zeroed value)
+    zkeys = [kc if kn is None else torch.where(kn, torch.zeros_like(kc), kc)
+             for kc, kn in zip(key_cols, key_nulls)]
+    input_was_sorted = sorted_ok = None
+    if clustered:
+        flags = [kn for kn in key_nulls if kn is not None]
+        filled, filled_live = _ffill_tuple(tuple(zkeys) + tuple(flags), valid)
+        # shift to the strictly previous live row
+        prev_z = [_shift_down(z) for z in filled[: len(zkeys)]]
+        prev_f = iter(_shift_down(f) for f in filled[len(zkeys):])
+        prev_flags = [None if kn is None else next(prev_f) for kn in key_nulls]
+        prev_live = _shift_down(filled_live)
+        same = torch.ones(n, dtype=torch.bool, device=dev)
+        greater = torch.zeros(n, dtype=torch.bool, device=dev)
+        eq_chain = torch.ones(n, dtype=torch.bool, device=dev)
+        for z, pz, f, pf in zip(zkeys, prev_z, key_nulls, prev_flags):
+            if f is not None:
+                # null flags sort nulls last: the previous row is greater
+                # when it is null and this one is not
+                pair_same = (f == pf) & _same_val(z, pz)
+                pair_gt = (pf & ~f) | ((f == pf) & _gt_val(pz, z))
+            else:
+                pair_same = _same_val(z, pz)
+                pair_gt = _gt_val(pz, z)
+            same = same & pair_same
+            greater = greater | (eq_chain & pair_gt)
+            eq_chain = eq_chain & pair_same
+        changed = valid & (~prev_live | ~same)
+        sorted_ok = ~(valid & prev_live & greater).any()
+        rank = torch.cumsum(valid.to(torch.int64), 0) - 1
+        dest = torch.where(valid, rank, n)
+
+        def to_front(x: torch.Tensor) -> torch.Tensor:
+            return torch.zeros(n + 1, dtype=x.dtype, device=dev).scatter_(0, dest, x)[:n]
+    else:
+        head = torch.ones(1, dtype=torch.bool, device=dev)
+        changed = torch.zeros(n, dtype=torch.bool, device=dev)
+        changed[0] = True
+        for z, kn in zip(zkeys, key_nulls):
+            if kn is not None:
+                changed = changed | torch.cat([head, kn[1:] != kn[:-1]])
+            changed = changed | torch.cat([head, ~_same_val(z[1:], z[:-1])])
+        changed = changed & valid
+        if perm is not None:
+            n_live = valid.sum()
+            input_was_sorted = ((perm[1:] > perm[:-1]) | (iota[1:] >= n_live)).all()
+        rank = iota
+
+        def to_front(x: torch.Tensor) -> torch.Tensor:
+            return x
 
     seg = torch.cumsum(changed.to(torch.int32), 0) - 1
     n_groups = changed.sum(dtype=torch.int32)
@@ -300,21 +367,24 @@ def _seg_part1(
     # segment starts: each segment's first row is the one row that changed
     # into it, so a plain scatter of those rows gives the reference's
     # scatter-min without a contended atomic per row
-    ps = torch.full((capacity + 1,), n, dtype=torch.int64, device=dev)
-    ps = ps.scatter_(0, torch.where(changed, sid, capacity), iota)[:capacity]
+    at = torch.where(changed, sid, capacity)
+    key_ps = torch.full((capacity + 1,), n, dtype=torch.int64, device=dev).scatter_(0, at, iota)[:capacity]
+    ps = key_ps if rank is iota else (
+        torch.full((capacity + 1,), n, dtype=torch.int64, device=dev).scatter_(0, at, rank)[:capacity]
+    )
 
     lives = [valid if vn is None else (valid & ~vn) for vn in val_nulls]
     # one live-count prefix per distinct live mask; a key-only aggregate
     # (DISTINCT, the SEMI-join dedup) has no value column: one dummy row
     cnt_cs = _column_cumsums(
-        [(valid if k == -1 else lives[k]).to(torch.int32) for k in live_layout]
+        [to_front((valid if k == -1 else lives[k]).to(torch.int32)) for k in live_layout]
         or [torch.zeros(n, dtype=torch.int32, device=dev)]
     )
 
     sum_cs = []
     for dt, idxs in sum_layout:
         contribs = [
-            torch.where(lives[i], val_cols[i], torch.zeros_like(val_cols[i])).to(dt)
+            to_front(torch.where(lives[i], val_cols[i], torch.zeros_like(val_cols[i])).to(dt))
             for i in idxs
         ]
         sum_cs.append(_column_cumsums(contribs))
@@ -325,17 +395,18 @@ def _seg_part1(
         ident = (_max_ident if kind == "amin" else _min_ident)(vc.dtype)
         masked = torch.where(live, vc, ident).unsqueeze(1)
         mm_vals.append(_scatter_minmax(sid, capacity, masked, kind)[:, 0])
-    return n_groups, overflow, ps, cnt_cs, sum_cs, mm_vals
+    return n_groups, overflow, input_was_sorted, sorted_ok, ps, cnt_cs, sum_cs, mm_vals, key_ps
 
 
 def _seg_part2(
     n_groups, ps, cnt_cs, sum_cs, mm_vals, key_cols, key_nulls, ops, capacity,
-    sum_layout, live_layout, mm_idx,
+    sum_layout, live_layout, mm_idx, key_ps,
 ) -> GroupAggResult:
     """Per-group totals from one gather of each prefix at the segment
     starts: ``pre[g] = cs[ps_g - 1]`` (0 when ``ps_g == 0``), and since
     dead rows add nothing, ``pre[g + 1]`` is the prefix at segment g's end;
-    the last live group closes with the grand total ``cs[n - 1]``."""
+    the last live group closes with the grand total ``cs[n - 1]``. The
+    keys are gathered at ``key_ps``, the starts in the key columns' rows."""
     n = cnt_cs.shape[0]
     dev = ps.device
     slot = torch.arange(capacity, dtype=torch.int32, device=dev)
@@ -376,7 +447,9 @@ def _seg_part2(
             out_vals[i] = mm_map[i]
 
     # group keys: the first row of each segment is live and carries them
-    gathered, gathered_nulls = take_many_split(list(key_cols), list(key_nulls), ps_c)
+    gathered, gathered_nulls = take_many_split(
+        list(key_cols), list(key_nulls), ps_c if key_ps is ps else key_ps.clamp(0, n - 1)
+    )
     out_keys = [torch.where(out_valid, k, torch.zeros_like(k)) for k in gathered]
     out_key_nulls = [None if kn is None else kn & out_valid for kn in gathered_nulls]
     return GroupAggResult(
@@ -391,22 +464,25 @@ def _seg_part2(
 
 
 def _segment_aggregate(
-    valid, key_cols, key_nulls, val_cols, val_nulls, ops, capacity
+    valid, key_cols, key_nulls, val_cols, val_nulls, perm, ops, capacity, clustered
 ) -> GroupAggResult:
-    """The two-part segment reduction over sorted operands."""
+    """The two-part segment reduction (see ``_seg_part1``)."""
     layouts = _seg_layouts(
         tuple(v.dtype for v in val_cols),
         tuple(vn is not None for vn in val_nulls),
         tuple(ops),
     )
-    n_groups, overflow, ps, cnt_cs, sum_cs, mm_vals = _seg_part1(
-        valid, key_cols, key_nulls, val_cols, val_nulls, ops, capacity, *layouts
+    n_groups, overflow, was_sorted, sorted_ok, ps, cnt_cs, sum_cs, mm_vals, key_ps = _seg_part1(
+        valid, key_cols, key_nulls, val_cols, val_nulls, perm, ops, capacity,
+        clustered, *layouts,
     )
     res = _seg_part2(
         n_groups, ps, cnt_cs, sum_cs, mm_vals, key_cols, key_nulls, ops,
-        capacity, *layouts,
+        capacity, *layouts, key_ps,
     )
     res.overflow = overflow
+    res.input_was_sorted = was_sorted
+    res.sorted_ok = sorted_ok
     return res
 
 
@@ -418,13 +494,26 @@ def group_aggregate(
     val_nulls: list[torch.Tensor | None],
     ops: list[AggOp],
     capacity: int,
+    presorted: bool = False,
 ) -> GroupAggResult:
     """Aggregate ``val_cols[i]`` with ``ops[i]`` grouped by ``key_cols``.
 
     All inputs share one row axis; ``valid`` masks live rows. Outputs have
     length ``capacity``, live groups first in key order; ``overflow`` is
     set when there are more groups than ``capacity`` (the groups past it
-    are dropped, so the caller must not use the result then)."""
+    are dropped, so the caller must not use the result then).
+
+    ``presorted=False``: the keys' stable sort and one stacked gather, then
+    the segment finisher; ``input_was_sorted`` says (at no extra cost, off
+    the sort's permutation) whether the sort was needed. ``presorted=True``:
+    no sort and no gather; the live rows are speculated to be
+    grouped-adjacent in key order (TPC-H lineitem grouped by l_orderkey),
+    and the caller must validate ``sorted_ok`` (deferred speculation)."""
+    if presorted:
+        return _segment_aggregate(
+            valid, key_cols, key_nulls, val_cols, val_nulls, None, tuple(ops),
+            capacity, clustered=True,
+        )
     # valid rows first; a null key sorts by its flag, then a zeroed value,
     # so all of a key's nulls compare equal
     passes: list[tuple[torch.Tensor, bool]] = [(~valid, False)]
@@ -440,8 +529,8 @@ def group_aggregate(
     )
     nk = len(key_cols)
     return _segment_aggregate(
-        s_valid, s_cols[:nk], s_nulls[:nk], s_cols[nk:], s_nulls[nk:], tuple(ops),
-        capacity,
+        s_valid, s_cols[:nk], s_nulls[:nk], s_cols[nk:], s_nulls[nk:], perm, tuple(ops),
+        capacity, clustered=False,
     )
 
 

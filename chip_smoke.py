@@ -17,7 +17,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``csrc/partition_hash.cu`` and ``csrc/prefix_sum.cu`` for sm_90a, one
    nvcc each, started together (``ops/cuda_build.build_many``), and print
    the build seconds and the ``-Xptxas -v`` report. Then TPC-H at ``--sf``
-   (seed 42) for phases 4-15, written as Arrow IPC files into a temporary
+   (seed 42) for phases 4-16, written as Arrow IPC files into a temporary
    directory from which a process of its own (``CpuReference``, spawned,
    never touching the card) runs phase 6's CPU runs beside phases 3-5.
 3. Kernel against its plain version at q1's shapes (n = 2^21 and 2^20,
@@ -225,8 +225,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    eager-fed or pushed reads
    (the readers' shipped ``eager_polls``, the executors' push registry),
    every hash-partitioned batch was grouped by the kernel's grouped mode
-   with one wait, and q1 launched the one-hot kernel. (b) The same five
-   push-staged, one run each, held the same way. (c) The
+   with one wait, and q1 launched the one-hot kernel. (b) The same but
+   q18 (cut to make room for phase 16) push-staged, one run each, held the
+   same way. (c) The
    other seventeen TPC-H queries once each through cluster (a), held
    against the card's collect-mode results of phases 4-6 (the same SQL,
    spec constants that select nothing replaced from the data as in phase
@@ -379,10 +380,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the flips, retries and launches, the bytes the cache holds, and the
    peak device memory with the cache (its warm runs) and without it (one
    more warm round at 0, after the 2048 plan instances were dropped).
-16. One JSON line of kernel results (the one-hot kernel, the
+16. The adaptive capacity machinery (``adaptive_path``), on the tables of
+   phase 5 in one ``TorchContext(device="cuda")`` at
+   ``ballista.tpu.build_cache_mb`` 0: q18, q5, q3, q10, q6 and q13 once
+   cold and three times warm, each run held against phases 4-6's results,
+   the warm runs bit for bit among themselves with no retry or miss;
+   q18's lineitem aggregate on the disjoint-clustered path
+   (``disjoint_break`` 0, ``final_disjoint_skip`` at least 1) and a shrink
+   at some site of q18 and of q5. Then two forced stale cases, each one
+   SpeculationMiss and one re-run to the right result: a filter whose
+   input grew under its learned shrink capacity (``GROWN_SQL``), and q18
+   over lineitem shuffled within each scan batch under its learned
+   clustered-input entries. Prints the shrink sites learned, the
+   presorted and state-slice entries, q18's counters, each warm run's
+   retries and misses, a warm run's host syncs and the phase's peak
+   device memory, and replays one launch per distinct shape of each
+   kernel against its plain version.
+17. One JSON line of kernel results (the one-hot kernel, the
    partition-hash kernel's ids and grouped modes, and the prefix-sum
    kernel at the largest shape the main path gave it, with its launches
-   on phases 4-15), then the card's name and power limit, then the last
+   on phases 4-16), then the card's name and power limit, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
@@ -406,6 +423,11 @@ runs on one card. ``--aqe-only`` runs phase 1, builds both kernels,
 generates TPC-H at ``--sf``, runs phase 13 with the five queries held
 against one collect-mode run each on the card and the oracles, replays
 its launches, prints its results as one JSON line, and stops.
+``--adaptive-timing`` runs phase 1, builds the kernels, generates TPC-H at
+``--sf`` and times phase 16's six queries (``adaptive_timing``: one cold
+run, then ``--warm`` warm runs at ``build_cache_mb`` 0 and as many at
+2048 in turns), prints them as one JSON line, and stops: run it once per
+checkout (``--root``) in one call, in turns, to compare two trees.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2841,8 +2863,13 @@ def staged_path(data: dict, oracles: dict, rec: LaunchRecorder, prec: PartitionR
     log(f"stages: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     def capture(q):
-        with tempfile.TemporaryDirectory(prefix="ballista_stages-") as work:
-            run_staged(ctx, sqls[q], work, caches[q])
+        # once with an empty plan cache, as the cold run, and once with the
+        # warm runs' cache: a site that shrinks several batches decides each
+        # batch's capacity on the cold run and takes their largest warm
+        # (exec/shrink.py), so the two can launch at different shapes
+        for cache in ({}, caches[q]):
+            with tempfile.TemporaryDirectory(prefix="ballista_stages-") as work:
+                run_staged(ctx, sqls[q], work, cache)
 
     capture_runs([rec, prec], {f"{q}-stages": (lambda q=q: capture(q)) for q in STAGED_QUERIES})
     out["launches"] = launches
@@ -3445,7 +3472,9 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
                 t0 = time.perf_counter()
                 ctx = cluster(CLUSTER_SETTINGS, policy=policy)
                 try:
-                    for q in CLUSTER_QUERIES:
+                    # q18 runs push-staged no more: its 10-13 s a run made
+                    # room for phase 16 (the other four cover the path)
+                    for q in CLUSTER_QUERIES if part == "cluster" else STAGED_QUERIES:
                         tag = f"{q}-{part}"
                         rec.tag = prec.tag = tag
                         runs = []
@@ -5164,6 +5193,311 @@ def build_cache_path(data: dict, earlier: dict, rec: "LaunchRecorder", prec: "Pa
     return out
 
 
+# -- phase 16: the adaptive capacity machinery ---------------------------------
+
+# TPC-H queries whose plans reach the capacity shrink or the clustered
+# aggregate: q18's HAVING over lineitem grouped by l_orderkey (clustered:
+# the disjoint path) and its SEMI join; q5's and q3's filtered builds and
+# joins; q10's joins; q6's selective filter chain feeding a scalar
+# aggregate; q13's LEFT join and its two aggregates
+ADAPTIVE_QUERIES = ("q18", "q5", "q3", "q10", "q6", "q13")
+ADAPTIVE_WARM = 3  # warm runs a query
+ADAPTIVE_COUNTERS = (
+    "input_batches", "boundary_trims", "disjoint_break", "final_disjoint_skip",
+    "final_disjoint_miss",
+)
+ADAPTIVE_FAMILIES = ("shrink", "agg_sorted", "agg_state_cap", "agg_state_prefix")
+# a float SUM that is not a decimal at any scale over lineitem grouped by
+# its clustered l_orderkey: warm runs take the presorted arm, whose f64
+# prefix reads the live rows moved to the front, as the cold run's sort
+# path does (the same bits)
+CLUSTERED_F64_SQL = (
+    "SELECT l_orderkey, SUM(l_extendedprice / (l_quantity + 1)) AS s, COUNT(*) AS c "
+    "FROM lineitem GROUP BY l_orderkey ORDER BY s DESC, l_orderkey LIMIT 20"
+)
+# the forced shrink staleness: a filter that keeps 0.1% of 4,194,304 rows
+# learns a shrink, then keeps 30% of them under the learned capacity
+GROWN_SQL = "SELECT COUNT(*) AS c, SUM(v) AS s FROM grown WHERE k < 1000"
+
+
+def oracle_clustered_f64(li) -> dict:
+    """CLUSTERED_F64_SQL in numpy."""
+    import numpy as np
+
+    ok = li.column("l_orderkey").to_numpy()
+    x = li.column("l_extendedprice").to_numpy() / (li.column("l_quantity").to_numpy() + 1)
+    keys, inv = np.unique(ok, return_inverse=True)
+    s = np.bincount(inv, weights=x)
+    top = np.lexsort((keys, -s))[:20]
+    return {"l_orderkey": keys[top], "s": s[top], "c": np.bincount(inv)[top].astype(np.int64)}
+
+
+def adaptive_entries(cache: dict) -> dict:
+    return {k: v for k, v in cache.items() if isinstance(k, tuple) and k and k[0] in ADAPTIVE_FAMILIES}
+
+
+def site_head(key: tuple) -> str:
+    """A learned entry's site in one line: the first line of the plan
+    display it names."""
+    site = next((p for p in key[1:] if isinstance(p, str) and p), "")
+    return site.split("\n")[0][:90]
+
+
+def grown_table(live: int, seed: int):
+    """4,194,304 rows, ``live`` of them with ``k < 1000``."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    n = 1 << 22
+    k = np.full(n, 1 << 20, dtype=np.int64)
+    k[rng.choice(n, live, replace=False)] = rng.integers(0, 1000, live)
+    return pa.table({"k": k, "v": rng.random(n)})
+
+
+def shuffled_in_batches(table, partitions: int, batch_rows: int, seed: int):
+    """``table`` with its rows shuffled within each batch that a memory scan
+    of ``partitions`` partitions and ``batch_rows``-row batches reads
+    (``exec/scan.MemoryScanExec``): every batch keeps its rows, so every
+    partial state keeps its groups and every filter its live count, but no
+    batch is clustered any more."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = table.num_rows
+    per = -(-n // partitions)
+    idx = np.arange(n)
+    for p0 in range(0, n, per):
+        for b0 in range(p0, min(p0 + per, n), batch_rows):
+            b1 = min(b0 + batch_rows, p0 + per, n)
+            idx[b0:b1] = rng.permutation(idx[b0:b1])
+    return table.take(idx)
+
+
+def adaptive_path(data: dict, earlier: dict, rec: "LaunchRecorder", prec: "PartitionRecorder") -> dict:
+    """Phase 16: the adaptive capacity shrink and the aggregate's clustered
+    paths on one ``TorchContext(device="cuda")`` over phase 5's tables at
+    ``build_cache_mb`` 0 (a kept build table would skip the subtrees that
+    shrink and aggregate). Each query of ``ADAPTIVE_QUERIES`` runs cold
+    once and ``ADAPTIVE_WARM`` times warm, each run held against phases
+    4-6's card results (keys and counts exactly, floats within rtol 1e-9,
+    the money sums bit for bit); the warm runs bit for bit among
+    themselves, with no retry and no miss. q18's lineitem aggregate must
+    take the disjoint path (no break, a final disjoint skip) and q18 and q5
+    must shrink at some site. ``CLUSTERED_F64_SQL`` runs the same way
+    against its numpy oracle, its warm runs (the presorted arm) bit for bit
+    with its cold run (the sort path). Then two forced stale cases, each one
+    SpeculationMiss, one re-run and a right result: a filter whose input
+    grew under its learned shrink capacity, and q18 over lineitem shuffled
+    within each scan batch under its learned ``agg_sorted`` entries. Prints
+    the shrink sites learned (site, partition, capacity -> capacity), the
+    presorted and state-slice entries, q18's counters, each warm run's
+    retries and misses, a warm run's host syncs and the phase's peak device
+    memory. The kernels' launches are recorded (their inputs kept on the
+    host) for the replays."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.base import plan_counters
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = BallistaConfig({"ballista.tpu.build_cache_mb": "0"})
+    ctx = TorchContext(cfg, device="cuda")
+    for name in ("lineitem", "orders", "customer", "nation", "region", "supplier"):
+        ctx.register_table(name, data[name])
+    launches = {"onehot": 0, "prefix": 0, "partition": 0, "grouped": 0}
+    out: dict = {}
+
+    def one_run(tag: str, sql: str, syncs: bool = False) -> dict:
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        p0 = prefix_sum.launches
+        rec.tag = prec.tag = tag
+        try:
+            t = time.perf_counter()
+            df = ctx.sql(sql)
+            if syncs:
+                (res, plan), n_syncs = count_syncs(df.collect_with_plan)
+            else:
+                res, plan = df.collect_with_plan()
+                n_syncs = None
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            rec.tag = prec.tag = None
+        r = dict(s=secs, table=res, plan=plan, stats=dict(df.stats), syncs=n_syncs,
+                 launches=onehot_agg.launches, plaunches=prefix_sum.launches - p0,
+                 hlaunches=partition.launches, glaunches=partition.group_launches,
+                 **plan_counters(plan, ADAPTIVE_COUNTERS))
+        launches["onehot"] += r["launches"]
+        launches["prefix"] += r["plaunches"]
+        launches["partition"] += r["hlaunches"]
+        launches["grouped"] += r["glaunches"]
+        return r
+
+    f64_want = oracle_clustered_f64(data["lineitem"])
+
+    def held(tag: str, q: str, got, want) -> None:
+        if q == "f64":
+            compare(tag, got, f64_want)
+        else:
+            held_as(tag, q, got, want, exact=True)
+
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = True
+    try:
+        for q in ADAPTIVE_QUERIES + ("f64",):
+            sql, want = earlier[q] if q != "f64" else (CLUSTERED_F64_SQL, None)
+            before = adaptive_entries(ctx._plan_cache)
+            tag = f"{q}-adaptive"
+            cold = one_run(tag, sql)
+            held(f"{tag} cold", q, cold["table"], want)
+            warm = []
+            for i in range(ADAPTIVE_WARM):
+                # the second warm run counts its host syncs (sync debug mode
+                # slows it: its seconds are not kept)
+                warm.append(one_run(tag, sql, syncs=i == 1))
+                held(f"{tag} warm {i}", q, warm[-1]["table"], want)
+            for r in warm[1:]:
+                check(r["table"].equals(warm[0]["table"]), f"{tag}: two warm runs differ")
+            if q == "f64":
+                check(warm[0]["table"].equals(cold["table"]), f"{tag}: the presorted arm's bits differ from the sort path's")
+            check(not any(r["stats"] for r in warm), f"{tag}: a warm run retried: {[r['stats'] for r in warm]}")
+            learned = {k: v for k, v in adaptive_entries(ctx._plan_cache).items() if before.get(k) != v}
+            shrinks = [
+                dict(site=site_head(k), partition=k[2], capacity=k[3], to=v)
+                for k, v in learned.items() if k[0] == "shrink"
+            ]
+            layouts = [
+                dict(entry=k[0], site=site_head(k), key=[p for p in k[3:] if not isinstance(p, str)], value=v)
+                for k, v in learned.items() if k[0] != "shrink"
+            ]
+            out[q] = dict(
+                cold_s=cold["s"], cold_stats=cold["stats"],
+                warm_s=[r["s"] for i, r in enumerate(warm) if i != 1],
+                warm_stats=[r["stats"] for r in warm], warm_syncs=warm[1]["syncs"],
+                shrinks=shrinks, shrunk=sum(1 for s in shrinks if s["to"]), layouts=layouts,
+                counters={c: warm[0][c] for c in ADAPTIVE_COUNTERS},
+                cold_counters={c: cold[c] for c in ADAPTIVE_COUNTERS},
+                onehot_launches=[r["launches"] for r in [cold] + warm],
+                prefix_launches=[r["plaunches"] for r in [cold] + warm],
+                partition_launches=[r["hlaunches"] for r in [cold] + warm],
+            )
+            log(f"{tag}: ok  {json.dumps(out[q])}")
+        check(out["f64"]["prefix_launches"][-1] > 0, "f64-adaptive: a warm run launched no prefix sum")
+        q18 = out["q18"]
+        check(q18["counters"]["disjoint_break"] == 0 and q18["counters"]["final_disjoint_skip"] >= 1,
+              f"q18-adaptive: the lineitem aggregate left the disjoint path: {q18['counters']}")
+        check(any(e["entry"] == "agg_sorted" and e["value"] is True for e in q18["layouts"]),
+              "q18-adaptive: no clustered-input entry learned")
+        for q in ("q18", "q5"):
+            check(out[q]["shrunk"] > 0, f"{q}-adaptive: no site shrank")
+
+        # (a) a grown input under a learned shrink capacity. Registering a
+        # table clears the plan cache: what was learned is put back, as a
+        # hint file would seed a new process
+        learned = {k: v for k, v in ctx._plan_cache.items() if k != "__build_cache_bytes__"}
+        ctx.register_table("grown", grown_table(4194, seed=31))
+        ctx._plan_cache.update(learned)
+        learn = one_run("grown-adaptive", GROWN_SQL)
+        kept = {k: v for k, v in ctx._plan_cache.items() if k != "__build_cache_bytes__"}
+        check(any(k[0] == "shrink" and v and k[1].startswith("FilterExec: k < 1000") for k, v in adaptive_entries(kept).items()),
+              "grown: the filter learned no shrink")
+        big = grown_table(1_258_291, seed=32)
+        ctx.register_table("grown", big)
+        ctx._plan_cache.update(kept)
+        stale = one_run("grown-adaptive", GROWN_SQL)
+        kv, vv = big.column("k").to_numpy(), big.column("v").to_numpy()
+        compare("grown-adaptive", stale["table"], {"c": np.array([int((kv < 1000).sum())]),
+                                                   "s": np.array([vv[kv < 1000].sum()])})
+        check(stale["stats"] == {"speculation_misses": 1},
+              f"grown-adaptive: {stale['stats']}, expected exactly one speculation miss")
+        out["grown"] = dict(learn_s=learn["s"], stale_s=stale["s"], stale_stats=stale["stats"])
+        log(f"grown-adaptive: ok  {json.dumps(out['grown'])}")
+
+        # (b) lineitem shuffled within its scan batches under learned
+        # clustered-input entries
+        sql, want = earlier["q18"]
+        kept = {k: v for k, v in ctx._plan_cache.items() if k != "__build_cache_bytes__"}
+        ts = time.perf_counter()
+        shuffled = shuffled_in_batches(data["lineitem"], cfg.default_shuffle_partitions(), cfg.tpu_batch_rows(), seed=33)
+        shuffle_s = time.perf_counter() - ts
+        ctx.register_table("lineitem", shuffled)
+        ctx._plan_cache.update(kept)
+        stale = one_run("q18-shuffled-adaptive", sql)
+        held_as("q18-shuffled-adaptive", "q18", stale["table"], want, exact=True)
+        check(stale["stats"] == {"speculation_misses": 1},
+              f"q18-shuffled-adaptive: {stale['stats']}, expected exactly one speculation miss")
+        flipped = [k for k, v in kept.items() if k[0] == "agg_sorted" and v is True
+                   and ctx._plan_cache.get(k) is not True]
+        check(bool(flipped), "q18-shuffled-adaptive: no clustered-input entry was dropped")
+        out["shuffled"] = dict(shuffle_s=shuffle_s, stale_s=stale["s"], stale_stats=stale["stats"],
+                               dropped=[site_head(k) for k in flipped],
+                               counters={c: stale[c] for c in ADAPTIVE_COUNTERS})
+        log(f"q18-shuffled-adaptive: ok  {json.dumps(out['shuffled'])}")
+    finally:
+        rec.tag = prec.tag = None
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = False
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["s"] = time.perf_counter() - t0
+    log(f"adaptive: peak device memory {out['peak_bytes']} bytes ({out['peak_bytes'] / 2**30:.3f} GiB), "
+        f"launches {json.dumps(launches)}, {out['s']:.1f}s")
+    out.update(launches=launches["onehot"], prefix_launches=launches["prefix"],
+               partition_launches=launches["partition"], grouped_launches=launches["grouped"])
+    return out
+
+
+def adaptive_timing(root: pathlib.Path, sf: float, seed: int, warm: int) -> dict:
+    """Seconds of phase 16's queries for one checkout (``root``'s
+    ``benchmarks/queries``, spec constants replaced from the data): on one
+    ``TorchContext(device="cuda")``, each query cold at ``build_cache_mb``
+    0, then ``warm`` warm runs at 0 and ``warm`` at 2048 in turns (the
+    setting swapped on the context between runs, as phase 15 does), with
+    each run's retries and misses."""
+    import torch
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.tpch import gen_all, spec_substitutions
+
+    data = gen_all(sf, seed)
+    off, on = BallistaConfig({"ballista.tpu.build_cache_mb": "0"}), BallistaConfig()
+    ctx = TorchContext(off, device="cuda")
+    for name, t in data.items():
+        ctx.register_table(name, t)
+    out = {}
+    for q in ADAPTIVE_QUERIES:
+        sql = (root / "benchmarks" / "queries" / f"{q}.sql").read_text()
+        for old, new in spec_substitutions(q, data).items():
+            sql = sql.replace(old, new)
+
+        def run(cfg) -> tuple:
+            ctx.config = cfg
+            t = time.perf_counter()
+            df = ctx.sql(sql)
+            df.collect()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, sum(df.stats.values())
+
+        cold = run(off)
+        turns: dict = {"off": [], "on": []}
+        for _ in range(warm):
+            turns["off"].append(run(off))
+            turns["on"].append(run(on))
+        out[q] = dict(cold_s=cold[0], cold_retries=cold[1],
+                      warm_off_s=[s for s, _ in turns["off"]], warm_on_s=[s for s, _ in turns["on"]],
+                      warm_retries=[r for s, r in turns["off"] + turns["on"]])
+        log(f"{q}: {json.dumps(out[q])}")
+    ctx.config = off
+    return out
+
+
 def aqe_only(sf: float, seed: int) -> dict:
     """``--aqe-only``: phase 13 alone, on TPC-H at ``sf``, the five cluster
     queries held against one ``TorchContext(device="cuda")`` collect each
@@ -5319,6 +5653,11 @@ def main() -> int:
         "AQE off), then stop",
     )
     ap.add_argument(
+        "--adaptive-timing", action="store_true",
+        help="only time phase 16's six queries (a cold run, then --warm warm "
+        "runs at build_cache_mb 0 and at 2048 in turns), then stop",
+    )
+    ap.add_argument(
         "--settings", default="{}",
         help="session settings (a JSON object) of --collect-timing's context",
     )
@@ -5372,6 +5711,13 @@ def main() -> int:
         log(smi)
         return 0
 
+    if args.adaptive_timing:
+        cuda_build.build_many(sources)
+        log(json.dumps({"adaptive_timing": adaptive_timing(pkg_root, args.sf, args.seed, args.warm),
+                        "root": str(pkg_root)}))
+        log(smi)
+        return 0
+
     if args.prefix_queries:
         cuda_build.build_many(sources)
         log(json.dumps({"prefix_queries": prefix_queries(args.sf, args.seed, args.warm),
@@ -5395,7 +5741,7 @@ def main() -> int:
                 log(f"  nvcc: {line.strip()}")
     log(f"build: the kernels in {time.perf_counter() - t0:.2f}s")
 
-    # TPC-H at --sf for phases 4-15; phase 6's CPU runs start now, in a
+    # TPC-H at --sf for phases 4-16; phase 6's CPU runs start now, in a
     # process of their own, beside phases 3-5
     import atexit
 
@@ -5441,7 +5787,7 @@ def main() -> int:
 
     # 4. main path (q1, q6, the wide GROUP BY)
     t0 = time.perf_counter()
-    # the prefix-sum kernel's launches on the main path (phases 4-15), by
+    # the prefix-sum kernel's launches on the main path (phases 4-16), by
     # phase; capture runs and replays set the count back
     prefix_sum.launches = 0
     pl_by_phase: dict = {}
@@ -5576,7 +5922,19 @@ def main() -> int:
         replays += replay_launches(rec)
         preplays += replay_partition_launches(prec)
         prefix_mark(15)
-        log(f"phase 15 took {time.perf_counter() - t0:.1f}s; prefix-sum launches by phase "
+        log(f"phase 15 took {time.perf_counter() - t0:.1f}s; {smi}")
+
+        # 16. the adaptive capacity shrink and the clustered aggregate
+        t0 = time.perf_counter()
+        ad = adaptive_path(data, earlier, rec, prec)
+        prefix_mark(16)
+        adaptive_replays = replay_launches(rec)
+        replays += adaptive_replays
+        adaptive_preplays = replay_partition_launches(prec)
+        preplays += adaptive_preplays
+        adaptive_prefix_replays = replay_prefix_launches(rec)
+        check(bool(adaptive_replays) and bool(adaptive_prefix_replays), "phase 16: no launch replayed")
+        log(f"phase 16 took {time.perf_counter() - t0:.1f}s; prefix-sum launches by phase "
             f"{json.dumps(pl_by_phase)}; {smi}")
     prefix_launches = prefix_sum.launches
     check(prefix_launches == sum(pl_by_phase.values()), "prefix-sum launches: the phases do not add up")
@@ -5590,7 +5948,7 @@ def main() -> int:
         check(bool(prec.shapes.get(q)), f"{q}: no partition-hash launch recorded")
     for q in CLUSTER_QUERIES:
         for path in ("stages", "fleet", "cluster", "cluster-push"):
-            if path in ("cluster", "cluster-push") or q in STAGED_QUERIES:
+            if path == "cluster" or q in STAGED_QUERIES:
                 check(
                     any(m == "grouped" for _, _, _, m in prec.shapes.get(f"{q}-{path}", [])),
                     f"{q}-{path}: no grouped launch recorded",
@@ -5622,15 +5980,16 @@ def main() -> int:
         jp["partition_launches"] + rp["partition_launches"] + gp["partition_launches"]
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
         + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
-        + pg["partition_launches"] + bc["partition_launches"]
+        + pg["partition_launches"] + bc["partition_launches"] + ad["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
         + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
         + aq["grouped_launches"] + pg["grouped_launches"] + bc["grouped_launches"]
+        + ad["grouped_launches"]
     )
 
-    # 16. results
+    # 17. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -5644,7 +6003,7 @@ def main() -> int:
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
             + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
-            + pg["launches"] + bc["launches"]
+            + pg["launches"] + bc["launches"] + ad["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -5686,9 +6045,9 @@ def main() -> int:
         ("partition_groups", grouped, glaunches),
     )]
     # the prefix-sum kernel at the largest shape the main path gave it
-    # (phase 14's replays: call, plain, library and bound; device time by
+    # (phases 14 and 16's replays: call, plain, library and bound; device time by
     # torch.profiler), and phase 3's 6,000,000-row case
-    pr = max(prefix_replays, key=lambda r: (r["n"] * r["k"], r["n"]))
+    pr = max(prefix_replays + adaptive_prefix_replays, key=lambda r: (r["n"] * r["k"], r["n"]))
     p6m = next(c for c in pfx["cases"] if c["n"] == 6_000_000 and c["k"] == 1)
     kernels.append({
         "name": "prefix_sums",
@@ -5696,8 +6055,8 @@ def main() -> int:
         "source": "ballista_tpu_torch/csrc/prefix_sum.cu",
         "replaces": "ballista_tpu/ops/aggregate.py:403",
         "launches": prefix_launches,
-        # every comparison of phases 3 and 14 is bit for bit
-        "max_abs_err": max(r["max_abs_err"] for r in pfx["cases"] + prefix_replays),
+        # every comparison of phases 3, 14 and 16 is bit for bit
+        "max_abs_err": max(r["max_abs_err"] for r in pfx["cases"] + prefix_replays + adaptive_prefix_replays),
         "ms": pr["ms"],
         "device_ms": pr["device_ms"],
         "plain_ms": pr["plain_ms"],
@@ -5764,6 +6123,8 @@ def main() -> int:
                          "grouped": aq["grouped_launches"]},
         "aqe_replays": aqe_replays + aqe_preplays,
         "build_cache": {k: v for k, v in bc.items() if not k.endswith("launches")},
+        "adaptive": {k: v for k, v in ad.items() if not k.endswith("launches")},
+        "adaptive_prefix_replays": adaptive_prefix_replays,
         "sf": args.sf,
     }))
     log(json.dumps({"kernels": kernels}))

@@ -107,6 +107,30 @@ def test_site_capacities_persist_and_merge(hint_dir):
     assert h["site_capacity"] == {site: 1 << 14, other: 8192}
 
 
+def test_adaptive_capacity_families_round_trip(hint_dir):
+    """The four plan-cache families of the adaptive capacity machinery
+    (the shrink's capacities and its sticky 0, the clustered-input flags,
+    the state-slice capacities and prefix flags), as a run commits them
+    (host ints and bools), survive the file in both packages' stores."""
+    from ballista_tpu.compilecache.hints import HintStore as RefStore
+
+    site = "HashAggregateExec(mode=partial): gby=[k], aggr=[SUM(v)#sum]\n  MemoryScanExec: cols=*"
+    cache = {
+        ("shrink", "FilterExec: k < 3\n  MemoryScanExec: cols=*", 0, 1 << 21): 8192,
+        ("shrink", "HashJoinExec(semi, collect): on=[k = k]", 1, 1 << 20): 0,
+        ("agg_sorted", "", site, False, 1 << 21): True,
+        ("agg_sorted", "", site + "|fold", True, 1 << 18): False,
+        ("agg_state_cap", "", site, 0): 1500,
+        ("agg_state_prefix", "", site, 0): True,
+    }
+    assert HintStore().save_if_changed({}, dict(cache))
+    for store in (HintStore, RefStore):
+        got: dict = {}
+        assert store().load_once({}, got) == len(cache)
+        assert got == cache
+        assert all(type(got[k]) is type(v) for k, v in cache.items())
+
+
 def test_hint_store_corrupt_file_and_off(hint_dir, monkeypatch):
     from ballista_tpu.compilecache.hints import HintStore as RefStore
     from ballista_tpu.compilecache.hints import store_path as ref_store_path

@@ -63,6 +63,19 @@ def test_every_port_operator_is_mapped():
     assert ref_only == {"MeshAggregateExec", "MeshJoinExec", "MeshSortExec", "MeshWindowExec"}
 
 
+def test_shrink_program_is_declared_where_the_reference_declares_it():
+    """The adaptive shrink (``exec/shrink.maybe_shrink``) is a program of
+    the operators that call it: the Filter/Projection chain, the joins and
+    the percentile, and no other. The reference maps its ``exec.shrink.f``
+    to the chain only, though its joins and percentile call it too."""
+    name = "exec.shrink.maybe_shrink"
+    assert registry.PROGRAMS[name].source == "exec/shrink.py"
+    ours = {op for op, ks in registry.OPERATOR_KERNELS.items() if name in ks}
+    refs = {op for op, ks in ref_registry.OPERATOR_KERNELS.items() if "exec.shrink.f" in ks}
+    assert ours == {"FilterExec", "ProjectionExec", "HashJoinExec", "CrossJoinExec", "PercentileExec"}
+    assert refs == {"FilterExec", "ProjectionExec"}
+
+
 @pytest.mark.parametrize("qi", list(range(1, 23)))
 def test_check_plan_is_clean_on_tpch(ctx, qi):
     """The port's physical plan of each TPC-H query, in collect mode and
