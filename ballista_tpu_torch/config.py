@@ -14,6 +14,7 @@ fetch, shuffle, trace, metrics and cost keys (``executor/``).
 
 from __future__ import annotations
 
+import dataclasses
 from enum import Enum
 
 from ballista_tpu_torch.columnar.batch import CapacityLadder
@@ -205,6 +206,158 @@ UNPORTED: dict[str, str] = {
     BALLISTA_PREWARM: "ROADMAP queue 1, item 10b (kernel registry)",
     BALLISTA_COLLECTIVE_SHUFFLE: "ROADMAP queue 1, item 10b (multi-device)",
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvEntry:
+    """One declared ``BALLISTA_*`` environment variable (the reference's
+    ``config.EnvEntry``). Process-scoped knobs (daemons have no session
+    config at start; debug witnesses must not ride query settings) live
+    here; everything query-scoped is a key of ``_ENTRIES`` above. The
+    ``config-registry`` analyzer (``analysis/configlint.py``) proves every
+    env read site of the package resolves to exactly one entry, and
+    ``ballista_tpu_torch/docs/config.md`` is generated from both tables. A
+    trailing ``*`` declares a prefix family (per-flag daemon overrides)."""
+
+    name: str
+    kind: str  # value shape shown in docs ("0|1", "path|off", ...)
+    default: str
+    description: str
+    doc: str  # the module that reads it
+
+
+# What the port reads, nothing more: the reference's XLA cache, fusion,
+# capacity and prewarm-ladder variables and its test-harness limit have no
+# reader here.
+ENV_REGISTRY: tuple[EnvEntry, ...] = (
+    EnvEntry(
+        "BALLISTA_FAULTS", "JSON list", "",
+        "Deterministic fault-injection rules installed at import; chaos "
+        "tests set it in subprocess environments only",
+        "testing/faults.py",
+    ),
+    EnvEntry(
+        "BALLISTA_FAULTS_SEED", "int", "0",
+        "Seed for probabilistic fault rules (p < 1)",
+        "testing/faults.py",
+    ),
+    EnvEntry(
+        "BALLISTA_LOCK_WITNESS", "0|1", "0",
+        "Runtime lock-order witness: control-plane locks record per-thread "
+        "acquisition order and flag inversions live",
+        "analysis/witness.py",
+    ),
+    EnvEntry(
+        "BALLISTA_RESOURCE_WITNESS", "0|1", "0",
+        "Runtime resource witness: channels, pools, files and spill sets "
+        "register on acquire and must drain to zero at shutdown",
+        "analysis/reswitness.py",
+    ),
+    EnvEntry(
+        "BALLISTA_REPLAY_WITNESS", "0|1", "0",
+        "Runtime replay witness: committed shuffle outputs and final result "
+        "partitions record canonical content hashes; retries, lineage "
+        "recomputes and certified rewrites must re-record identical hashes",
+        "analysis/replay.py",
+    ),
+    EnvEntry(
+        "BALLISTA_CACHE_WITNESS", "0|1", "0",
+        "Runtime cache-staleness witness: sampled cache hits are re-derived "
+        "fresh and must hash-match what was served",
+        "analysis/stalewitness.py",
+    ),
+    EnvEntry(
+        "BALLISTA_CACHE_WITNESS_SAMPLE", "float 0..1", "1",
+        "Fraction of cache hits the staleness witness re-derives "
+        "(deterministic per-cache stride, no RNG)",
+        "analysis/stalewitness.py",
+    ),
+    EnvEntry(
+        "BALLISTA_DUR_WITNESS", "0|1", "0",
+        "Runtime durability witness: a restarted scheduler's recovered "
+        "state is diffed against the declared durability classes: "
+        "persisted fields round-trip, rebuilt fields converge, ephemeral "
+        "fields start empty",
+        "analysis/durwitness.py",
+    ),
+    EnvEntry(
+        "BALLISTA_RPC_TIMEOUT_S", "seconds", "30",
+        "Default per-call deadline for scheduler-side gRPC and etcd client "
+        "calls; 0 disables the default deadline",
+        "scheduler/rpc.py",
+    ),
+    EnvEntry(
+        "BALLISTA_AQE", "0|1", "",
+        "Process-wide adaptive-query-execution override: 0/off forces AQE "
+        "off regardless of session config, 1/on forces it on; unset defers "
+        "to ballista.tpu.aqe",
+        "scheduler/aqe.py",
+    ),
+    EnvEntry(
+        "BALLISTA_TPU_HINT_CACHE", "path|off", "~/.cache/ballista_tpu_torch",
+        "Persisted plan-shape hints (join strategies, learned capacities, "
+        "AQE strategies) location override",
+        "compilecache/hints.py",
+    ),
+    EnvEntry(
+        "BALLISTA_TPU_PREWARM", "off", "off",
+        "Kernel prewarm mode of executor processes; only off is supported "
+        "(an explicit --prewarm flag wins)",
+        "executor/__main__.py",
+    ),
+    EnvEntry(
+        "BALLISTA_PLUGIN_DIR", "path", "",
+        "UDF plugin directory consulted alongside ballista.plugin_dir",
+        "plugin.py",
+    ),
+    EnvEntry(
+        "BALLISTA_SCHEDULER_*", "per-flag", "",
+        "Scheduler daemon CLI-flag defaults (BALLISTA_SCHEDULER_<FLAG>=v)",
+        "scheduler/__main__.py",
+    ),
+    EnvEntry(
+        "BALLISTA_EXECUTOR_*", "per-flag", "",
+        "Executor daemon CLI-flag defaults (BALLISTA_EXECUTOR_<FLAG>=v)",
+        "executor/__main__.py",
+    ),
+)
+
+
+def env_entry_for(name: str) -> EnvEntry | None:
+    """The registry entry covering env var ``name`` (exact or prefix
+    family), or None: the runtime side of the configlint closure."""
+    for e in ENV_REGISTRY:
+        if e.name.endswith("*"):
+            if name.startswith(e.name[:-1]):
+                return e
+        elif e.name == name:
+            return e
+    return None
+
+
+_ENV_WARNED = False
+
+
+def warn_unknown_env() -> list[str]:
+    """Warn (once per process) about ``BALLISTA_*`` environment variables
+    no registry entry covers: a typo'd knob silently doing nothing is the
+    env-var analogue of the unknown-config-key ConfigError. Returns the
+    offending names (for tests)."""
+    import logging
+    import os
+
+    global _ENV_WARNED
+    unknown = sorted(
+        k for k in os.environ
+        if k.startswith("BALLISTA_") and env_entry_for(k) is None
+    )
+    if unknown and not _ENV_WARNED:
+        logging.getLogger(__name__).warning(
+            "unrecognized BALLISTA_* environment variables (typo? see "
+            "ballista_tpu_torch/docs/config.md): %s", ", ".join(unknown),
+        )
+    _ENV_WARNED = True
+    return unknown
 
 
 class TaskSchedulingPolicy(Enum):

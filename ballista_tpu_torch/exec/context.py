@@ -279,15 +279,15 @@ class TorchContext(Catalog, TableProvider):
         hist = self._system_history()
         self._local_query_seq += 1
         job_id = f"local-{self._local_query_seq:06d}"
-        now = time.time()
+        submitted_s = obs_history.started_at(wall_s)
         cost = obs_history.cost_from_run(
             wall_seconds=wall_s, cpu_seconds=cpu_s, plan=phys, compile_seconds=compile_s,
         )
         qclass = plan_class(phys)
-        hist.record_submit(job_id, query_class=qclass, submitted_s=now - wall_s)
+        hist.record_submit(job_id, query_class=qclass, submitted_s=submitted_s)
         hist.record_terminal(
             job_id, "completed", query_class=qclass,
-            submitted_s=now - wall_s, latency_s=wall_s, cost=cost,
+            submitted_s=submitted_s, latency_s=wall_s, cost=cost,
         )
 
     # -- Catalog / TableProvider ---------------------------------------------

@@ -120,6 +120,9 @@ def main(argv: list[str] | None = None) -> int:
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
+    from ballista_tpu_torch.config import warn_unknown_env
+
+    warn_unknown_env()  # typo'd BALLISTA_* knobs must be loud
     policy = TaskSchedulingPolicy.parse(args.task_scheduling_policy)
     check_prewarm(args.prewarm)
     # the device first: without a card (and without --device cpu) the

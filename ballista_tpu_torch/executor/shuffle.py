@@ -357,7 +357,7 @@ class _PushAppender(_Appender):
         self._registry = REGISTRY
         # the registry owns the stream from its birth: seal() commits it
         # for consumers, abort() and drop_owner() retire it
-        self._stream = REGISTRY.open(key, path, owner, options)
+        self._stream = REGISTRY.open(key, path, owner, options)  # lifelint: transfer=push-registry
         self._window_bytes = window_bytes
         self._coalescer = BatchCoalescer(target_bytes)
         self._metrics = metrics

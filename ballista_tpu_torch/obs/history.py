@@ -171,6 +171,14 @@ def claim_compile_seconds() -> float:
     return max(0.0, delta)
 
 
+def started_at(wall_s: float) -> float:
+    """The wall-clock second at which a run of ``wall_s`` seconds that
+    ends now began: the ``submitted_s`` of a query log record. Wall-clock
+    reads stay in this plane, out of the operators (detlint's
+    ``wallclock-in-dataplane``)."""
+    return time.time() - wall_s
+
+
 def cost_from_run(
     wall_seconds: float,
     cpu_seconds: float,

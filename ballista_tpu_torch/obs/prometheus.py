@@ -12,12 +12,10 @@ text/plain surface (Prometheus exposition format 0.0.4; a parser-level
 tier-1 test pins validity).
 
 Port of ``ballista_tpu/obs/prometheus.py``: the same families, names and
-labels, with two differences. An executor's ``ballista_executor_compile``
+labels, with one difference. An executor's ``ballista_executor_compile``
 counters are the port's: its nvcc build seconds
 (``executor.executor.compile_metrics``) and the persisted-hint counters
-(``compilecache.metrics``). The durability witness's family
-(``ballista_dur_witness_checks_total``) waits for the witness itself,
-which is not ported yet (ROADMAP queue 1, item 11).
+(``compilecache.metrics``).
 """
 
 from __future__ import annotations
@@ -311,6 +309,7 @@ def scheduler_families(server) -> list[tuple]:
     families.extend(server.hists.families())
     families.extend(_reswitness_families())
     families.extend(_cache_witness_families())
+    families.extend(_dur_witness_families())
     return families
 
 
@@ -385,6 +384,27 @@ def _cache_witness_families() -> list[tuple]:
         ("ballista_cache_witness_checks_total", "counter",
          "Cache staleness witness checks by cache and outcome "
          "(analysis/stalewitness.py)",
+         samples or [({}, 0)])
+    ]
+
+
+def _dur_witness_families() -> list[tuple]:
+    """Durability-witness check outcomes when the durability witness is
+    on (BALLISTA_DUR_WITNESS=1) — empty otherwise. A scrape seeing any
+    ``outcome="divergent"`` sample has caught recovered state diverging
+    from its declared durability class live."""
+    from ballista_tpu_torch.analysis import durwitness
+
+    if not durwitness.enabled():
+        return []
+    samples = [
+        ({"field": field, "outcome": outcome}, n)
+        for (field, outcome), n in sorted(durwitness.counters().items())
+    ]
+    return [
+        ("ballista_dur_witness_checks_total", "counter",
+         "Durability witness restart checks by declared state field and "
+         "outcome (analysis/durwitness.py)",
          samples or [({}, 0)])
     ]
 

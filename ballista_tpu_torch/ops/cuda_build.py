@@ -30,6 +30,10 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 
 _lock = threading.Lock()
 _libs: dict[pathlib.Path, ctypes.CDLL] = {}
+# sources being built by one thread, which the others wait for (a build
+# runs outside ``_lock``: nvcc takes seconds, and a thread that loads
+# another, built kernel must not wait behind it)
+_building: dict[pathlib.Path, threading.Event] = {}
 
 # nvcc seconds this process spent building kernels (each build's wall
 # time), the executor's compile seconds (obs/history.claim_compile_seconds)
@@ -70,7 +74,9 @@ def build_many(
             started.append((src, out, None, None, 0.0))
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # one temporary per process and thread: two threads that build the
+        # same source both write whole files, and the last rename wins
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
@@ -104,12 +110,32 @@ def build(source: pathlib.Path, verbose: bool = False) -> tuple[pathlib.Path, fl
 
 def load(source: pathlib.Path, configure) -> ctypes.CDLL:
     """The loaded library of ``source``, built if need be, with
-    ``configure(lib)`` run once to declare its functions' argument types."""
+    ``configure(lib)`` run once to declare its functions' argument types.
+    One thread builds and configures it; the others that ask meanwhile
+    wait for that thread, holding no lock."""
     with _lock:
         lib = _libs.get(source)
+        if lib is not None:
+            return lib
+        done = _building.get(source)
+        owner = done is None
+        if owner:
+            done = _building[source] = threading.Event()
+    if not owner:
+        done.wait()
+        with _lock:
+            lib = _libs.get(source)
         if lib is None:
-            path, _, _ = build(source)
-            lib = ctypes.CDLL(str(path))
-            configure(lib)
+            raise RuntimeError(f"building {source.name} failed in another thread")
+        return lib
+    try:
+        path, _, _ = build(source)
+        lib = ctypes.CDLL(str(path))
+        configure(lib)
+        with _lock:
             _libs[source] = lib
         return lib
+    finally:
+        with _lock:
+            del _building[source]
+        done.set()

@@ -101,18 +101,7 @@ class _Launcher:
     the GIL), the tile size of the grouped mode and the current-stream
     lookup. Made at the first launch."""
 
-    def __init__(self) -> None:
-        lib = cuda_build.load(SOURCE, lambda lib: None)
-        keys = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_longlong]
-        lib.partition_hash.argtypes = keys + [ctypes.c_void_p] * 3
-        lib.partition_groups.argtypes = keys + [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_void_p,
-        ]
-        lib.partition_hash.restype = lib.partition_groups.restype = ctypes.c_int
-        lib.partition_groups_tile_rows.restype = ctypes.c_int
-        lib.partition_hash_error_string.argtypes = [ctypes.c_int]
-        lib.partition_hash_error_string.restype = ctypes.c_char_p
+    def __init__(self, lib: ctypes.CDLL) -> None:
         self.lib = lib
         self.tile_rows = lib.partition_groups_tile_rows()
         self._local = threading.local()
@@ -145,14 +134,34 @@ class _Launcher:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
 
 
+def _configure(lib: ctypes.CDLL) -> None:
+    """The argument and result types of the library's functions, declared
+    once, by the thread that loads it (``cuda_build.load``)."""
+    keys = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong]
+    lib.partition_hash.argtypes = keys + [ctypes.c_void_p] * 3
+    lib.partition_groups.argtypes = keys + [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.partition_hash.restype = lib.partition_groups.restype = ctypes.c_int
+    lib.partition_groups_tile_rows.restype = ctypes.c_int
+    lib.partition_hash_error_string.argtypes = [ctypes.c_int]
+    lib.partition_hash_error_string.restype = ctypes.c_char_p
+
+
+# set once, under the lock: task threads launch concurrently, and each must
+# see the one launcher (its per-thread descriptor buffers among them)
 _launcher: _Launcher | None = None
+_launcher_lock = threading.Lock()
 
 
 def _lib() -> _Launcher:
     global _launcher
-    if _launcher is None:
-        _launcher = _Launcher()
-    return _launcher
+    lib = cuda_build.load(SOURCE, _configure)  # may build: outside the lock
+    with _launcher_lock:
+        if _launcher is None:
+            _launcher = _Launcher(lib)
+        return _launcher
 
 
 def _umod(h: torch.Tensor, k: int) -> torch.Tensor:

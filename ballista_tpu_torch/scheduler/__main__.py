@@ -93,6 +93,9 @@ def main(argv: list[str] | None = None) -> int:
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
+    from ballista_tpu_torch.config import warn_unknown_env
+
+    warn_unknown_env()  # typo'd BALLISTA_* knobs must be loud
     # handlers first: a SIGTERM that arrives while the server starts must
     # still stop it
     stop = threading.Event()

@@ -91,6 +91,11 @@ class StandaloneCluster:
     ) -> "StandaloneCluster":
         # no card, no cluster: fail before any thread or port exists
         resolve_device(device)
+        # unknown-key warning for env config, mirroring BallistaConfig's
+        # ConfigError for session keys
+        from ballista_tpu_torch.config import warn_unknown_env
+
+        warn_unknown_env()
         tmp = tempfile.TemporaryDirectory(prefix="ballista-standalone-")
         scheduler = SchedulerServer(
             provider=provider,

@@ -17,7 +17,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``csrc/partition_hash.cu`` and ``csrc/prefix_sum.cu`` for sm_90a, one
    nvcc each, started together (``ops/cuda_build.build_many``), and print
    the build seconds and the ``-Xptxas -v`` report. Then TPC-H at ``--sf``
-   (seed 42) for phases 4-16, written as Arrow IPC files into a temporary
+   (seed 42) for phases 4-17, written as Arrow IPC files into a temporary
    directory from which a process of its own (``CpuReference``, spawned,
    never touching the card) runs phase 6's CPU runs beside phases 3-5.
 3. Kernel against its plain version at q1's shapes (n = 2^21 and 2^20,
@@ -218,7 +218,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    concurrent_tasks=2)``, pull-staged, at K = 4 and every other setting at
    its default (eager shuffle, push shuffle, the local fast path, the plan
    verifier and the skew monitor on): q1, q3, q5 and q12 one cold and two
-   warm runs each, q18 (some 11 s a run) one cold and one warm, held
+   warm runs each, q18 (11-17 s a run) one cold run (its warm run cut to
+   make room for phase 17), held
    against collect-mode results (phase 9's; q18's computed there without
    a fleet run) and the numpy oracles as phase 8 (money sums of q3 and
    q18 bit for bit); two warm runs bit-identical; each run recorded
@@ -396,10 +397,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    retries and misses, a warm run's host syncs and the phase's peak
    device memory, and replays one launch per distinct shape of each
    kernel against its plain version.
-17. One JSON line of kernel results (the one-hot kernel, the
+17. The static-analysis gate and the durability witness. (a) ``python -m
+   ballista_tpu_torch.analysis --json`` as a child process, on the full
+   22-query corpus and the default device, beside (b) on the host's CPU:
+   all eleven analyzers green and the suppression ledger within budget;
+   prints each analyzer's seconds and the gate's wall seconds. (b)
+   ``durability_path``: the port's
+   scheduler on a ``SqliteBackend`` in a temp directory with
+   ``BALLISTA_DUR_WITNESS=1``, one executor on the card; q1 and q3 held
+   against the numpy oracles (they launch all three kernels); the
+   witness's snapshot; the scheduler stopped and started again on the same
+   sqlite file and port; once the executor re-registered,
+   ``verify_restart`` and ``assert_no_divergence`` with checks above zero;
+   q1 on the restarted cluster against its oracle; and
+   ``ballista_dur_witness_checks_total`` scraped from the scheduler's
+   ``/api/metrics``, printed by outcome. Any failure fails the script.
+18. One JSON line of kernel results (the one-hot kernel, the
    partition-hash kernel's ids and grouped modes, and the prefix-sum
    kernel at the largest shape the main path gave it, with its launches
-   on phases 4-16), then the card's name and power limit, then the last
+   on phases 4-17), then the card's name and power limit, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
@@ -428,6 +444,9 @@ its launches, prints its results as one JSON line, and stops.
 run, then ``--warm`` warm runs at ``build_cache_mb`` 0 and as many at
 2048 in turns), prints them as one JSON line, and stops: run it once per
 checkout (``--root``) in one call, in turns, to compare two trees.
+``--analysis-only`` runs phase 1, builds the kernels, generates TPC-H at
+``--sf``, runs phase 17 with the oracles of q1 and q3, prints its results
+as one JSON line, and stops.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3478,8 +3497,9 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
                         tag = f"{q}-{part}"
                         rec.tag = prec.tag = tag
                         runs = []
-                        # q18 takes some 11 s a run: one warm run
-                        for i in range(min(n_runs, 2) if q == "q18" else n_runs):
+                        # q18 takes 11-17 s a run: its cold run only (its
+                        # warm run was cut to make room for phase 17)
+                        for i in range(1 if q == "q18" else n_runs):
                             runs.append(one_run(ctx, sqls[q]))
                             held(f"{tag} run {i}", q, runs[-1])
                         if len(runs) == 3:
@@ -5453,6 +5473,228 @@ def adaptive_path(data: dict, earlier: dict, rec: "LaunchRecorder", prec: "Parti
     return out
 
 
+# -- phase 17: the static-analysis gate and the durability witness ---------
+
+GATE_ANALYZERS = (
+    "planlint", "serde-audit", "racelint", "compile-vocab", "lifelint",
+    "proto-drift", "config-registry", "eqlint", "detlint", "stalelint", "durlint",
+)
+DURABLE_QUERIES = ("q1", "q3")
+
+
+def start_gate(pkg_root: pathlib.Path, device: str = "cuda"):
+    """Start (a) of phase 17, ``python -m ballista_tpu_torch.analysis
+    --json`` of ``pkg_root``, as a child process (the full 22-query corpus;
+    ``device`` is the default one unless asked otherwise). It runs on the
+    host's CPU beside (b). Returns (process, start time) for
+    ``finish_gate``."""
+    cmd = [sys.executable, "-m", "ballista_tpu_torch.analysis", "--json"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    proc = subprocess.Popen(
+        cmd, cwd=pkg_root, env=child_env("off"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+    )
+    return proc, time.perf_counter()
+
+
+def finish_gate(started) -> dict:
+    """(a) of phase 17: every analyzer green, the suppression ledger
+    within budget; prints each analyzer's seconds and the gate's wall
+    seconds."""
+    proc, t = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"analysis gate: exit {proc.returncode}\n{stdout[-4000:]}\n"
+          f"{stderr[-4000:]}")
+    doc = json.loads(stdout)
+    names = [a["name"] for a in doc["analyzers"]]
+    check(names == list(GATE_ANALYZERS), f"analysis gate: analyzers {names}")
+    check(doc["ok"] and all(a["ok"] for a in doc["analyzers"]), f"analysis gate: {doc['failed']}")
+    check(all(r["used"] <= r["budget"] for r in doc["suppressions"].values()),
+          f"analysis gate: suppressions over budget {doc['suppressions']}")
+    out = dict(
+        wall_s=wall,
+        seconds={a["name"]: a["seconds"] for a in doc["analyzers"]},
+        suppressions={k: r["used"] for k, r in doc["suppressions"].items()},
+        summaries={a["name"]: a["summary"] for a in doc["analyzers"]},
+    )
+    log(f"analysis gate: all {len(names)} analyzers green in {wall:.1f}s (wall, beside the restart); "
+        f"seconds {json.dumps(out['seconds'])}; suppressions {json.dumps(out['suppressions'])}")
+    return out
+
+
+def witness_checks(metrics_text: str) -> dict:
+    """``ballista_dur_witness_checks_total`` of a Prometheus scrape, summed
+    by outcome."""
+    import re
+
+    out: dict = {}
+    for line in metrics_text.splitlines():
+        m = re.match(r'ballista_dur_witness_checks_total\{field="[^"]*",outcome="([^"]*)"\} (\S+)$', line)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + float(m.group(2))
+    return out
+
+
+def durability_path(data: dict, oracles: dict, rec: "LaunchRecorder", prec: "PartitionRecorder",
+                    device: str = "cuda") -> dict:
+    """(b) of phase 17: the durability witness across a real restart. The
+    port's scheduler on a ``SqliteBackend`` in a temp directory, with
+    ``BALLISTA_DUR_WITNESS=1`` in this process, one executor on
+    ``device`` (pull-staged, K = 4) and the REST server; q1 and q3 held
+    against the numpy oracles; ``durwitness.snapshot``; the scheduler
+    stopped and a new one started on the same sqlite file and gRPC port;
+    once the executor has re-registered, ``verify_restart`` and
+    ``assert_no_divergence`` (checks above zero); q1 once more on the
+    restarted cluster against its oracle; then the
+    ``ballista_dur_witness_checks_total`` family scraped from the new
+    scheduler's ``/api/metrics``, its checks by outcome printed. Every
+    count is set to 0 just before the queries and read just after."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from ballista_tpu_torch.analysis import durreg, durwitness
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+    from ballista_tpu_torch.scheduler.rest import start_rest_server, stop_rest_server
+    from ballista_tpu_torch.scheduler.server import SchedulerServer, start_scheduler_grpc
+    from ballista_tpu_torch.scheduler.state_backend import SqliteBackend
+    from ballista_tpu_torch.standalone import StandaloneCluster
+
+    t0 = time.perf_counter()
+    sqls = {q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in DURABLE_QUERIES}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-durable-"))
+    path = str(tmp / "scheduler.db")
+    env0 = os.environ.get("BALLISTA_DUR_WITNESS")
+    os.environ["BALLISTA_DUR_WITNESS"] = "1"
+    durwitness.enable()
+    durwitness.reset()
+    cfg = BallistaConfig(CLUSTER_SETTINGS)
+    cluster = StandaloneCluster.start(
+        cfg, 2, state_backend=SqliteBackend(path), n_executors=1, device=device
+    )
+    ctx = BallistaContext(f"localhost:{cluster.scheduler_port}", cfg, device=device)
+    ctx._standalone_cluster = cluster
+    cluster.attach_provider(ctx)
+    rest = None
+    launches = {"onehot": 0, "prefix": 0, "partition": 0, "grouped": 0}
+    out: dict = {"runs": {}}
+
+    def one_run(tag: str, q: str) -> None:
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        p0 = prefix_sum.launches
+        rec.tag = prec.tag = tag
+        try:
+            t = time.perf_counter()
+            res = ctx.sql(sqls[q]).collect()
+            secs = time.perf_counter() - t
+        finally:
+            rec.tag = prec.tag = None
+        run = dict(s=secs, onehot=onehot_agg.launches, partition=partition.launches,
+                   grouped=partition.group_launches, prefix=prefix_sum.launches - p0)
+        for k in launches:
+            launches[k] += run[k]
+        compare(tag, res, oracles[q])
+        out["runs"][tag] = run
+        log(f"{tag}: ok  {json.dumps(run)}")
+
+    try:
+        for name, tab in data.items():
+            ctx.register_table(name, tab)
+        for q in DURABLE_QUERIES:
+            one_run(f"{q}-durable", q)
+        sched = cluster.scheduler
+        (eid,) = [h.executor.executor_id for h in cluster.executors]
+        before = durwitness.snapshot(sched)
+        check(bool(before["job-record"]) and all(s == "completed" for s, _, _ in before["job-record"].values()),
+              f"durable: jobs before the restart {before['job-record']}")
+
+        # the scheduler stops (its executor does not) and starts again on
+        # the same sqlite file and gRPC port
+        t = time.perf_counter()
+        sched.shutdown()
+        ev = cluster.scheduler_grpc.stop(grace=None)
+        if ev is not None:
+            ev.wait(timeout=5)
+        restarted = SchedulerServer(provider=ctx, config=cfg, state_backend=SqliteBackend(path))
+        grpc_server, port = start_scheduler_grpc(restarted, "127.0.0.1", cluster.scheduler_port)
+        check(port == cluster.scheduler_port, f"durable: restarted on port {port}, not {cluster.scheduler_port}")
+        cluster.scheduler, cluster.scheduler_grpc = restarted, grpc_server
+        rest, rest_port = start_rest_server(restarted, "127.0.0.1", 0)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and (
+            restarted.executor_manager.last_seen(eid) is None
+            or restarted.executor_manager.get_executor_data(eid) is None
+        ):
+            time.sleep(0.05)
+        check(restarted.executor_manager.last_seen(eid) is not None,
+              "durable: the executor did not re-register within 30 s")
+        out["reregister_s"] = time.perf_counter() - t
+        outcomes = durwitness.verify_restart(before, restarted, reregistered=(eid,))
+        durwitness.assert_no_divergence()
+        checks = durwitness.counters()
+        check(sum(checks.values()) > 0 and set(outcomes) == {e.name for e in durreg.STATE},
+              f"durable: witness checks {checks}")
+        out["outcomes"] = outcomes
+        out["witness"] = durwitness.summary()
+        log(f"durable: restart verified, executor re-registered in {out['reregister_s']:.2f}s; "
+            f"{out['witness']}")
+
+        one_run("q1-restarted", "q1")
+        with urllib.request.urlopen(f"http://127.0.0.1:{rest_port}/api/metrics", timeout=10) as r:
+            scraped = witness_checks(r.read().decode())
+        check(scraped.get("match", 0) > 0 and scraped.get("divergent", 0) == 0,
+              f"durable: scraped ballista_dur_witness_checks_total {scraped}")
+        out["scraped_checks"] = scraped
+        log(f"durable: ballista_dur_witness_checks_total by outcome {json.dumps(scraped)}")
+        check(launches["onehot"] > 0 and launches["grouped"] > 0 and launches["prefix"] > 0,
+              f"durable: the queries did not launch every kernel {launches}")
+    finally:
+        if rest is not None:
+            stop_rest_server(rest)
+        ctx.close()
+        durwitness.enable(False)
+        durwitness.reset()
+        if env0 is None:
+            os.environ.pop("BALLISTA_DUR_WITNESS", None)
+        else:
+            os.environ["BALLISTA_DUR_WITNESS"] = env0
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["s"] = time.perf_counter() - t0
+    out.update(launches=launches["onehot"], prefix_launches=launches["prefix"],
+               partition_launches=launches["partition"], grouped_launches=launches["grouped"])
+    log(f"durable: launches {json.dumps(launches)}, {out['s']:.1f}s")
+    return out
+
+
+def analysis_only(pkg_root: pathlib.Path, sf: float, seed: int) -> dict:
+    """``--analysis-only``: phase 17 alone, on TPC-H at ``sf`` with the
+    oracles of q1 and q3 computed here."""
+    from ballista_tpu_torch.tpch import gen_all
+
+    data = gen_all(sf, seed)
+    oracles = {"q1": oracle_q1(lineitem_columns(data["lineitem"])), "q3": oracle_q3(host_columns(data))}
+    with LaunchRecorder() as rec, PartitionRecorder() as prec:
+        t0 = time.perf_counter()
+        gate = start_gate(pkg_root)
+        try:
+            out = {"durable": durability_path(data, oracles, rec, prec)}
+        finally:
+            out_gate = finish_gate(gate)
+        out["gate"] = out_gate
+        out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def adaptive_timing(root: pathlib.Path, sf: float, seed: int, warm: int) -> dict:
     """Seconds of phase 16's queries for one checkout (``root``'s
     ``benchmarks/queries``, spec constants replaced from the data): on one
@@ -5615,6 +5857,7 @@ def collect_timing(root: pathlib.Path, sf: float, seed: int, warm: int, settings
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=42)
@@ -5656,6 +5899,12 @@ def main() -> int:
         "--adaptive-timing", action="store_true",
         help="only time phase 16's six queries (a cold run, then --warm warm "
         "runs at build_cache_mb 0 and at 2048 in turns), then stop",
+    )
+    ap.add_argument(
+        "--analysis-only", action="store_true",
+        help="only run phase 17 (the static-analysis gate, and the "
+        "durability witness across a scheduler restart with q1 and q3 held "
+        "against the oracles computed here), then stop",
     )
     ap.add_argument(
         "--settings", default="{}",
@@ -5725,6 +5974,12 @@ def main() -> int:
         log(smi)
         return 0
 
+    if args.analysis_only:
+        cuda_build.build_many(sources)
+        log(json.dumps({"phase17": analysis_only(pkg_root, args.sf, args.seed)}, default=str))
+        log(smi)
+        return 0
+
     if args.aqe_only:
         cuda_build.build_many(sources)
         log(json.dumps({"aqe": aqe_only(args.sf, args.seed), "root": str(pkg_root)}, default=str))
@@ -5741,7 +5996,7 @@ def main() -> int:
                 log(f"  nvcc: {line.strip()}")
     log(f"build: the kernels in {time.perf_counter() - t0:.2f}s")
 
-    # TPC-H at --sf for phases 4-16; phase 6's CPU runs start now, in a
+    # TPC-H at --sf for phases 4-17; phase 6's CPU runs start now, in a
     # process of their own, beside phases 3-5
     import atexit
 
@@ -5787,7 +6042,7 @@ def main() -> int:
 
     # 4. main path (q1, q6, the wide GROUP BY)
     t0 = time.perf_counter()
-    # the prefix-sum kernel's launches on the main path (phases 4-16), by
+    # the prefix-sum kernel's launches on the main path (phases 4-17), by
     # phase; capture runs and replays set the count back
     prefix_sum.launches = 0
     pl_by_phase: dict = {}
@@ -5934,8 +6189,19 @@ def main() -> int:
         preplays += adaptive_preplays
         adaptive_prefix_replays = replay_prefix_launches(rec)
         check(bool(adaptive_replays) and bool(adaptive_prefix_replays), "phase 16: no launch replayed")
-        log(f"phase 16 took {time.perf_counter() - t0:.1f}s; prefix-sum launches by phase "
-            f"{json.dumps(pl_by_phase)}; {smi}")
+        log(f"phase 16 took {time.perf_counter() - t0:.1f}s; {smi}")
+
+        # 17. the static-analysis gate; the durability witness across a
+        # scheduler restart
+        t0 = time.perf_counter()
+        started = start_gate(pkg_root)
+        try:
+            dp = durability_path(data, oracles, rec, prec)
+        finally:
+            gate = finish_gate(started)
+        prefix_mark(17)
+        log(f"phase 17 took {time.perf_counter() - t0:.1f}s (the gate {gate['wall_s']:.1f}s, the "
+            f"restart {dp['s']:.1f}s); prefix-sum launches by phase {json.dumps(pl_by_phase)}; {smi}")
     prefix_launches = prefix_sum.launches
     check(prefix_launches == sum(pl_by_phase.values()), "prefix-sum launches: the phases do not add up")
     for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget", "q1-files", f"q1-ladder-{LADDER_SPEC}",
@@ -5981,15 +6247,16 @@ def main() -> int:
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
         + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
         + pg["partition_launches"] + bc["partition_launches"] + ad["partition_launches"]
+        + dp["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
         + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
         + aq["grouped_launches"] + pg["grouped_launches"] + bc["grouped_launches"]
-        + ad["grouped_launches"]
+        + ad["grouped_launches"] + dp["grouped_launches"]
     )
 
-    # 17. results
+    # 18. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -6003,7 +6270,7 @@ def main() -> int:
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
             + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
-            + pg["launches"] + bc["launches"] + ad["launches"]
+            + pg["launches"] + bc["launches"] + ad["launches"] + dp["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -6125,8 +6392,11 @@ def main() -> int:
         "build_cache": {k: v for k, v in bc.items() if not k.endswith("launches")},
         "adaptive": {k: v for k, v in ad.items() if not k.endswith("launches")},
         "adaptive_prefix_replays": adaptive_prefix_replays,
+        "analysis_gate": gate,
+        "durable": {k: v for k, v in dp.items() if not k.endswith("launches")},
         "sf": args.sf,
     }))
+    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_main:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
