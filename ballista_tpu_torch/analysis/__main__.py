@@ -1,14 +1,18 @@
 """Combined static-analysis gate: ``python -m ballista_tpu_torch.analysis``.
 
 The port's copy of ``ballista_tpu/analysis/__main__.py``: the reference's
-analyzers over ``ballista_tpu_torch/``, minus ``jaxlint`` (the port runs
-no JAX program; the host-sync lint of ROADMAP queue 1, item 10b takes its
-slot). Eleven analyzers, one exit code and one summary line each:
+analyzers over ``ballista_tpu_torch/``, with ``devlint`` in ``jaxlint``'s
+slot (the port runs no JAX program). Twelve analyzers, one exit code and
+one summary line each:
 
 - **planlint** — the port's plan verifier over the TPC-H q1-q22 corpus
   (logical + physical tiers, plus distributed stage DAGs).
 - **serde-audit** — structural closure of the proto vocabulary
   (round-trip byte stability or written exemption for every node class).
+- **devlint** — the card's hazards (host syncs, value-dependent sizes,
+  float sums in no fixed order) in the device programs, and the device
+  programs closed over the source in both directions
+  (``compilecache.registry.check_vocabulary``).
 - **racelint** — lock-discipline + state-machine lint over the
   concurrent control plane, the ``obs/`` trace ring/outbox, and the
   kernel builder and wrappers (``ops/cuda_build.py``, ``ops/onehot_agg.py``,
@@ -66,7 +70,7 @@ import sys
 import time
 
 ANALYZERS = (
-    "planlint", "serde-audit", "racelint", "compile-vocab",
+    "planlint", "serde-audit", "devlint", "racelint", "compile-vocab",
     "lifelint", "proto-drift", "config-registry", "eqlint", "detlint",
     "stalelint", "durlint",
 )
@@ -133,6 +137,25 @@ def run_serde_audit(device: str = "cuda") -> tuple[bool, str]:
     ]
     ok = all(r.ok for r in results)
     return ok, "; ".join(r.summary() for r in results)
+
+
+def run_devlint() -> tuple[bool, str]:
+    from ballista_tpu_torch.analysis import budget, devlint
+    from ballista_tpu_torch.compilecache import registry
+
+    problems = registry.check_vocabulary()
+    diags = devlint.lint_paths()
+    sup = devlint.suppression_count()
+    if problems or diags:
+        return False, "\n".join(problems + [str(d) for d in diags])
+    over = budget.check("devlint", sup)
+    if over:
+        return False, over
+    return True, (
+        f"0 findings, {sup} suppressions, {len(registry.PROGRAMS)} device "
+        f"programs and {len(registry.HOST_ONLY)} host-only entries closed "
+        "over the source"
+    )
 
 
 def run_racelint() -> tuple[bool, str]:
@@ -308,6 +331,7 @@ def _runners(queries, device: str = "cuda"):
     return {
         "planlint": lambda: run_planlint(queries, device),
         "serde-audit": lambda: run_serde_audit(device),
+        "devlint": run_devlint,
         "racelint": run_racelint,
         "compile-vocab": lambda: run_compile_vocab(queries, device),
         "lifelint": run_lifelint,

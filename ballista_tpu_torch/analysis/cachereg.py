@@ -6,8 +6,9 @@ A cache may only exist if it is DECLARED here, with its key composition,
 scope, coherence class, and invalidation sites written down — and
 :mod:`ballista_tpu_torch.analysis.stalelint` proves the tree against the
 declarations. The reference declares jitted programs and its trace cache;
-the port has neither, and declares what it keeps instead: the built kernel
-libraries and their launcher, the kernels' launch-shape memos, the
+the port has no jitted program, and declares what it keeps instead: the
+built kernel libraries and their launcher, the kernels' launch-shape
+memos, the shared callable cache (the trace cache's counterpart), the
 dictionary memo, the join build-table cache, the scans' device and host
 caches, and the learned shrink and clustered-aggregate entries of the plan
 cache.
@@ -410,6 +411,15 @@ CACHES: tuple[CacheEntry, ...] = (
             "__build_cache_bytes__ tally",
             "instance-scoped: physical-plan-cache clears retire it",
         ),
+    ),
+    CacheEntry(
+        name="trace-cache",
+        anchors=("ballista_tpu_torch/compilecache/tracecache.py::_CACHE",),
+        keyed_by="canonical plan signature of the closure (expression "
+        "keys, schema keys, join kind) and the device it runs on",
+        scope="process",
+        coherence="immutable-keyed",
+        invalidation=("LRU eviction at 1024 entries", "clear() in tests"),
     ),
     CacheEntry(
         name="dict-hash-cache",

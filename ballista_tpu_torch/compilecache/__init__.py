@@ -1,25 +1,35 @@
-"""compilecache — the persisted half of cold start (port of the
-reference's ``ballista_tpu/compilecache/``).
+"""compilecache — cold start (port of the reference's
+``ballista_tpu/compilecache/``).
 
-The reference's package attacks XLA compile latency (the kernel
-vocabulary, AOT prewarm, the shared trace cache, jax's compile counters)
-and persists learned plan-shape hints. The port compiles no XLA program:
-its two CUDA kernels build once per checkout (``ops/cuda_build``), so the
-hints and the plan-level program closure are ported:
+The reference's package attacks XLA compile latency and persists learned
+plan-shape hints. The port compiles no XLA program: its first-use costs
+are the three CUDA kernels' build and load (``ops/cuda_build``), the
+one-hot kernel's once-a-device shared-memory limit and CUDA's lazy
+loading of torch's kernels. The package:
 
+- :mod:`registry` — the device-program vocabulary closed over the source
+  (``PROGRAMS``, ``HOST_ONLY``, ``check_vocabulary``), each operator's
+  declared programs (``OPERATOR_KERNELS``, ``check_plan``: the certified
+  rewrites' ``compile-vocab`` clause), and the prewarm's signatures
+  (``enumerate_prewarm``);
+- :mod:`prewarm` — runs the vocabulary at context/executor start
+  (``ballista.tpu.prewarm`` on/off/background);
+- :mod:`tracecache` — process-wide sharing of the callables operators
+  build from their plans, keyed by canonical plan signature and device
+  (fresh per-task plan instances stop rebuilding them);
+- :mod:`metrics` — the hint, callable-cache and prewarm counters,
+  surfaced via executor heartbeats and the scheduler REST state;
 - :mod:`hints` — persisted plan-shape hints (learned join strategies,
   decimal scales, the grown aggregate and join-expansion capacities), so a
-  fresh process skips the capacity retries its first runs would pay;
-- :mod:`metrics` — the hint counters (``hints_loaded``, ``hints_saved``);
-- :mod:`registry` — each operator's declared device programs
-  (``OPERATOR_KERNELS``, ``check_plan``), the certified rewrites'
-  ``compile-vocab`` clause.
+  fresh process skips the capacity retries its first runs would pay.
 
 The capacity ladder lives with the batch type
-(:mod:`ballista_tpu_torch.columnar.batch`).
+(:mod:`ballista_tpu_torch.columnar.batch`); prewarm enumerates over it.
+
+The package imports none of its modules, and must not: callers import
+the one they use (``from ballista_tpu_torch.compilecache import metrics``).
+A module that imports ``metrics`` through the package while the package
+imports that module is a cycle, which threads importing at once (the
+analysis gate's analyzers) turn into an ImportError of a partially
+initialized module (``tests/test_torch_tracecache.py``).
 """
-
-from ballista_tpu_torch.compilecache import hints, metrics, registry
-from ballista_tpu_torch.compilecache.hints import HintStore
-
-__all__ = ["HintStore", "hints", "metrics", "registry"]

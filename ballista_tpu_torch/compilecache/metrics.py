@@ -1,11 +1,18 @@
-"""Process-wide counters of the persisted hints (port of the hint
-counters of ``ballista_tpu/compilecache/metrics.py``).
+"""Process-wide cold-start counters (port of
+``ballista_tpu/compilecache/metrics.py``):
 
-``hints_loaded`` counts the entries a ``HintStore`` merged from the hint
-file, ``hints_saved`` the files it wrote. The reference's other counters
-(jaxpr traces, XLA compiles, the persistent compilation cache, prewarm)
-count jax events that have no counterpart in the port; the port's build
-seconds are ``ops/cuda_build.build_seconds``.
+- ``hints_loaded`` / ``hints_saved`` — the entries a ``HintStore`` merged
+  from the hint file and the files it wrote (``compilecache.hints``);
+- ``jit_cache_hits`` / ``jit_cache_misses`` — the shared callable cache
+  (``compilecache.tracecache``), under the reference's names;
+- ``prewarmed_signatures`` / ``prewarm_seconds`` / ``prewarm_failures`` —
+  prewarm progress (``compilecache.prewarm``).
+
+They ride an executor's poll and heartbeat into the scheduler's REST
+``compile`` field (``executor.executor.compile_metrics``, beside the
+nvcc build seconds of ``ops/cuda_build.build_seconds``). The reference's
+jax counters (jaxpr traces, XLA compiles, the persistent compilation
+cache) count events the port has no counterpart of.
 """
 
 from __future__ import annotations

@@ -199,11 +199,6 @@ _ENTRIES: dict[str, tuple[str, object]] = {
 # Keys whose feature the port lacks, with the ROADMAP item that ports it.
 # A non-default value raises where the reference would use it.
 UNPORTED: dict[str, str] = {
-    BALLISTA_PROFILE_DIR: "ROADMAP queue 1, item 10b (trace hooks)",
-    # executors record and ship task and fetch spans; the local context
-    # does not trace
-    BALLISTA_TRACE: "ROADMAP queue 1, item 10b (trace hooks)",
-    BALLISTA_PREWARM: "ROADMAP queue 1, item 10b (kernel registry)",
     BALLISTA_COLLECTIVE_SHUFFLE: "ROADMAP queue 1, item 10b (multi-device)",
 }
 
@@ -226,9 +221,8 @@ class EnvEntry:
     doc: str  # the module that reads it
 
 
-# What the port reads, nothing more: the reference's XLA cache, fusion,
-# capacity and prewarm-ladder variables and its test-harness limit have no
-# reader here.
+# What the port reads, nothing more: the reference's XLA cache and fusion
+# variables and its test-harness limit have no reader here.
 ENV_REGISTRY: tuple[EnvEntry, ...] = (
     EnvEntry(
         "BALLISTA_FAULTS", "JSON list", "",
@@ -300,10 +294,23 @@ ENV_REGISTRY: tuple[EnvEntry, ...] = (
         "compilecache/hints.py",
     ),
     EnvEntry(
-        "BALLISTA_TPU_PREWARM", "off", "off",
-        "Kernel prewarm mode of executor processes; only off is supported "
-        "(an explicit --prewarm flag wins)",
-        "executor/__main__.py",
+        "BALLISTA_TPU_PREWARM", "off|on|background", "off",
+        "Kernel prewarm mode of executor processes (no session config at "
+        "start): run the device-program vocabulary once on the executor's "
+        "device at start; an explicit --prewarm flag wins",
+        "compilecache/prewarm.py",
+    ),
+    EnvEntry(
+        "BALLISTA_TPU_PREWARM_BUCKETS", "csv ints", "",
+        "Bounds the prewarm ladder enumeration (tests / constrained "
+        "hosts)",
+        "compilecache/prewarm.py",
+    ),
+    EnvEntry(
+        "BALLISTA_TPU_CAPACITY_BUCKETS", "ladder spec", "",
+        "Capacity-bucket ladder for server prewarm on non-default "
+        "deployments (session config arrives only with the first task)",
+        "compilecache/prewarm.py",
     ),
     EnvEntry(
         "BALLISTA_PLUGIN_DIR", "path", "",
@@ -500,6 +507,12 @@ class BallistaConfig:
 
     def trace(self) -> str:
         return self._get(BALLISTA_TRACE)
+
+    def prewarm(self) -> str:
+        return self._get(BALLISTA_PREWARM)
+
+    def profile_dir(self) -> str:
+        return self._get(BALLISTA_PROFILE_DIR)
 
     def metrics_collector(self) -> str:
         return self._get(BALLISTA_METRICS_COLLECTOR)

@@ -7,13 +7,15 @@ device, the deferred device checks, the plan-cache speculation protocol
 and the attempt's grace-hash spill files, the retry loop
 ``run_with_capacity_retry``, ``plan_counters`` and ``execute_to_batches``.
 ``replace_children`` rebinds an operator's children (the stage splitter
-and ``remove_unresolved_shuffles`` use it). Not ported: the reference's
-JAX profiler branch (``ballista.tpu.profile_dir``, ROADMAP queue 1, item
-10b).
+and ``remove_unresolved_shuffles`` use it). With
+``ballista.tpu.profile_dir`` set, the retry loop wraps one task attempt
+in ``torch.profiler`` and writes a TensorBoard trace there (the
+counterpart of the reference's ``jax.profiler.trace``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -334,10 +336,7 @@ def run_with_capacity_retry(
     executor's poller of published shuffle locations, whether joins keep
     their built tables)."""
     from ballista_tpu_torch.columnar.batch import round_capacity
-    from ballista_tpu_torch.config import BALLISTA_PROFILE_DIR
     from ballista_tpu_torch.errors import CapacityError, SpeculationMiss
-
-    config.check_ported(BALLISTA_PROFILE_DIR)
 
     override: int | None = (hint or {}).get("agg_capacity")
     if override is not None and override <= config.agg_capacity():
@@ -362,7 +361,18 @@ def run_with_capacity_retry(
         # on the retry)
         before = None if plan_cache is None else dict(plan_cache)
         try:
-            out = fn(ctx)
+            profile_dir = config.profile_dir()
+            # one profiler session at a time in a process: with concurrent
+            # executor tasks only the first is traced, the rest run
+            # unprofiled rather than fail
+            if profile_dir and _PROFILER_LOCK.acquire(blocking=False):
+                try:
+                    with _profiled(profile_dir, ctx.device):
+                        out = fn(ctx)
+                finally:
+                    _PROFILER_LOCK.release()
+            else:
+                out = fn(ctx)
             ctx.raise_deferred()
             if hint is not None:
                 _remember(hint, override, sites)
@@ -412,6 +422,26 @@ def run_with_capacity_retry(
                 stats["capacity_retries"] = stats.get("capacity_retries", 0) + 1
         finally:
             ctx.close_spills()
+
+
+_PROFILER_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, device):
+    """``torch.profiler`` around one task attempt, written to
+    ``profile_dir`` as a TensorBoard trace (the reference's
+    ``jax.profiler.trace``): CPU activity always, and the card's kernels
+    when the task runs on it (waited for before the profile stops, so the
+    trace holds every kernel the attempt queued)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
+        if on_card:
+            torch.cuda.synchronize(device)
 
 
 class Metrics:

@@ -37,13 +37,19 @@ its first run and writes them back when they change
 logged with its cost vector into a local query log that ``system.queries``
 and ``system.task_attempts`` serve (``system.executors`` is empty without
 a cluster); a plan that scans a system table is never cached, so each
-query reads the rows as of its own planning. Not ported: the staleness
-witness. A session key whose feature is not ported (``config.UNPORTED``)
-raises here when it is set to another value than its default.
+query reads the rows as of its own planning. The context starts the
+configured prewarm on its device (``ballista.tpu.prewarm``,
+``compilecache.prewarm``), and with ``ballista.tpu.trace`` not ``off``
+EXPLAIN ANALYZE records an ``explain_analyze`` span, under which the
+run's spill passes and callable-cache misses land as events. Not ported:
+the staleness witness. A session key whose feature is not ported
+(``config.UNPORTED``) raises here when it is set to another value than
+its default.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import pathlib
@@ -61,7 +67,7 @@ from ballista_tpu_torch.columnar.arrow_interop import (
     schema_to_arrow,
 )
 from ballista_tpu_torch.columnar.batch import resolve_device
-from ballista_tpu_torch.config import BALLISTA_PROFILE_DIR, UNPORTED, BallistaConfig
+from ballista_tpu_torch.config import UNPORTED, BallistaConfig
 from ballista_tpu_torch.datatypes import Field, Schema
 from ballista_tpu_torch.errors import PlanError, SqlError
 from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, run_with_capacity_retry
@@ -125,9 +131,6 @@ def plan_fingerprint(obj):
     return (type(obj).__name__, obj)
 
 
-_CONTEXT_UNPORTED = tuple(k for k in UNPORTED if k != BALLISTA_PROFILE_DIR)
-
-
 class TorchContext(Catalog, TableProvider):
     """Register tables, run SQL, collect Arrow results."""
 
@@ -139,7 +142,7 @@ class TorchContext(Catalog, TableProvider):
         self.config = config or BallistaConfig()
         # the keys a context reads at its start in the reference, whose
         # features the port lacks: a non-default value raises here
-        self.config.check_ported(*_CONTEXT_UNPORTED)
+        self.config.check_ported(*UNPORTED)
         self.device = resolve_device(device)
         # UDF plugins (ref plugin/mod.rs: loaded once at context creation;
         # both the ballista.plugin_dir key and $BALLISTA_PLUGIN_DIR count)
@@ -150,8 +153,16 @@ class TorchContext(Catalog, TableProvider):
         # on (process-wide, as in the reference)
         from ballista_tpu_torch.columnar.batch import set_capacity_buckets
         from ballista_tpu_torch.compilecache.hints import HintStore
+        from ballista_tpu_torch.compilecache.prewarm import start_prewarm
 
         set_capacity_buckets(self.config.capacity_buckets())
+        # run the device-program vocabulary once on this context's device
+        # (latched process-wide; 'background' threads wind down on their
+        # own, see compilecache.prewarm)
+        self._prewarm = start_prewarm(
+            self.config.prewarm(), max_rows=self.config.tpu_batch_rows(),
+            device=self.device,
+        )
         self.tables: dict[str, _Registered] = {}
         self._physical_cache: dict = {}
         # cross-run plan-shape facts (see TaskContext.plan_cache)
@@ -521,6 +532,7 @@ class TorchContext(Catalog, TableProvider):
         to finish."""
         from ballista_tpu_torch.exec.pipeline import unfused
         from ballista_tpu_torch.obs import profile
+        from ballista_tpu_torch.obs import trace as obs_trace
         from ballista_tpu_torch.scheduler.aqe import narrate
 
         phys = self._planner().plan(optimized)
@@ -540,15 +552,27 @@ class TorchContext(Catalog, TableProvider):
                     batches += 1
             return batches
 
+        mode = self.config.trace()
+        if mode != "off":
+            # the spill and callable-cache events of this run join a fresh
+            # trace
+            obs_trace.configure(mode)
+            span_cm = obs_trace.span(
+                "explain_analyze",
+                trace_id=obs_trace.new_trace_id(),
+                attrs={"sql": (sql or "")[:200]},
+            )
+        else:
+            span_cm = contextlib.nullcontext()
         self._hints.load_once(self._capacity_hint, self._plan_cache)
         t0 = time.perf_counter()
-        with unfused():
+        with unfused(), span_cm:
             run_with_capacity_retry(
                 self.config, run, device=self.device, hint=self._capacity_hint,
                 plan_cache=self._plan_cache,
             )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
         self._hints.save_if_changed(self._capacity_hint, self._plan_cache)
         rows = [

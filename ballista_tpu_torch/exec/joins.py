@@ -57,6 +57,7 @@ import torch
 
 from ballista_tpu_torch.columnar.batch import DeviceBatch, Dictionary, round_capacity
 from ballista_tpu_torch.columnar.dict_util import merge_many, remap_codes
+from ballista_tpu_torch.compilecache.tracecache import expr_key, schema_key, shared_callable
 from ballista_tpu_torch.datatypes import DataType, Field, Schema
 from ballista_tpu_torch.errors import ExecutionError, PlanError
 from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext, UnknownPartitioning
@@ -135,6 +136,7 @@ class HashJoinExec(ExecutionPlan):
         self._decide_flags: tuple | None = None
         self._decide_from_cache = False
         self._plan_text: str | None = None  # display(), for capacity keys
+        self._filter_key: tuple | None = None  # see _passes
         ls, rs = left.schema(), right.schema()
         for a, b in self.on:
             if not (isinstance(a, L.Column) and isinstance(b, L.Column)):
@@ -909,8 +911,17 @@ class HashJoinExec(ExecutionPlan):
             )
 
     def _passes(self, joined: DeviceBatch) -> torch.Tensor:
-        """The residual filter over probe ++ build rows (NULL fails)."""
-        cv = compile_expr(self.filter, joined.schema).evaluate(joined)
+        """The residual filter over probe ++ build rows (NULL fails). Its
+        compiled expression is shared across batches and plan instances
+        by the filter, the joined schema (either side may probe) and the
+        device (``compilecache.tracecache``); the filter's key, a walk of
+        its tree, is taken once per operator."""
+        if self._filter_key is None:
+            self._filter_key = ("join_filter", expr_key(self.filter))
+        key = self._filter_key + (schema_key(joined.schema), str(joined.device))
+        filt, schema = self.filter, joined.schema
+        phys = shared_callable(key, lambda: compile_expr(filt, schema).evaluate)
+        cv = phys(joined)
         passes = cv.values.to(torch.bool)
         return passes if cv.nulls is None else passes & ~cv.nulls
 

@@ -24,6 +24,7 @@ from typing import Callable, Iterator
 import torch
 
 from ballista_tpu_torch.columnar.batch import DeviceBatch
+from ballista_tpu_torch.compilecache.tracecache import expr_key, schema_key, shared_callable
 from ballista_tpu_torch.datatypes import Field, Schema
 from ballista_tpu_torch.exec.base import ExecutionPlan, TaskContext
 from ballista_tpu_torch.expr import logical as L
@@ -129,7 +130,7 @@ class _ChainPipeline:
         from ballista_tpu_torch.exec.shrink import maybe_shrink
 
         source, ops = fusable_chain(self)
-        fns = [op.batch_fn() for op in ops]
+        fns = [op.batch_fn(ctx.device) for op in ops]
         shrink_site = self._shrink_site(ops)
         timer = "filter_time" if isinstance(self, FilterExec) else "project_time"
         for b in source.execute(partition, ctx):
@@ -150,7 +151,6 @@ class FilterExec(_ChainPipeline, ExecutionPlan):
         super().__init__()
         self.input = input
         self.predicate = predicate
-        self._fn: Callable[[DeviceBatch], DeviceBatch] | None = None
 
     def schema(self) -> Schema:
         return self.input.schema()
@@ -164,8 +164,19 @@ class FilterExec(_ChainPipeline, ExecutionPlan):
     def describe(self) -> str:
         return f"FilterExec: {self.predicate.name()}"
 
-    def batch_fn(self) -> Callable[[DeviceBatch], DeviceBatch]:
-        if self._fn is None:
+    def _cache_key(self, device) -> tuple:
+        return (
+            "filter",
+            expr_key(self.predicate),
+            schema_key(self.input.schema()),
+            str(device),
+        )
+
+    def batch_fn(self, device) -> Callable[[DeviceBatch], DeviceBatch]:
+        """The filter over one batch on ``device``, shared across plan
+        instances by its signature (``compilecache.tracecache``)."""
+
+        def build():
             phys = compile_expr(self.predicate, self.input.schema())
 
             def run(batch: DeviceBatch) -> DeviceBatch:
@@ -175,8 +186,9 @@ class FilterExec(_ChainPipeline, ExecutionPlan):
                     keep = keep & ~cv.nulls  # NULL predicate = drop row
                 return batch.with_valid(batch.valid & keep)
 
-            self._fn = run
-        return self._fn
+            return run
+
+        return shared_callable(self._cache_key(device), build)
 
 
 class ProjectionExec(_ChainPipeline, ExecutionPlan):
@@ -188,7 +200,6 @@ class ProjectionExec(_ChainPipeline, ExecutionPlan):
         self._schema = Schema(
             [Field(e.name(), e.data_type(ins), e.nullable(ins)) for e in self.exprs]
         )
-        self._fn: Callable[[DeviceBatch], DeviceBatch] | None = None
 
     def schema(self) -> Schema:
         return self._schema
@@ -202,10 +213,21 @@ class ProjectionExec(_ChainPipeline, ExecutionPlan):
     def describe(self) -> str:
         return "ProjectionExec: " + ", ".join(e.name() for e in self.exprs)
 
-    def batch_fn(self) -> Callable[[DeviceBatch], DeviceBatch]:
-        if self._fn is None:
-            ins = self.input.schema()
-            out_schema = self._schema
+    def _cache_key(self, device) -> tuple:
+        return (
+            "project",
+            tuple(expr_key(e) for e in self.exprs),
+            schema_key(self.input.schema()),
+            str(device),
+        )
+
+    def batch_fn(self, device) -> Callable[[DeviceBatch], DeviceBatch]:
+        """The projection of one batch on ``device``, shared across plan
+        instances by its signature (``compilecache.tracecache``)."""
+        ins = self.input.schema()
+        out_schema = self._schema
+
+        def build():
             phys = [compile_expr(e, ins) for e in self.exprs]
 
             def run(batch: DeviceBatch) -> DeviceBatch:
@@ -226,8 +248,9 @@ class ProjectionExec(_ChainPipeline, ExecutionPlan):
                         dicts[field.name] = cv.dictionary
                 return batch.with_columns(out_schema, cols, nulls, dicts)
 
-            self._fn = run
-        return self._fn
+            return run
+
+        return shared_callable(self._cache_key(device), build)
 
 
 class CoalescePartitionsExec(ExecutionPlan):

@@ -90,8 +90,9 @@ def maybe_shrink(batch: DeviceBatch, ctx, site_display: str, partition: int) -> 
         synced.add(key)
         return batch
     # first sight in this run: one host sync decides, and the decision is
-    # cached across queries
-    n = int(batch.count_valid().item())
+    # cached across queries (the sync is the design: the reference's
+    # shrink syncs here too)
+    n = int(batch.count_valid().item())  # devlint: disable=host-sync
     new_cap = round_capacity(max(SHRINK_HEADROOM * n, SHRINK_MIN_CAP))
     if new_cap > cap // SHRINK_RATIO:
         cache[key] = 0

@@ -27,11 +27,12 @@ runs over ``partition_groups_plain``, without pinned memory. The shuffle
 writer (``executor/shuffle.py``) writes its partition files through the
 same grouped copy (``grouped_arrow``), with its own stats.
 
-Left out, as neither changes a result: the reference's resource-witness
-hooks and spill trace events. The port has both modules
-(``analysis.reswitness``, ``obs.trace``) and the executor's TTL sweep of
-orphaned attempt directories (``executor/cleanup.py``), but the spill does
-not call the first two yet (ROADMAP queue 1, item 10b).
+As in the reference, each manager holds a ``spill-manager`` token of the
+resource witness (``analysis.reswitness``) from its start to its close,
+and each spill set that wrote bytes records one ``spill_pass`` event
+(``buckets``, ``bytes``, ``rows``) on the ambient trace (``obs.trace``)
+when it closes. Orphaned attempt directories are swept by the executor's
+TTL loop (``executor/cleanup.py``).
 """
 
 from __future__ import annotations
@@ -109,6 +110,8 @@ class SpillManager:
     """All spill files of one task attempt, under one directory."""
 
     def __init__(self, base_dir: str | None, budget_bytes: int) -> None:
+        from ballista_tpu_torch.analysis import reswitness
+
         if base_dir is None:
             base_dir = SPILL_TMP_ROOT
         os.makedirs(base_dir, exist_ok=True)
@@ -118,6 +121,7 @@ class SpillManager:
         self.total_bytes = 0
         self._sets: list[SpillSet] = []
         self.staging = HostStaging()
+        self._witness_token = reswitness.acquire("spill-manager", self.dir)
 
     def new_set(self, tag: str, buckets: int) -> "SpillSet":
         s = SpillSet(self, os.path.join(self.dir, tag), buckets)
@@ -133,11 +137,15 @@ class SpillManager:
             )
 
     def close(self) -> None:
+        from ballista_tpu_torch.analysis import reswitness
+
         for s in self._sets:
             s.close()
         self._sets.clear()
         self.staging.release()
         shutil.rmtree(self.dir, ignore_errors=True)
+        reswitness.release(self._witness_token)
+        self._witness_token = None
 
 
 class SpillSet:
@@ -211,6 +219,20 @@ class SpillSet:
             return
         self._closed = True
         self.finish_writes()
+        total = sum(self.bucket_bytes)
+        if total:
+            # one point event per spill set on the ambient task span (a
+            # no-op when the session does not trace)
+            from ballista_tpu_torch.obs import trace as obs_trace
+
+            obs_trace.event(
+                "spill_pass",
+                attrs={
+                    "buckets": self.buckets,
+                    "bytes": total,
+                    "rows": sum(self.bucket_rows),
+                },
+            )
         shutil.rmtree(self.dir, ignore_errors=True)
 
 

@@ -13,8 +13,9 @@ port's own: tasks run on the card, and without one the process exits
 before it binds a port unless started with ``--device cpu``. A non-zero
 ``--metrics-port`` serves the Prometheus exposition of
 ``obs.prometheus.executor_families`` at ``/api/metrics``. File tables
-travel in the plan; memory tables are served in process only, and
-``--prewarm`` accepts only ``off``.
+travel in the plan; memory tables are served in process only.
+``--prewarm on|background`` runs the device-program vocabulary on the
+executor's device at start (``compilecache.prewarm``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from ballista_tpu_torch.executor.cleanup import start_cleanup_loop
 from ballista_tpu_torch.executor.executor import (
     Executor,
     PollLoop,
-    check_prewarm,
     new_executor_id,
 )
 from ballista_tpu_torch.executor.flight_service import start_flight_server
@@ -95,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--prewarm",
         default=_env("prewarm", os.environ.get("BALLISTA_TPU_PREWARM", "off")),
         choices=["off", "on", "background"],
-        help="AOT-compile the kernel vocabulary at start: only 'off' is "
-        "supported by this engine (ROADMAP queue 1, item 10b)",
+        help="run the device-program vocabulary once on the executor's "
+        "device at start (compilecache/prewarm.py): 'on' blocks startup, "
+        "'background' warms while serving",
     )
     p.add_argument(
         "--metrics-port",
@@ -124,7 +125,6 @@ def main(argv: list[str] | None = None) -> int:
 
     warn_unknown_env()  # typo'd BALLISTA_* knobs must be loud
     policy = TaskSchedulingPolicy.parse(args.task_scheduling_policy)
-    check_prewarm(args.prewarm)
     # the device first: without a card (and without --device cpu) the
     # process raises here, before it makes a directory or binds a port
     device = resolve_device(args.device)

@@ -11,9 +11,11 @@ Where the port differs from the reference:
 - **The device.** ``Executor(..., device="cuda")`` by default: every task
   runs on the card, and constructing an executor without one raises
   unless it is asked for the CPU (``device="cpu"``).
-- **Prewarm**: ``PollLoop(prewarm=...)`` accepts only ``off``.
+- **Prewarm**: ``PollLoop(prewarm=...)`` runs the device-program
+  vocabulary on the executor's device (``compilecache.prewarm``).
 - **Compile metrics** shipped on the poll are the nvcc build seconds of
-  ``ops/cuda_build``.
+  ``ops/cuda_build`` and the counters of ``compilecache.metrics``
+  (prewarm progress, the shared callable cache, the hints).
 """
 
 from __future__ import annotations
@@ -31,11 +33,9 @@ import grpc
 from ballista_tpu_torch.columnar.batch import resolve_device
 from ballista_tpu_torch.config import (
     BALLISTA_PLUGIN_DIR,
-    BALLISTA_PREWARM,
-    UNPORTED,
     BallistaConfig,
 )
-from ballista_tpu_torch.errors import ConfigError, ExecutionError
+from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.exec.base import run_with_capacity_retry
 from ballista_tpu_torch.exec.planner import TableProvider
 from ballista_tpu_torch.executor.shuffle import ShuffleWriterExec
@@ -52,24 +52,15 @@ log = logging.getLogger(__name__)
 POLL_INTERVAL = 0.1  # ref execution_loop.rs:110-112 (100ms idle sleep)
 
 
-def check_prewarm(prewarm: str | None) -> str:
-    """The executor loops' prewarm mode: only ``off`` (or None) is
-    accepted, since the port has no kernel registry to compile ahead."""
-    mode = (prewarm or "off").lower()
-    if mode != "off":
-        raise ConfigError(
-            f"prewarm {prewarm!r} is not supported by this engine yet "
-            f"({UNPORTED[BALLISTA_PREWARM]}); use 'off'"
-        )
-    return mode
-
-
 def compile_metrics() -> dict[str, float]:
     """The compile counters an executor ships on its poll and heartbeat:
-    the nvcc build seconds of this process."""
+    the nvcc build seconds of this process and the counters of
+    ``compilecache.metrics`` (prewarm progress, the shared callable cache,
+    the hints)."""
+    from ballista_tpu_torch.compilecache import metrics
     from ballista_tpu_torch.ops import cuda_build
 
-    return {"compile_seconds": round(cuda_build.build_seconds(), 4)}
+    return {"compile_seconds": round(cuda_build.build_seconds(), 4), **metrics.snapshot()}
 
 
 
@@ -638,14 +629,21 @@ class PollLoop:
         self._statuses: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        self.prewarm_mode = check_prewarm(prewarm)
+        # the prewarm's mode (an explicit flag, else BALLISTA_TPU_PREWARM),
+        # started and stopped with the loop; shared with ExecutorServer
+        from ballista_tpu_torch.compilecache import prewarm as prewarm_mod
+
+        self.prewarm_mode = prewarm_mod.resolve_mode(prewarm)
+        self._prewarm = None
 
     def start(self) -> None:
+        from ballista_tpu_torch.compilecache.prewarm import start_server_prewarm
         from ballista_tpu_torch.obs import trace as obs_trace
 
         # executor role: recorded spans stage in the outbox and ride the
         # poll home (docs/observability.md)
         obs_trace.enable_shipping(True)
+        self._prewarm = start_server_prewarm(self.prewarm_mode, self.executor.device)
         self._thread = threading.Thread(
             target=self.run, daemon=True, name="executor-poll-loop"
         )
@@ -653,6 +651,11 @@ class PollLoop:
 
     def stop(self) -> None:
         self._stop.set()
+        if self._prewarm is not None:
+            # cancel queued prewarm signatures and join the pool: a stopped
+            # loop leaves no compile-prewarm thread behind
+            self._prewarm.stop()
+            self._prewarm = None
         if self._thread is not None:
             self._thread.join(timeout=5)
         self.executor.close_locations_client()

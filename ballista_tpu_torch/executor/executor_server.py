@@ -8,8 +8,8 @@ a Heartbeater (60s, :273-283) and a task runner pool consuming LaunchTask
 queues (:294-330). Each finished task pushes UpdateTaskStatus back to the
 scheduler (:176-254). StopExecutor — ``todo!()`` in the reference
 (:348-353) — is implemented here as a graceful drain + stop. Tasks run on
-the executor's device (the card unless it was asked for the CPU); prewarm
-accepts only ``off``.
+the executor's device (the card unless it was asked for the CPU), where
+the configured prewarm runs at startup and is joined at stop.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import grpc
 from ballista_tpu_torch.executor.executor import (
     Executor,
     as_task_status,
-    check_prewarm,
     compile_metrics,
     failed_attempt_cost,
 )
@@ -68,7 +67,11 @@ class ExecutorServer:
         prewarm: str | None = None,
     ) -> None:
         self.executor = executor
-        self.prewarm_mode = check_prewarm(prewarm)
+        # the prewarm's mode and start sequence are shared with PollLoop
+        from ballista_tpu_torch.compilecache import prewarm as prewarm_mod
+
+        self.prewarm_mode = prewarm_mod.resolve_mode(prewarm)
+        self._prewarm = None
         self.scheduler_addr = scheduler_addr
         # eager shuffle: the executor core polls published map-output
         # locations from the same scheduler this server reports to
@@ -105,11 +108,16 @@ class ExecutorServer:
         the bound grpc port (ref startup :49-108)."""
         from concurrent.futures import ThreadPoolExecutor
 
+        # the prewarm runs while the control plane comes up: 'on' blocks
+        # here so the scheduler never offers slots to a cold executor,
+        # 'background' overlaps registration and is joined in stop()
+        from ballista_tpu_torch.compilecache.prewarm import start_server_prewarm
         from ballista_tpu_torch.obs import trace as obs_trace
 
         # executor role: recorded spans stage in the outbox and ride the
         # heartbeat/status RPCs home (docs/observability.md)
         obs_trace.enable_shipping(True)
+        self._prewarm = start_server_prewarm(self.prewarm_mode, self.executor.device)
 
         gs = grpc.server(ThreadPoolExecutor(max_workers=8))
         add_service(gs, EXECUTOR_SERVICE, EXECUTOR_METHODS, self)
@@ -132,8 +140,9 @@ class ExecutorServer:
         except BaseException:
             # partial-startup teardown: a failed registration (scheduler
             # not up yet, bad address) must not leave a running gRPC
-            # server and an open channel behind a raised startup(), since
-            # nobody calls stop() on an instance that never started
+            # server, an open channel and a live prewarm pool behind a
+            # raised startup(), since nobody calls stop() on an instance
+            # that never started
             self.stop()
             raise
 
@@ -281,6 +290,11 @@ class ExecutorServer:
         daemon threads would leak across start/stop cycles and could
         race a half-closed channel with their final UpdateTaskStatus."""
         self._stop.set()
+        if self._prewarm is not None:
+            # cancel queued prewarm signatures and join the pool threads
+            # before the thread audit below
+            self._prewarm.stop()
+            self._prewarm = None
         stragglers = []
         for t in self._threads:
             t.join(timeout=5)

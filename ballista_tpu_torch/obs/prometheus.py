@@ -13,9 +13,9 @@ tier-1 test pins validity).
 
 Port of ``ballista_tpu/obs/prometheus.py``: the same families, names and
 labels, with one difference. An executor's ``ballista_executor_compile``
-counters are the port's: its nvcc build seconds
-(``executor.executor.compile_metrics``) and the persisted-hint counters
-(``compilecache.metrics``).
+counters are the port's (``executor.executor.compile_metrics``): its nvcc
+build seconds and the counters of ``compilecache.metrics`` (prewarm
+progress, the shared callable cache, the persisted hints).
 """
 
 from __future__ import annotations
@@ -325,17 +325,18 @@ def _span_drop_families() -> list[tuple]:
 
 
 def executor_families() -> list[tuple]:
-    """The executor-process metric families (build and hint counters + the
-    in-process trace ring size + live resources)."""
-    from ballista_tpu_torch.compilecache import metrics as hint_metrics
+    """The executor-process metric families (build, prewarm, callable-cache
+    and hint counters + the in-process trace ring size + live
+    resources)."""
     from ballista_tpu_torch.executor.executor import compile_metrics
     from ballista_tpu_torch.obs import hist as obs_hist
     from ballista_tpu_torch.obs import trace
 
-    counters = {**compile_metrics(), **hint_metrics.snapshot()}
+    counters = compile_metrics()
     families = [
         ("ballista_executor_compile", "gauge",
-         "Kernel build seconds and persisted-hint counters",
+         "Kernel build seconds, prewarm, callable-cache and persisted-hint "
+         "counters",
          [({"counter": sanitize_name(k)}, v)
           for k, v in sorted(counters.items())]),
         ("ballista_trace_ring_spans", "gauge",

@@ -4,9 +4,8 @@ The fleet histograms (docs/observability.md) label every latency series
 by a *query class* so repeated submissions of the same query shape
 aggregate into one distribution instead of one-series-per-job (which
 would be unbounded label cardinality and statistically useless). The
-class is derived from the canonical signatures the reference's trace
-cache keys on (``expr_key``/``schema_key`` of its
-``compilecache/tracecache.py``, copied below: the port has no trace cache):
+class is derived from the canonical signatures the trace
+cache keys on (``compilecache.tracecache``'s ``expr_key``/``schema_key``):
 a structural walk of the submitted physical plan — operator types,
 canonical schemas, canonical expression keys — hashed to a short stable
 token — with literal VALUES normalized to their dtype, so a
@@ -28,23 +27,11 @@ import logging
 log = logging.getLogger(__name__)
 
 
-def expr_key(e) -> tuple | None:
-    """Canonical hashable key for a logical expression (or None).
-    ``Expr.__eq__`` is builder sugar, so keys go through the structural
-    ``_key()`` the optimizer uses."""
-    if e is None:
-        return None
-    return (type(e).__name__, e._key())
-
-
-def schema_key(schema) -> tuple:
-    """Canonical hashable key for a Schema (name/dtype/nullability)."""
-    return tuple((f.name, f.dtype.value, f.nullable) for f in schema)
-
-
 def plan_class(plan) -> str:
     """8-hex-char class token for a physical plan (stable across
     processes: everything hashed is canonical, nothing is an id)."""
+    from ballista_tpu_torch.compilecache.tracecache import expr_key, schema_key
+
     parts: list[str] = []
 
     def scrub_literals(k) -> object:

@@ -178,8 +178,11 @@ def _stacked_reduce(
     for (kind, dt), entries in groups.items():
         stacked = torch.stack([c for _, c in entries], dim=1)
         if kind == "add":
+            # integer sums only (``_sum_dtype``: int64): the f64 ones took
+            # the one-hot kernel above, as a scatter of floats on the card
+            # adds in no fixed order
             res = torch.zeros(
-                capacity + 1, len(entries), dtype=dt, device=rid.device
+                capacity + 1, len(entries), dtype=torch.int64, device=rid.device
             ).index_add_(0, idx, stacked)[:capacity]
         else:
             res = _scatter_minmax(idx, capacity, stacked, kind)
@@ -271,7 +274,7 @@ def _column_cumsums(cols: list) -> torch.Tensor:
     at SF=1, and 0.035-0.050 s scanning each column alone)."""
     if cols[0].dtype.is_floating_point:
         return prefix_sum.prefix_sums(torch.stack(cols, dim=0)).T
-    return torch.stack([torch.cumsum(c, 0) for c in cols], dim=1)
+    return torch.stack([torch.cumsum(c, 0, dtype=torch.int64) for c in cols], dim=1)
 
 
 def _shift_down(x: torch.Tensor) -> torch.Tensor:

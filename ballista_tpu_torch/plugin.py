@@ -101,6 +101,16 @@ class UdfRegistry:
         # loader of the same dir blocks until then (concurrent push-mode
         # task threads must not see a half-loaded registry)
         self._dir_loads: dict[str, threading.Event] = {}
+        # bumped by every change of the table: a compiled expression
+        # captures the UDF body it resolved, so the shared callable cache
+        # keys on this (compilecache/tracecache.py)
+        self._generation = 0
+
+    def generation(self) -> int:
+        """How many times the table changed; part of every shared
+        callable's key."""
+        with self._lock:
+            return self._generation
 
     def register(
         self,
@@ -115,6 +125,7 @@ class UdfRegistry:
             self._udfs[name] = ScalarUdf(
                 name, fn, return_type, min_args, max_args or min_args
             )
+            self._generation += 1
 
     def register_udaf(
         self,
@@ -146,6 +157,7 @@ class UdfRegistry:
             self._udafs[name] = AggregateUdf(
                 name, tuple(norm), finalize, return_type
             )
+            self._generation += 1
 
     def get(self, name: str) -> ScalarUdf | None:
         with self._lock:
@@ -168,6 +180,7 @@ class UdfRegistry:
             self._udfs.clear()
             self._udafs.clear()
             self._dir_loads.clear()
+            self._generation += 1
 
     def load_dir(self, plugin_dir: str) -> list[str]:
         """Import every ``*.py`` in ``plugin_dir`` and call its

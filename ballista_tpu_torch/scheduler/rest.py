@@ -10,8 +10,11 @@ Implemented over the stdlib ThreadingHTTPServer — the REST tier is a thin
 read-only view of :class:`SchedulerServer`, not a data path.
 
 Port of ``ballista_tpu/scheduler/rest.py``, the same payloads and paths.
-An executor's ``compile`` counters are the ones the port's executors ship:
-their nvcc build seconds (``executor.executor.compile_metrics``).
+An executor's ``compile`` counters are the ones the port's executors ship
+(``executor.executor.compile_metrics``): their nvcc build seconds, prewarm
+progress (``prewarmed_signatures``, ``prewarm_seconds``,
+``prewarm_failures``), the shared callable cache (``jit_cache_hits``,
+``jit_cache_misses``) and the hint counters.
 """
 
 from __future__ import annotations
@@ -224,10 +227,9 @@ def scheduler_state(server) -> dict:
                 "last_heartbeat_age_s": (
                     round(now - seen, 3) if seen is not None else None
                 ),
-                # latest compile-latency counters (traces, XLA compiles,
-                # persistent-cache hits/misses, prewarm progress) the
-                # executor shipped on its heartbeat/poll
-                # (docs/compile_cache.md)
+                # latest cold-start counters (nvcc build seconds, prewarm
+                # progress, the shared callable cache, hints) the executor
+                # shipped on its heartbeat/poll
                 "compile": server.executor_manager.get_executor_metrics(
                     em.id
                 ),

@@ -8,6 +8,7 @@ NVIDIA card.
     python3 chip_smoke.py --partition-timing [--root CHECKOUT]
     python3 chip_smoke.py --collect-timing [--root CHECKOUT] [--settings JSON]
     python3 chip_smoke.py --aqe-only [--sf 1]
+    python3 chip_smoke.py --hooks-only [--sf 1]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -400,7 +401,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 17. The static-analysis gate and the durability witness. (a) ``python -m
    ballista_tpu_torch.analysis --json`` as a child process, on the full
    22-query corpus and the default device, beside (b) on the host's CPU:
-   all eleven analyzers green and the suppression ledger within budget;
+   all twelve analyzers green and the suppression ledger within budget;
    prints each analyzer's seconds and the gate's wall seconds. (b)
    ``durability_path``: the port's
    scheduler on a ``SqliteBackend`` in a temp directory with
@@ -412,10 +413,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    q1 on the restarted cluster against its oracle; and
    ``ballista_dur_witness_checks_total`` scraped from the scheduler's
    ``/api/metrics``, printed by outcome. Any failure fails the script.
-18. One JSON line of kernel results (the one-hot kernel, the
+18. Prewarm and the trace hooks (``hooks_path``), on the tables of phase
+   5. (a) Two child processes on the card, lineitem from an Arrow IPC
+   file: one with ``ballista.tpu.prewarm`` off, one with it on at the
+   default ladder up to ``tpu_batch_rows()``; the ``on`` child runs every
+   signature it enumerated and none fails; q1 and q6 cold in both against
+   the numpy oracles; the prewarm's seconds and count, each child's cold
+   seconds and peak device memory printed. (b) One executor of the port's
+   scheduler started with ``BALLISTA_TPU_PREWARM=background``: q1 while
+   its prewarm runs, against collect mode (phase 9) and the oracle, and
+   bit for bit q1 again after the prewarm; no ``compile-prewarm`` thread
+   alive after the cluster stops. The launch counts of the main path
+   start at that second q1: the prewarm's launches are printed apart,
+   (a)'s from its child before any query, (b)'s with the first q1's. (c) q1 cold and warm on a collect
+   context with ``ballista.tpu.profile_dir`` and on one without: every
+   attempt writes a ``torch.profiler`` trace, the warm one holding the
+   one-hot kernel's launch; the traced and untraced warm seconds printed.
+   (d) EXPLAIN ANALYZE of q3 under phase 7's 16 MB budget with
+   ``ballista.tpu.trace`` a JSONL path: one ``explain_analyze`` span and
+   at least one ``spill_pass`` event with bytes.
+19. One JSON line of kernel results (the one-hot kernel, the
    partition-hash kernel's ids and grouped modes, and the prefix-sum
    kernel at the largest shape the main path gave it, with its launches
-   on phases 4-17), then the card's name and power limit, then the last
+   on phases 4-18), then the card's name and power limit, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
@@ -446,7 +466,10 @@ run, then ``--warm`` warm runs at ``build_cache_mb`` 0 and as many at
 checkout (``--root``) in one call, in turns, to compare two trees.
 ``--analysis-only`` runs phase 1, builds the kernels, generates TPC-H at
 ``--sf``, runs phase 17 with the oracles of q1 and q3, prints its results
-as one JSON line, and stops.
+as one JSON line, and stops. ``--hooks-only`` runs phase 1, builds the
+kernels, generates TPC-H at ``--sf``, runs phase 18 with the oracles of
+q1 and q6 and one collect-mode q1 computed here, prints its results as
+one JSON line, and stops.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -5476,7 +5499,7 @@ def adaptive_path(data: dict, earlier: dict, rec: "LaunchRecorder", prec: "Parti
 # -- phase 17: the static-analysis gate and the durability witness ---------
 
 GATE_ANALYZERS = (
-    "planlint", "serde-audit", "racelint", "compile-vocab", "lifelint",
+    "planlint", "serde-audit", "devlint", "racelint", "compile-vocab", "lifelint",
     "proto-drift", "config-registry", "eqlint", "detlint", "stalelint", "durlint",
 )
 DURABLE_QUERIES = ("q1", "q3")
@@ -5695,6 +5718,272 @@ def analysis_only(pkg_root: pathlib.Path, sf: float, seed: int) -> dict:
     return out
 
 
+# -- phase 18: prewarm, the executor's background prewarm, profile_dir, trace --
+
+HOOKS_QUERIES = ("q1", "q6")
+HOOKS_BUDGET_MB = GRACE_BUDGET_MB
+
+# (a)'s child: a context on the card with ``ballista.tpu.prewarm`` set to
+# argv[2] (the default ladder up to ``tpu_batch_rows()``), lineitem read
+# from the parent's Arrow IPC file, q1 and q6 cold; their results written
+# back as Arrow IPC for the parent to hold against its oracles, and one
+# JSON line of seconds, counters, the prewarm's own kernel launches (read
+# before any query) and peak device memory
+PREWARM_CHILD = r"""
+import json
+import sys
+import time
+
+root, mode, tables, out_dir = sys.argv[1:5]
+sys.path.insert(0, root)
+import pyarrow as pa
+import pyarrow.ipc as ipc
+import torch
+
+from ballista_tpu_torch.compilecache import metrics
+from ballista_tpu_torch.config import BallistaConfig
+from ballista_tpu_torch.exec.context import TorchContext
+from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+
+torch.zeros(1, device="cuda")  # the card's context, before any timer
+t = time.perf_counter()
+ctx = TorchContext(BallistaConfig({"ballista.tpu.prewarm": mode}), device="cuda")
+torch.cuda.synchronize()
+out = {"mode": mode, "prewarm_s": time.perf_counter() - t, "n_signatures": ctx._prewarm.n_signatures}
+out["prewarm_launches"] = dict(
+    onehot=onehot_agg.launches, partition=partition.launches,
+    grouped=partition.group_launches, prefix=prefix_sum.launches,
+)
+ctx.register_table("lineitem", ipc.open_file(pa.memory_map(tables + "/lineitem.arrow")).read_all())
+for q in ("q1", "q6"):
+    sql = open(f"{root}/benchmarks/queries/{q}.sql").read()
+    t = time.perf_counter()
+    res = ctx.sql(sql).collect()
+    out[q + "_cold_s"] = time.perf_counter() - t
+    with ipc.new_file(f"{out_dir}/{mode}-{q}.arrow", res.schema) as w:
+        w.write_table(res)
+out["metrics"] = metrics.snapshot()
+out["peak_bytes"] = torch.cuda.max_memory_allocated()
+print(json.dumps(out))
+"""
+
+
+def prewarm_children(pkg_root: pathlib.Path, lineitem, oracles: dict, tmp: pathlib.Path) -> dict:
+    """(a) of phase 18: two child processes on the card (the kernels built
+    already), one with prewarm ``off`` and one with ``on`` at the default
+    ladder; in both, q1 and q6 cold over lineitem against the numpy
+    oracles. The ``on`` child runs every signature it enumerated, none
+    failing. Prints the prewarm's seconds and count, each child's cold
+    seconds and peak device memory."""
+    import pyarrow as pa
+    import pyarrow.ipc as ipc
+
+    with ipc.new_file(str(tmp / "lineitem.arrow"), lineitem.schema) as w:
+        w.write_table(lineitem)
+    out: dict = {}
+    for mode in ("off", "on"):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", PREWARM_CHILD, str(pkg_root), mode, str(tmp), str(tmp)],
+            env=child_env("off"), capture_output=True, text=True, timeout=300,
+        )
+        check(proc.returncode == 0, f"prewarm child ({mode}): exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["child_s"] = time.perf_counter() - t
+        for q in HOOKS_QUERIES:
+            got = ipc.open_file(pa.memory_map(str(tmp / f"{mode}-{q}.arrow"))).read_all()
+            compare(f"{q}-prewarm-{mode}", got, oracles[q])
+        m = res["metrics"]
+        if mode == "on":
+            check(res["n_signatures"] > 0 and m.get("prewarmed_signatures") == res["n_signatures"],
+                  f"prewarm on: {m.get('prewarmed_signatures')} signatures run of {res['n_signatures']}")
+            check(m.get("prewarm_failures", 0) == 0, f"prewarm on: {m.get('prewarm_failures')} signatures failed")
+        else:
+            check(res["n_signatures"] == 0 and "prewarmed_signatures" not in m, f"prewarm off ran signatures: {m}")
+        out[mode] = res
+        log(f"prewarm {mode}: {res['n_signatures']} signatures in {res['prewarm_s']:.2f}s, launching "
+            f"{json.dumps(res['prewarm_launches'])}; cold q1 {res['q1_cold_s']:.3f}s, q6 "
+            f"{res['q6_cold_s']:.3f}s; peak device memory {res['peak_bytes']} bytes; the child "
+            f"{res['child_s']:.1f}s")
+    return out
+
+
+def hooks_path(pkg_root: pathlib.Path, data: dict, oracles: dict, collected_q1) -> dict:
+    """Phase 18: (a) ``prewarm_children``; (b) one executor started with
+    ``--prewarm background`` (``BALLISTA_TPU_PREWARM``) on the port's
+    scheduler, q1 while its prewarm runs, held against collect mode and
+    the oracle and bit for bit against q1 again once the prewarm is done;
+    after the cluster stops, no ``compile-prewarm`` thread is alive; (c)
+    q1 on the collect context with ``ballista.tpu.profile_dir``: every
+    attempt's trace is written and holds the one-hot kernel's launch, the
+    traced warm run's seconds beside an untraced one's; (d) EXPLAIN
+    ANALYZE of q3 under phase 7's device budget with ``ballista.tpu.trace``
+    a JSONL path: one ``explain_analyze`` span and at least one
+    ``spill_pass`` event with bytes. The launch counts are set to 0 once
+    (b)'s prewarm is done, just before the q1 after it, and read after
+    (d): they count queries only. The prewarm's own launches are (a)'s
+    child's, read before its first query; (b)'s counts at the prewarm's
+    end (its launches and those of the q1 beside it) are kept apart."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.compilecache import metrics
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.obs import trace as obs_trace
+    from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+    from ballista_tpu_torch.standalone import StandaloneCluster
+
+    sqls = {q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in ("q1", "q3")}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-hooks-"))
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        out["prewarm"] = prewarm_children(pkg_root, data["lineitem"], oracles, tmp)
+        out["children_s"] = time.perf_counter() - t0
+
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        p0 = prefix_sum.launches
+        torch.cuda.reset_peak_memory_stats()
+
+        # (b) the executor's background prewarm beside q1
+        t = time.perf_counter()
+        cfg = BallistaConfig(CLUSTER_SETTINGS)
+        env0 = os.environ.get("BALLISTA_TPU_PREWARM")
+        os.environ["BALLISTA_TPU_PREWARM"] = "background"
+        try:
+            cluster = StandaloneCluster.start(cfg, 2, n_executors=1, device="cuda")
+        finally:
+            if env0 is None:
+                os.environ.pop("BALLISTA_TPU_PREWARM", None)
+            else:
+                os.environ["BALLISTA_TPU_PREWARM"] = env0
+        ctx = BallistaContext(f"localhost:{cluster.scheduler_port}", cfg, device="cuda")
+        ctx._standalone_cluster = cluster
+        cluster.attach_provider(ctx)
+        try:
+            handle = cluster.executors[0].loop._prewarm
+            check(handle is not None and handle.n_signatures > 0, "background prewarm: not started")
+            ctx.register_table("lineitem", data["lineitem"])
+            done0 = metrics.snapshot().get("prewarmed_signatures", 0)
+            t1 = time.perf_counter()
+            during = ctx.sql(sqls["q1"]).collect()
+            q1_s = time.perf_counter() - t1
+            done1 = metrics.snapshot().get("prewarmed_signatures", 0)
+            check(handle.join(timeout=300), "background prewarm: not done within 300 s")
+            beside = dict(onehot=onehot_agg.launches, partition=partition.launches,
+                          grouped=partition.group_launches, prefix=prefix_sum.launches - p0)
+            # from here on the counts are the queries' own: the prewarm's
+            # are (a)'s child's
+            onehot_agg.launches = partition.launches = partition.group_launches = 0
+            p0 = prefix_sum.launches
+            after = ctx.sql(sqls["q1"]).collect()
+        finally:
+            ctx.close()
+        compare("q1-background-prewarm", during, oracles["q1"])
+        compare_tables("q1-background-prewarm", during, collected_q1)
+        check(during.equals(after), "q1 during the background prewarm: not bit for bit q1 after it")
+        alive = [th.name for th in threading.enumerate() if th.name.startswith("compile-prewarm") and th.is_alive()]
+        check(not alive, f"background prewarm: threads alive after stop {alive}")
+        m = metrics.snapshot()
+        check(m.get("prewarm_failures", 0) == 0, f"background prewarm: {m.get('prewarm_failures')} failures")
+        out["background"] = dict(
+            n_signatures=handle.n_signatures, done_at_q1_start=done0, done_at_q1_end=done1,
+            q1_s=q1_s, prewarm_and_q1_launches=beside, s=time.perf_counter() - t,
+        )
+        log(f"background prewarm: {handle.n_signatures} signatures, {done0} done when q1 started and "
+            f"{done1} when it ended ({q1_s:.3f}s); launches of the prewarm and that q1 {json.dumps(beside)}; "
+            f"q1 bit for bit the run after; no compile-prewarm thread after stop; "
+            f"{out['background']['s']:.1f}s")
+
+        # (c) profile_dir: each attempt's torch.profiler trace
+        t = time.perf_counter()
+        prof = tmp / "profile"
+        runs: dict = {}
+        for tag, settings in (("untraced", {}), ("traced", {"ballista.tpu.profile_dir": str(prof)})):
+            c = TorchContext(BallistaConfig(settings), device="cuda")
+            c.register_table("lineitem", data["lineitem"])
+            for run in ("cold", "warm"):
+                t1 = time.perf_counter()
+                res = c.sql(sqls["q1"]).collect()
+                runs[f"{tag}_{run}_s"] = time.perf_counter() - t1
+                compare(f"q1-{tag}-{run}", res, oracles["q1"])
+        traces = sorted(prof.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+        check(len(traces) >= 2, f"profile_dir: {len(traces)} traces for two runs")
+        for p in traces[-1:]:
+            events = json.loads(p.read_text())["traceEvents"]
+            kernels = [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"]
+            check(any(n in k for k in kernels for n in ONEHOT_KERNELS),
+                  f"profile_dir: no one-hot kernel among {len(kernels)} kernels of {p.name}")
+            runs["kernels_in_warm_trace"] = len(kernels)
+        runs["traces"] = len(traces)
+        runs["trace_bytes"] = sum(p.stat().st_size for p in traces)
+        runs["s"] = time.perf_counter() - t
+        out["profile"] = runs
+        log(f"profile_dir: q1 traced warm {runs['traced_warm_s']:.4f}s, untraced warm "
+            f"{runs['untraced_warm_s']:.4f}s (cold {runs['traced_cold_s']:.3f}s, {runs['untraced_cold_s']:.3f}s); "
+            f"{len(traces)} traces, {runs['trace_bytes']} bytes, the warm one with "
+            f"{runs['kernels_in_warm_trace']} kernels, the one-hot kernel among them")
+
+        # (d) trace: EXPLAIN ANALYZE of q3 under the budget, spans to JSONL
+        t = time.perf_counter()
+        path = tmp / "trace.jsonl"
+        c = TorchContext(BallistaConfig({"ballista.tpu.hbm_budget_mb": str(HOOKS_BUDGET_MB),
+                                         "ballista.tpu.trace": str(path)}), device="cuda")
+        for name in ("customer", "orders", "lineitem"):
+            c.register_table(name, data[name])
+        try:
+            t1 = time.perf_counter()
+            c.sql("EXPLAIN ANALYZE " + sqls["q3"]).collect()
+            analyze_s = time.perf_counter() - t1
+        finally:
+            obs_trace.configure("off")
+        lines = [json.loads(ln) for ln in path.read_text().splitlines()]
+        roots = [ln for ln in lines if ln["name"] == "explain_analyze"]
+        passes = [ln for ln in lines if ln["name"] == "spill_pass"]
+        check(len(roots) == 1, f"trace: {len(roots)} explain_analyze spans")
+        check(passes and all(int(p["attrs"]["bytes"]) > 0 for p in passes), f"trace: spill_pass events {passes}")
+        check(all(ln["trace_id"] == roots[0]["trace_id"] for ln in lines), "trace: spans of another trace")
+        out["trace"] = dict(
+            analyze_s=analyze_s, spans=len(lines), spill_passes=len(passes),
+            spill_bytes=sum(int(p["attrs"]["bytes"]) for p in passes),
+            names=sorted({ln["name"] for ln in lines}), s=time.perf_counter() - t,
+        )
+        log(f"trace: EXPLAIN ANALYZE q3 at {HOOKS_BUDGET_MB} MB in {analyze_s:.2f}s; {json.dumps(out['trace'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out.update(launches=onehot_agg.launches, partition_launches=partition.launches,
+               grouped_launches=partition.group_launches, prefix_launches=prefix_sum.launches - p0)
+    check(out["launches"] > 0, "phase 18: no one-hot launch")
+    log(f"hooks: launches onehot {out['launches']}, partition {out['partition_launches']}, grouped "
+        f"{out['grouped_launches']}, prefix {out['prefix_launches']}; peak device memory {out['peak_bytes']} bytes")
+    return out
+
+
+def hooks_only(pkg_root: pathlib.Path, sf: float, seed: int) -> dict:
+    """``--hooks-only``: phase 18 alone, on TPC-H at ``sf`` with the
+    oracles of q1 and q6 and collect mode's q1 computed here."""
+    from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.tpch import gen_all
+
+    data = gen_all(sf, seed)
+    cols = lineitem_columns(data["lineitem"])
+    oracles = {"q1": oracle_q1(cols), "q6": oracle_q6(cols)}
+    c = TorchContext(device="cuda")
+    c.register_table("lineitem", data["lineitem"])
+    collected_q1 = c.sql((ROOT / "benchmarks" / "queries" / "q1.sql").read_text()).collect()
+    t0 = time.perf_counter()
+    out = hooks_path(pkg_root, data, oracles, collected_q1)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def adaptive_timing(root: pathlib.Path, sf: float, seed: int, warm: int) -> dict:
     """Seconds of phase 16's queries for one checkout (``root``'s
     ``benchmarks/queries``, spec constants replaced from the data): on one
@@ -5907,6 +6196,12 @@ def main() -> int:
         "against the oracles computed here), then stop",
     )
     ap.add_argument(
+        "--hooks-only", action="store_true",
+        help="only run phase 18 (prewarm in two child processes, an "
+        "executor's background prewarm beside q1, profile_dir and trace), "
+        "then stop",
+    )
+    ap.add_argument(
         "--settings", default="{}",
         help="session settings (a JSON object) of --collect-timing's context",
     )
@@ -5980,6 +6275,12 @@ def main() -> int:
         log(smi)
         return 0
 
+    if args.hooks_only:
+        cuda_build.build_many(sources)
+        log(json.dumps({"phase18": hooks_only(pkg_root, args.sf, args.seed)}, default=str))
+        log(smi)
+        return 0
+
     if args.aqe_only:
         cuda_build.build_many(sources)
         log(json.dumps({"aqe": aqe_only(args.sf, args.seed), "root": str(pkg_root)}, default=str))
@@ -6042,7 +6343,7 @@ def main() -> int:
 
     # 4. main path (q1, q6, the wide GROUP BY)
     t0 = time.perf_counter()
-    # the prefix-sum kernel's launches on the main path (phases 4-17), by
+    # the prefix-sum kernel's launches on the main path (phases 4-18), by
     # phase; capture runs and replays set the count back
     prefix_sum.launches = 0
     pl_by_phase: dict = {}
@@ -6201,9 +6502,19 @@ def main() -> int:
             gate = finish_gate(started)
         prefix_mark(17)
         log(f"phase 17 took {time.perf_counter() - t0:.1f}s (the gate {gate['wall_s']:.1f}s, the "
-            f"restart {dp['s']:.1f}s); prefix-sum launches by phase {json.dumps(pl_by_phase)}; {smi}")
-    prefix_launches = prefix_sum.launches
-    check(prefix_launches == sum(pl_by_phase.values()), "prefix-sum launches: the phases do not add up")
+            f"restart {dp['s']:.1f}s); {smi}")
+
+        # 18. prewarm, the executor's background prewarm, profile_dir, trace
+        t0 = time.perf_counter()
+        hp = hooks_path(pkg_root, data, mp["oracles"], fp["collect"]["q1"])
+        # the queries' launches only: (b)'s prewarm and the q1 beside it
+        # are counted apart (hp["background"])
+        pl_by_phase[18] = hp["prefix_launches"]
+        log(f"phase 18 took {time.perf_counter() - t0:.1f}s (the prewarm children {hp['children_s']:.1f}s); "
+            f"prefix-sum launches by phase {json.dumps(pl_by_phase)}; {smi}")
+    prefix_launches = sum(pl_by_phase.values())
+    check(prefix_launches + hp["background"]["prewarm_and_q1_launches"]["prefix"] == prefix_sum.launches,
+          "prefix-sum launches: the phases do not add up")
     for q in ("q1", "wide", "q4", "q5", "q12", "q22", "q5-budget", "q1-files", f"q1-ladder-{LADDER_SPEC}",
               "q1-ladder-default"):
         check(bool(rec.shapes.get(q)), f"{q}: no kernel launch recorded")
@@ -6247,13 +6558,13 @@ def main() -> int:
         + sp["partition_launches"] + fp["partition_launches"] + cp["partition_launches"]
         + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
         + pg["partition_launches"] + bc["partition_launches"] + ad["partition_launches"]
-        + dp["partition_launches"]
+        + dp["partition_launches"] + hp["partition_launches"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
         + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
         + aq["grouped_launches"] + pg["grouped_launches"] + bc["grouped_launches"]
-        + ad["grouped_launches"] + dp["grouped_launches"]
+        + ad["grouped_launches"] + dp["grouped_launches"] + hp["grouped_launches"]
     )
 
     # 18. results
@@ -6270,7 +6581,7 @@ def main() -> int:
         "launches": (
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
             + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
-            + pg["launches"] + bc["launches"] + ad["launches"] + dp["launches"]
+            + pg["launches"] + bc["launches"] + ad["launches"] + dp["launches"] + hp["launches"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -6394,9 +6705,10 @@ def main() -> int:
         "adaptive_prefix_replays": adaptive_prefix_replays,
         "analysis_gate": gate,
         "durable": {k: v for k, v in dp.items() if not k.endswith("launches")},
+        "hooks": {k: v for k, v in hp.items() if not k.endswith("launches")},
         "sf": args.sf,
-    }))
-    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_main:.1f}s")
+    }, default=str))
+    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_main:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -1,6 +1,7 @@
 """The port's combined-gate CLI (``python -m ballista_tpu_torch.analysis``),
-the cases of ``tests/test_analysis_cli.py``: its eleven analyzers (the
-reference's minus ``jaxlint``) aggregate into ONE exit code — any analyzer
+the cases of ``tests/test_analysis_cli.py``: its twelve analyzers (the
+reference's, with ``devlint`` in ``jaxlint``'s slot) aggregate into ONE
+exit code — any analyzer
 failing alone fails the run — and ``--skip`` / ``--only`` select
 analyzers without disturbing it. The matrix monkeypatches the runners;
 the cheap analyzers, and once the whole gate with ``--json``, run for
@@ -116,13 +117,17 @@ def test_wire_and_config_analyzers_run_for_real():
 
 
 def test_list_is_the_references_matrix_minus_jaxlint(capsys):
+    """The reference's matrix with ``jaxlint``'s slot taken by
+    ``devlint``."""
     assert amain.main(["--list"]) == 0
     listed = capsys.readouterr().out.split()
-    assert listed == [n for n in ref_main.ANALYZERS if n != "jaxlint"]
     assert listed == [
-        "planlint", "serde-audit", "racelint", "compile-vocab", "lifelint",
-        "proto-drift", "config-registry", "eqlint", "detlint", "stalelint",
-        "durlint",
+        "devlint" if n == "jaxlint" else n for n in ref_main.ANALYZERS
+    ]
+    assert listed == [
+        "planlint", "serde-audit", "devlint", "racelint", "compile-vocab",
+        "lifelint", "proto-drift", "config-registry", "eqlint", "detlint",
+        "stalelint", "durlint",
     ]
     assert amain._SHARED_CORPUS == ref_main._SHARED_CORPUS
 
@@ -136,7 +141,8 @@ def test_whole_gate_json_is_green_on_the_cpu(capsys):
     assert [a["name"] for a in doc["analyzers"]] == list(amain.ANALYZERS)
     assert all(a["ok"] and a["seconds"] >= 0 for a in doc["analyzers"]), doc
     assert set(doc["suppressions"]) == {
-        "racelint", "lifelint", "eqlint", "detlint", "stalelint", "durlint",
+        "devlint", "racelint", "lifelint", "eqlint", "detlint", "stalelint",
+        "durlint",
     }
     for name, row in doc["suppressions"].items():
         assert row["used"] <= row["budget"] == 5, (name, row)

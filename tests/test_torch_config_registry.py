@@ -199,14 +199,22 @@ def test_table_has_the_references_keys_and_defaults_with_unported_marked():
 
 def test_env_registry_declares_what_the_port_reads():
     """The reference's variables whose readers the port lacks are left
-    out; the durability witness's is in."""
+    out; the durability witness's is in, and so are the prewarm's (the
+    mode, the bucket bound and the server ladder, read by
+    ``compilecache/prewarm.py``) with the reference's kinds and defaults."""
+    from ballista_tpu import config as ref_cfg
+
     names = {e.name for e in cfg.ENV_REGISTRY}
     for gone in ("BALLISTA_TPU_JAX_CACHE", "BALLISTA_TPU_NO_FUSE",
-                 "BALLISTA_TPU_CAPACITY_BUCKETS", "BALLISTA_TPU_PREWARM_BUCKETS",
                  "BALLISTA_TEST_TIME_LIMIT_S"):
         assert gone not in names
     assert "BALLISTA_DUR_WITNESS" in names
     assert cfg.env_entry_for("BALLISTA_DUR_WITNESS").doc == "analysis/durwitness.py"
+    for name in ("BALLISTA_TPU_PREWARM", "BALLISTA_TPU_PREWARM_BUCKETS",
+                 "BALLISTA_TPU_CAPACITY_BUCKETS"):
+        port, ref = cfg.env_entry_for(name), ref_cfg.env_entry_for(name)
+        assert (port.kind, port.default) == (ref.kind, ref.default), name
+        assert port.doc == "compilecache/prewarm.py"
 
 
 def test_a_seeded_env_read_in_a_port_module_is_found(tmp_path):

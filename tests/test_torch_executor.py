@@ -6,7 +6,7 @@ query class); the port's ``Executor(device="cpu")`` and the reference's
 and write the same shuffle files bucket for bucket, with the same metas,
 the same operator metric records (paths and operator names) and a cost
 vector whose fields are set. Task statuses, the refusals (a root other
-than ``ShuffleWriterExec``, UDF plugins, prewarm), a session's capacity
+than ``ShuffleWriterExec``, UDF plugins), the prewarm modes, a session's capacity
 ladder, the advertised devices and the process's flags are held to the
 reference's."""
 
@@ -34,7 +34,7 @@ from ballista_tpu_torch.config import (
     BALLISTA_INTERNAL_QUERY_CLASS,
     BALLISTA_INTERNAL_TASK_ATTEMPT,
 )
-from ballista_tpu_torch.errors import ConfigError, ExecutionError
+from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.exec.context import TorchContext
 from ballista_tpu_torch.executor import __main__ as port_main
 from ballista_tpu_torch.executor import visible_devices
@@ -282,15 +282,17 @@ def test_executor_advertises_one_device():
     assert effective_task_slots(4) == 4
 
 
-def test_loops_accept_only_prewarm_off(tmp_path):
+def test_loops_accept_only_prewarm_off(tmp_path, monkeypatch):
+    """The prewarm is ported: the loops take every mode the reference's
+    take (``off``, ``on``, ``background``; default off) and start it with
+    the loop (tests/test_torch_prewarm.py runs them)."""
+    monkeypatch.delenv("BALLISTA_TPU_PREWARM", raising=False)
     ex = Executor("p", str(tmp_path), device="cpu")
     assert PollLoop(ex, "localhost:1", "localhost", 1, prewarm="off").prewarm_mode == "off"
     assert PollLoop(ex, "localhost:1", "localhost", 1).prewarm_mode == "off"
     for mode in ("on", "background"):
-        with pytest.raises(ConfigError, match="item 10b"):
-            PollLoop(ex, "localhost:1", "localhost", 1, prewarm=mode)
-        with pytest.raises(ConfigError, match="item 10b"):
-            ExecutorServer(ex, "localhost:1", "localhost", 1, prewarm=mode)
+        assert PollLoop(ex, "localhost:1", "localhost", 1, prewarm=mode).prewarm_mode == mode
+        assert ExecutorServer(ex, "localhost:1", "localhost", 1, prewarm=mode).prewarm_mode == mode
 
 
 def _flags(parser) -> dict:

@@ -534,6 +534,9 @@ PORTED_SINCE = {
     "ballista.tpu.aqe",
     "ballista.plugin_dir",
     "ballista.tpu.build_cache_mb",
+    "ballista.tpu.profile_dir",
+    "ballista.tpu.trace",
+    "ballista.tpu.prewarm",
 }
 
 
@@ -567,7 +570,43 @@ def _ref_context(cfg: BallistaConfig):
 
 
 def _honoured(key: str, cfg: BallistaConfig, tmp_path) -> None:
-    if key == "ballista.with_information_schema":
+    if key == "ballista.tpu.profile_dir":
+        # a context takes the key; a task attempt under it writes one
+        # TensorBoard trace into the directory (in tmp_path here)
+        TorchContext(cfg, device="cpu")
+        prof = tmp_path / "prof"
+        run_with_capacity_retry(BallistaConfig({key: str(prof)}), lambda ctx: None, device="cpu")
+        assert [f.name.endswith(".pt.trace.json") for f in prof.iterdir()] == [True]
+    elif key == "ballista.tpu.trace":
+        # EXPLAIN ANALYZE records its span on both engines
+        from ballista_tpu.obs import trace as ref_trace
+        from ballista_tpu_torch.obs import trace
+
+        try:
+            names = []
+            for c, mod in ((_ref_context(cfg), ref_trace), (TorchContext(cfg, device="cpu"), trace)):
+                c.register_table("t", pa.table({"x": [1, 2, 3]}))
+                c.sql("EXPLAIN ANALYZE SELECT SUM(x) FROM t").collect()
+                names.append(mod.snapshot()[-1].name)
+            assert names == ["explain_analyze", "explain_analyze"]
+        finally:
+            trace.configure("off")
+            ref_trace.configure("off")
+    elif key == "ballista.tpu.prewarm":
+        # the context runs its prewarm on its device (bounded to one bucket)
+        from ballista_tpu_torch.compilecache import metrics, prewarm
+
+        prewarm.reset_latch()
+        os.environ["BALLISTA_TPU_PREWARM_BUCKETS"] = "2048"
+        try:
+            base = metrics.snapshot().get("prewarmed_signatures", 0)
+            port = TorchContext(cfg, device="cpu")
+            assert port._prewarm.n_signatures == 19
+            assert metrics.snapshot()["prewarmed_signatures"] - base == 19
+        finally:
+            os.environ.pop("BALLISTA_TPU_PREWARM_BUCKETS", None)
+            prewarm.reset_latch()
+    elif key == "ballista.with_information_schema":
         # the reference reads the key nowhere; SHOW works whatever its value
         ref = _ref_context(cfg)
         port = TorchContext(cfg, device="cpu")

@@ -138,10 +138,15 @@ def test_issue_named_caches_are_all_declared():
         "kernel-libraries", "partition-launcher", "launch-shape-memo",
         "dict-hash-cache", "join-build-cache", "scan-device-cache",
         "file-scan-cache", "shrink-capacities", "clustered-aggregate-entries",
+        # the reference's trace cache, ported as the shared callable cache
+        "trace-cache",
     ):
         cachereg.entry(name)
-    # the reference's jitted programs and trace cache have no counterpart
-    for gone in ("trace-cache", "jit-program-memo"):
+    assert cachereg.entry("trace-cache").anchors == (
+        "ballista_tpu_torch/compilecache/tracecache.py::_CACHE",
+    )
+    # the reference's jitted programs have no counterpart
+    for gone in ("jit-program-memo",):
         with pytest.raises(KeyError):
             cachereg.entry(gone)
 
