@@ -93,8 +93,12 @@ RULES: dict[str, str] = {
 _SUPPRESS_RE = re.compile(r"#\s*devlint:\s*disable=([A-Za-z0-9_,\- ]+)")
 
 # the modules whose public functions are device programs: the substrate,
-# the expression evaluator and the adaptive shrink
-PROGRAM_MODULES = ("ops", "expr/physical.py", "exec/shrink.py")
+# the expression evaluator, the adaptive shrink and the mesh tier's layout,
+# exchange and stages
+PROGRAM_MODULES = (
+    "ops", "expr/physical.py", "exec/shrink.py",
+    "parallel/mesh.py", "parallel/collective.py", "parallel/stage.py",
+)
 
 _HOST_SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 _DYNAMIC_SHAPE_CALLS = {

@@ -84,8 +84,8 @@ SANCTIONED_FILES = frozenset({"rewrite.py"})
 SANCTIONED_FUNCTIONS = frozenset({("base.py", "replace_children")})
 
 # Default lint surface: every module that builds, splits, serializes, or
-# executes physical plans. The port has no ``parallel/`` (the mesh tier,
-# ROADMAP item 10b); a directory that is absent is skipped.
+# executes physical plans, the mesh tier's ``parallel/`` among them; a
+# directory that is absent is skipped.
 TARGET_DIRS = ("exec", "executor", "scheduler", "client", "obs", "parallel")
 TARGET_FILES = (
     "distributed_plan.py",

@@ -19,9 +19,8 @@ Run as a tier-1 test (tests/test_torch_serde_closure.py) or ad hoc via
 ``python -m ballista_tpu_torch.analysis.serde_audit``.
 
 The port's copy of ``ballista_tpu/analysis/serde_audit.py``: the same
-exemplars and exemptions over the port's classes and codec. The port has
-no mesh operators (``exec/mesh.py`` is not ported), so it has no mesh
-exemplars and needs no exemption for them.
+exemplars and exemptions over the port's classes and codec, the mesh
+operators' among them.
 """
 
 from __future__ import annotations
@@ -473,6 +472,37 @@ def _physical_exemplars(ctx):
         ShuffleReaderExec([[loc], []], _SCHEMA),
         UnresolvedShuffleExec(2, _SCHEMA, 3, 4),
     ]
+    # mesh tier: planned by a mesh-capable scheduler, decoded by the
+    # executor against ITS mesh; must cross serde
+    from ballista_tpu_torch.exec.mesh import (
+        MeshAggregateExec,
+        MeshJoinExec,
+        MeshSortExec,
+        MeshWindowExec,
+    )
+
+    class _PlanningHandle:
+        """Planning-only stand-in (the scheduler never executes these)."""
+
+    rt = _PlanningHandle()
+    plans += [
+        MeshAggregateExec(
+            mem(), [_COL], [L.AggregateExpr(L.AggFunc.SUM, _COLB)], rt
+        ),
+        MeshJoinExec(mem(), mem2(), join_on, P.JoinType.INNER, None, rt),
+        MeshSortExec(mem(), [P.SortExpr(_COL)], None, rt),
+        MeshSortExec(mem(), [P.SortExpr(_COL)], 10, rt),
+        MeshWindowExec(
+            mem(),
+            [
+                L.WindowFunction(
+                    "row_number", (_COL,), ((_COLB, False, None),)
+                )
+            ],
+            ["rn"],
+            rt,
+        ),
+    ]
     return plans
 
 
@@ -494,7 +524,11 @@ def audit_physical(ctx=None, device: str = "cpu") -> AuditResult:
         )
         ctx.register_table("d", pa.table({"k": [1], "w": [2.0]}))
 
-    codec = BallistaCodec(provider=ctx)
+    class _NoMesh:
+        """Decode-side mesh handle: the audit checks the WIRE and never
+        executes, so it builds no mesh."""
+
+    codec = BallistaCodec(provider=ctx, mesh_runtime=_NoMesh())
     covered: set[str] = set()
     failures: list[str] = []
     for plan in _physical_exemplars(ctx):

@@ -23,9 +23,7 @@ operator path root -> offender and, when the source SQL is supplied and the
 offending token can be located in it, a (line, column) span.
 
 Port of ``ballista_tpu/analysis/verifier.py`` with its checks and messages
-unchanged. The reference's arms for the mesh operators (``MeshJoinExec``,
-``MeshAggregateExec``, ``MeshSortExec``, ``MeshWindowExec``) are left out:
-the port has no mesh operators (ROADMAP queue 1, item 10b).
+unchanged, the mesh operators' arms among them.
 """
 
 from __future__ import annotations
@@ -356,6 +354,12 @@ def _verify_physical_node(w: _Walk, node) -> None:
     from ballista_tpu_torch.distributed_plan import UnresolvedShuffleExec
     from ballista_tpu_torch.exec.aggregate import HashAggregateExec
     from ballista_tpu_torch.exec.joins import HashJoinExec, UnionExec
+    from ballista_tpu_torch.exec.mesh import (
+        MeshAggregateExec,
+        MeshJoinExec,
+        MeshSortExec,
+        MeshWindowExec,
+    )
     from ballista_tpu_torch.exec.pipeline import FilterExec, ProjectionExec
     from ballista_tpu_torch.exec.percentile import PercentileExec
     from ballista_tpu_torch.exec.repartition import HashRepartitionExec
@@ -380,7 +384,7 @@ def _verify_physical_node(w: _Walk, node) -> None:
             ins = w.schema_of(node.input, "input")
             for e in node.exprs:
                 w.resolve(e, ins, "projection expression")
-        elif isinstance(node, HashJoinExec):
+        elif isinstance(node, (HashJoinExec, MeshJoinExec)):
             ls = w.schema_of(node.left, "left input")
             rs = w.schema_of(node.right, "right input")
             for a, b in node.on:
@@ -395,7 +399,10 @@ def _verify_physical_node(w: _Walk, node) -> None:
                         f"{ta.value} but {b.name()} is {tb.value}",
                         token=a.name(),
                     )
-            if node.partition_mode == "partitioned":
+            if (
+                isinstance(node, HashJoinExec)
+                and node.partition_mode == "partitioned"
+            ):
                 # both sides must present the same bucket count, or task K
                 # of one side probes a bucket the other side never wrote
                 nl = node.left.output_partitioning().n
@@ -406,9 +413,9 @@ def _verify_physical_node(w: _Walk, node) -> None:
                         "partitioned join inputs disagree on partition "
                         f"count: left={nl}, right={nr}"
                     )
-        elif isinstance(node, HashAggregateExec):
+        elif isinstance(node, (HashAggregateExec, MeshAggregateExec)):
             ins = w.schema_of(node.input, "input")
-            if node.mode == "final":
+            if isinstance(node, HashAggregateExec) and node.mode == "final":
                 # the final merge consumes the partial's wire layout
                 # (group keys then state slots); a stage boundary or serde
                 # drift that changes it must fail here, not on-device
@@ -426,7 +433,7 @@ def _verify_physical_node(w: _Walk, node) -> None:
                 for e in node.agg_exprs:
                     for agg in L.find_aggregates(e):
                         _check_aggregate_expr(w, agg, ins)
-        elif isinstance(node, SortExec):
+        elif isinstance(node, (SortExec, MeshSortExec)):
             ins = w.schema_of(node.input, "input")
             for s in node.sort_exprs:
                 w.resolve(s.expr, ins, "sort key")
@@ -467,9 +474,10 @@ def _verify_physical_node(w: _Walk, node) -> None:
             w.check()
             if node.partitions < 1:
                 w.fail(f"repartition into {node.partitions} partitions")
-        elif isinstance(node, WindowExec):
+        elif isinstance(node, (WindowExec, MeshWindowExec)):
+            local = node._local if isinstance(node, MeshWindowExec) else node
             ins = w.schema_of(node.input, "input")
-            for wx in node.window_exprs:
+            for wx in local.window_exprs:
                 w.resolve(wx, ins, "window expression")
         elif isinstance(node, PercentileExec):
             ins = w.schema_of(node.input, "input")

@@ -9,7 +9,12 @@ with the other's:
 - a ``valid`` bool mask: padding rows and filtered-out rows are invalid.
   Filters never move data;
 - optional per-column null masks (True = null);
-- host-side dictionaries for STRING columns (the device sees int32 codes).
+- host-side dictionaries for STRING columns (the device sees int32 codes);
+- ``shards``: the shard count of a mesh's global layout (``parallel/mesh.py``:
+  block ``d`` of ``capacity / shards`` rows is shard ``d``'s rows), or None
+  for a batch that is not laid out over a mesh. Only a batch with the same
+  rows at the same positions keeps it (``with_columns``, ``with_valid``);
+  every other rebuild clears it.
 
 PyTorch needs no static shapes, but the ladder stays: it keeps capacities
 and padding identical to the reference's, and it bounds how many distinct
@@ -194,6 +199,7 @@ class DeviceBatch:
     valid: torch.Tensor  # bool[capacity]
     nulls: tuple[torch.Tensor | None, ...]  # per-column True=null, or None
     dictionaries: Mapping[str, Dictionary]  # for STRING columns
+    shards: int | None = None  # mesh shard count of the block layout
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -294,6 +300,7 @@ class DeviceBatch:
             dictionaries=dict(
                 dictionaries if dictionaries is not None else self.dictionaries
             ),
+            shards=self.shards,
         )
 
     def with_valid(self, valid: torch.Tensor) -> "DeviceBatch":
@@ -303,6 +310,7 @@ class DeviceBatch:
             valid=valid,
             nulls=self.nulls,
             dictionaries=dict(self.dictionaries),
+            shards=self.shards,
         )
         # masking can only REMOVE rows, so a key-uniqueness mark survives it
         if getattr(self, "keys_unique", False):

@@ -193,6 +193,32 @@ PROGRAMS: dict[str, ProgramSpec] = {
     "expr.physical.civil_from_days": ProgramSpec(
         "torch", "expr/physical.py", "dates to (year, month, day)"
     ),
+    # the mesh tier: layout, exchange and stage programs
+    "parallel.mesh.shard_batch": ProgramSpec(
+        "torch", "parallel/mesh.py", "live rows laid out round-robin over the shards"
+    ),
+    "parallel.collective.exchange_by_pid": ProgramSpec(
+        "torch", "parallel/collective.py", "the exchange into given buckets"
+    ),
+    "parallel.collective.exchange_by_key": ProgramSpec(
+        "torch", "parallel/collective.py",
+        "the exchange by key hash (launches cuda.partition_hash)",
+    ),
+    "parallel.stage.aggregate_step": ProgramSpec(
+        "torch", "parallel/stage.py", "mesh aggregate: partial, exchange, final"
+    ),
+    "parallel.stage.topk_step": ProgramSpec(
+        "torch", "parallel/stage.py", "mesh top-k: local top-k, gather, merge"
+    ),
+    "parallel.stage.sort_full_step": ProgramSpec(
+        "torch", "parallel/stage.py", "mesh sample sort: splitters, range exchange, local sort"
+    ),
+    "parallel.stage.window_step": ProgramSpec(
+        "torch", "parallel/stage.py", "mesh window: key exchange, local windows"
+    ),
+    "parallel.stage.join_step": ProgramSpec(
+        "torch", "parallel/stage.py", "mesh join: exchange of both sides, build, probe"
+    ),
 }
 
 # Functions and entry points of the program modules that run no device
@@ -234,6 +260,11 @@ HOST_ONLY: dict[str, str] = {
     "ops.partition.partition_groups_plain": _PLAIN,
     "ops.prefix_sum.prefix_sums_plain": _PLAIN,
     "ops.hashing.hash_columns_plain": _PLAIN,
+    "parallel.mesh.make_mesh": "a mesh descriptor (host)",
+    "parallel.mesh.mesh_shards": "the shard count from the environment (host)",
+    "parallel.mesh.check_layout": "a capacity check (host)",
+    "parallel.mesh.is_row_sharded": "a check of the batch's layout mark (host)",
+    "parallel.mesh.unshard_batch": "clears the layout mark; no data moves",
 }
 
 # Physical operator class -> the device programs it may run. The gate
@@ -266,6 +297,11 @@ _EXCHANGE = (
     "ops.hashing.hash_columns", "cuda.partition_hash",
     "cuda.partition_groups", "ops.perm.take_batch",
 )
+_MESH = (
+    "ops.concat.concat_batches", "parallel.mesh.shard_batch",
+    "parallel.collective.exchange_by_key",
+    "parallel.collective.exchange_by_pid", "cuda.partition_hash",
+)
 
 OPERATOR_KERNELS: dict[str, tuple[str, ...]] = {
     # leaf scans (Arrow -> DeviceBatch conversion + slice concat)
@@ -294,6 +330,22 @@ OPERATOR_KERNELS: dict[str, tuple[str, ...]] = {
     "ShuffleWriterExec": _EXCHANGE + ("ops.concat.concat_batches",),
     "ShuffleReaderExec": ("ops.concat.concat_batches",),
     "UnresolvedShuffleExec": (),
+    # mesh tier: a layout, an exchange and the local ops of each stage
+    "MeshAggregateExec": _MESH + (
+        "parallel.stage.aggregate_step", "expr.physical.compile_expr",
+        "ops.aggregate.group_aggregate", "cuda.prefix_sum_f64",
+        "ops.perm.multi_key_perm", "ops.perm.take_batch",
+    ),
+    "MeshJoinExec": _MESH + (
+        "parallel.stage.join_step", "expr.physical.compile_expr",
+        "ops.join.probe_counts", "ops.join.expand_join", "ops.hashing.hash_columns",
+        "ops.perm.multi_key_perm", "ops.perm.take_batch", "ops.search.searchsorted",
+    ),
+    "MeshSortExec": _SORT + _MESH + (
+        "parallel.stage.topk_step", "parallel.stage.sort_full_step",
+        "ops.search.searchsorted",
+    ),
+    "MeshWindowExec": _SORT + _MESH + ("parallel.stage.window_step",),
 }
 
 

@@ -197,10 +197,9 @@ _ENTRIES: dict[str, tuple[str, object]] = {
 }
 
 # Keys whose feature the port lacks, with the ROADMAP item that ports it.
-# A non-default value raises where the reference would use it.
-UNPORTED: dict[str, str] = {
-    BALLISTA_COLLECTIVE_SHUFFLE: "ROADMAP queue 1, item 10b (multi-device)",
-}
+# A non-default value raises where the reference would use it. Every key's
+# feature is ported now; the mechanism stays for the next one that is not.
+UNPORTED: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,6 +310,15 @@ ENV_REGISTRY: tuple[EnvEntry, ...] = (
         "Capacity-bucket ladder for server prewarm on non-default "
         "deployments (session config arrives only with the first task)",
         "compilecache/prewarm.py",
+    ),
+    EnvEntry(
+        "BALLISTA_TPU_MESH_SHARDS", "int", "1",
+        "Shard count of the process's mesh (N shards on the context's or "
+        "executor's one device, the counterpart of XLA's forced host device "
+        "count); 2 or more, with ballista.tpu.collective_shuffle on, lowers "
+        "plans to the mesh operators and makes an executor advertise N "
+        "devices",
+        "parallel/mesh.py",
     ),
     EnvEntry(
         "BALLISTA_PLUGIN_DIR", "path", "",
@@ -429,6 +437,9 @@ class BallistaConfig:
 
     def agg_capacity(self) -> int:
         return self._get(BALLISTA_AGG_CAPACITY)
+
+    def collective_shuffle(self) -> bool:
+        return self._get(BALLISTA_COLLECTIVE_SHUFFLE)
 
     def join_expansion(self) -> int:
         return self._get(BALLISTA_JOIN_EXPANSION)

@@ -41,10 +41,12 @@ query reads the rows as of its own planning. The context starts the
 configured prewarm on its device (``ballista.tpu.prewarm``,
 ``compilecache.prewarm``), and with ``ballista.tpu.trace`` not ``off``
 EXPLAIN ANALYZE records an ``explain_analyze`` span, under which the
-run's spill passes and callable-cache misses land as events. Not ported:
-the staleness witness. A session key whose feature is not ported
-(``config.UNPORTED``) raises here when it is set to another value than
-its default.
+run's spill passes and callable-cache misses land as events. With
+``ballista.tpu.collective_shuffle`` on and ``BALLISTA_TPU_MESH_SHARDS`` at
+2 or more, the context plans on a mesh of that many shards of its device
+(``mesh_runtime``, ``exec/mesh.py``). Not ported: the staleness witness.
+A session key whose feature is not ported (``config.UNPORTED``) raises
+here when it is set to another value than its default.
 """
 
 from __future__ import annotations
@@ -176,6 +178,25 @@ class TorchContext(Catalog, TableProvider):
         # (created at first use; the cluster client serves the scheduler's)
         self._local_history = None
         self._local_query_seq = 0
+        self._mesh_runtime = None
+        self._mesh_checked = False
+
+    def mesh_runtime(self):
+        """The mesh runtime when ``ballista.tpu.collective_shuffle`` is on
+        and the process's shard count (``BALLISTA_TPU_MESH_SHARDS``) is 2
+        or more; None otherwise (one shard: the local operators). Built
+        once, on the context's device."""
+        if not self.config.collective_shuffle():
+            return None
+        if not self._mesh_checked:
+            self._mesh_checked = True
+            from ballista_tpu_torch.parallel.mesh import make_mesh, mesh_shards
+
+            if mesh_shards() >= 2:
+                from ballista_tpu_torch.exec.mesh import MeshRuntime
+
+                self._mesh_runtime = MeshRuntime(make_mesh(device=self.device))
+        return self._mesh_runtime
 
     # -- registration --------------------------------------------------------
     def _registered(self, name: str, reg: _Registered) -> None:
@@ -431,7 +452,9 @@ class TorchContext(Catalog, TableProvider):
         return tuple(sig)
 
     def _planner(self) -> PhysicalPlanner:
-        return PhysicalPlanner(self, self.config.default_shuffle_partitions())
+        return PhysicalPlanner(
+            self, self.config.default_shuffle_partitions(), mesh_runtime=self.mesh_runtime()
+        )
 
     def create_physical_plan(self, logical: LogicalPlan, sql: str | None = None) -> ExecutionPlan:
         optimized = optimize(logical)

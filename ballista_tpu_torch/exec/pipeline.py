@@ -309,4 +309,5 @@ class RenameExec(ExecutionPlan):
                 valid=b.valid,
                 nulls=b.nulls,
                 dictionaries=dicts,
+                shards=b.shards,
             )

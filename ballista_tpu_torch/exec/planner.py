@@ -20,6 +20,16 @@ partitioned join over a hash repartition of both sides for joins without
 string keys (``ballista.repartition.joins``), and an explicit gather under
 a sort of a multi-partition input. Such a tree also runs in process (the
 repartitions mask their output partitions).
+
+With a ``mesh_runtime`` (``exec/mesh.MeshRuntime``: a mesh of two or more
+shards with ``ballista.tpu.collective_shuffle`` on) it lowers to the mesh
+operators where the reference does: a grouped aggregate and DISTINCT to
+``MeshAggregateExec`` (a scalar aggregate stays local), an INNER join and
+a LEFT, SEMI or ANTI join without a residual filter to ``MeshJoinExec``, a
+sort to ``MeshSortExec``'s sample sort, a limit over a sort to its top-k,
+and a window whose expressions share one PARTITION BY set to
+``MeshWindowExec``. A ``PlanError`` from a mesh constructor falls back to
+the local operator.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from ballista_tpu_torch.errors import PlanError
 from ballista_tpu_torch.exec.aggregate import HashAggregateExec
 from ballista_tpu_torch.exec.base import ExecutionPlan
 from ballista_tpu_torch.exec.joins import CrossJoinExec, EmptyExec, HashJoinExec, UnionExec
+from ballista_tpu_torch.exec.mesh import MeshAggregateExec, MeshJoinExec, MeshSortExec, MeshWindowExec
 from ballista_tpu_torch.exec.percentile import PercentileExec
 from ballista_tpu_torch.exec.repartition import HashRepartitionExec
 from ballista_tpu_torch.exec.scan import AvroScanExec, CsvScanExec, ParquetScanExec
@@ -58,16 +69,21 @@ class PhysicalPlanner:
         self,
         provider: TableProvider,
         partitions: int = 2,
+        mesh_runtime=None,
         config=None,
         distributed: bool = False,
     ):
-        """``distributed``: plan hash-exchange boundaries at aggregates and
+        """``mesh_runtime``: an ``exec.mesh.MeshRuntime`` when the mesh tier
+        is active; the planner then lowers to the mesh operators.
+
+        ``distributed``: plan hash-exchange boundaries at aggregates and
         joins (honouring ``config``'s ``ballista.repartition.*`` keys), where
         a stage splitter cuts the plan into shuffled stages. The in-process
         tier leaves them out: one device gains nothing from a masked K-way
         fan-out."""
         self.provider = provider
         self.partitions = partitions
+        self.mesh_runtime = mesh_runtime
         self.config = config
         self.distributed = distributed
 
@@ -126,26 +142,67 @@ class PhysicalPlanner:
                 self._plan(node.input), node.group_exprs, node.group_names, node.requests
             )
         if isinstance(node, P.Window):
+            child = self._plan(node.input)
+            if self.mesh_runtime is not None:
+                # partition-keyed windows exchange rows by PARTITION BY and
+                # run shard-local; other windows gather below
+                try:
+                    return MeshWindowExec(
+                        child, list(node.window_exprs), list(node.names), self.mesh_runtime
+                    )
+                except PlanError:
+                    pass
             # the window operator gathers every input partition itself
-            return WindowExec(
-                self._plan(node.input), list(node.window_exprs), list(node.names)
-            )
+            return WindowExec(child, list(node.window_exprs), list(node.names))
         if isinstance(node, P.Aggregate):
+            child = self._plan(node.input)
+            if self.mesh_runtime is not None and node.group_exprs:
+                # one mesh stage; a scalar aggregate's state is one row,
+                # with nothing to exchange, and stays local
+                return MeshAggregateExec(
+                    child, list(node.group_exprs), list(node.agg_exprs), self.mesh_runtime
+                )
             return self._two_phase(
-                self._plan(node.input), list(node.group_exprs), list(node.agg_exprs),
+                child, list(node.group_exprs), list(node.agg_exprs),
                 repartition=bool(node.group_exprs) and self._repartition_aggregations(),
             )
         if isinstance(node, P.Distinct):
+            child = self._plan(node.input)
             groups = [L.Column(f.name) for f in node.input.schema()]
-            return self._two_phase(self._plan(node.input), groups, [])
+            if self.mesh_runtime is not None:
+                return MeshAggregateExec(child, groups, [], self.mesh_runtime)
+            return self._two_phase(child, groups, [])
         if isinstance(node, P.Sort):
             child = self._plan(node.input)
+            if self.mesh_runtime is not None:
+                # the sample sort (range exchange + local sort) instead of
+                # the coalesce funnel
+                try:
+                    return MeshSortExec(child, list(node.sort_exprs), None, self.mesh_runtime)
+                except PlanError:
+                    pass  # non-column keys: the funnel below
             if self.distributed and child.output_partitioning().n > 1:
                 # an explicit gather, where the stage splitter cuts: an
                 # upstream K-way final aggregate keeps its K tasks
                 child = CoalescePartitionsExec(child)
             return SortExec(child, list(node.sort_exprs))
         if isinstance(node, P.Limit):
+            if (
+                self.mesh_runtime is not None
+                and node.fetch is not None
+                and isinstance(node.input, P.Sort)
+            ):
+                # ORDER BY + LIMIT: the mesh top-k (local top-k per shard,
+                # the candidates gathered and merged)
+                sort_node = node.input
+                try:
+                    ms = MeshSortExec(
+                        self._plan(sort_node.input), list(sort_node.sort_exprs),
+                        node.skip + node.fetch, self.mesh_runtime,
+                    )
+                    return GlobalLimitExec(ms, node.skip, node.fetch)
+                except PlanError:
+                    pass  # non-column keys or fetch 0: planned below
             child = self._plan(node.input)
             if child.output_partitioning().n > 1:
                 child = CoalescePartitionsExec(child)
@@ -208,6 +265,16 @@ class PhysicalPlanner:
             )
         left = self._plan(node.left)
         right = self._plan(node.right)
+        if self.mesh_runtime is not None and (
+            jt == P.JoinType.INNER
+            or (
+                jt in (P.JoinType.LEFT, P.JoinType.SEMI, P.JoinType.ANTI)
+                and node.filter is None
+            )
+        ):
+            # partitioned over the mesh; the probe counts matches, so a
+            # SEMI or ANTI build needs no dedup
+            return MeshJoinExec(left, right, list(node.on), jt, node.filter, self.mesh_runtime)
         # string keys are dictionary-coded, and two executors cannot route
         # codes alike without a shared dictionary: those joins stay in
         # collect (broadcast-build) mode

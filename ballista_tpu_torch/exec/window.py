@@ -19,8 +19,9 @@ RANGE frames snap to peer-group edges. MIN/MAX over running frames use the
 same doubling scan; bounded ROWS frames for MIN/MAX are rejected (no
 prefix trick exists), as in the reference. The operator gathers every
 input partition into one batch (a partition of the window must be in one
-place); the reference's mesh form (``MeshWindowExec``) is ROADMAP queue 1,
-item 10b.
+place); on a mesh, ``exec/mesh.MeshWindowExec`` runs
+``append_window_columns`` on each shard after an exchange by the
+PARTITION BY keys.
 """
 
 from __future__ import annotations

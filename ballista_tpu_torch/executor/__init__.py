@@ -11,10 +11,13 @@ unless the executor is asked for the CPU.
 
 def visible_devices() -> int:
     """Device count this process advertises
-    (ExecutorSpecification.n_devices): always 1. The port has no mesh
-    operators (ROADMAP queue 1, item 10b), and a scheduler lowers stages
-    to them as soon as an executor advertises two devices."""
-    return 1
+    (ExecutorSpecification.n_devices): its mesh's shard count
+    (``BALLISTA_TPU_MESH_SHARDS``, 1 when unset). A scheduler lowers a
+    stage chain to the mesh operators once an executor advertises two or
+    more; the executor runs them over that many shards of its one device."""
+    from ballista_tpu_torch.parallel.mesh import mesh_shards
+
+    return mesh_shards()
 
 
 def effective_task_slots(task_slots: int) -> int:

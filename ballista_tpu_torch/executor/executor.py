@@ -81,7 +81,9 @@ class Executor:
         self.executor_id = executor_id
         self.work_dir = work_dir
         self.provider = provider
-        self.codec = BallistaCodec(provider=provider)
+        # a decoded mesh stage binds a mesh of this process's shards on
+        # this executor's device
+        self.codec = BallistaCodec(provider=provider, device=self.device)
         # eager shuffle (docs/shuffle.md): readers poll the scheduler for
         # published map-output locations through a lazily-dialed channel;
         # the task loops (PollLoop/ExecutorServer) stamp the address and

@@ -16,9 +16,14 @@ never runs an operator: planning a memory scan uploads nothing (the
 scans' device cache fills when an executor runs the task), so the
 scheduler needs no card. Where the port differs:
 
-- **Planning** uses the port's ``PhysicalPlanner`` with no mesh runtime:
-  port executors advertise one device, so no stage lowers to the mesh
-  operators (ROADMAP queue 1, item 10b).
+- **Planning** lowers to the mesh operators, as the reference's does,
+  when the session keeps ``ballista.tpu.collective_shuffle`` on and an
+  alive executor advertises two or more devices (its mesh's shard count,
+  ``BALLISTA_TPU_MESH_SHARDS``): the stage chain between shuffle
+  boundaries then fuses into one mesh task. The scheduler plans with a
+  planning-only handle (``_MeshPlanningHandle``) and never runs a mesh
+  stage; its codec binds the same handle, so decoding a recovered mesh
+  stage builds no mesh on a machine without a card.
 - **AQE** (``scheduler/aqe.py``) and ``apply_certified_rewrite`` are the
   reference's: ``ballista.tpu.aqe=true`` (or ``BALLISTA_AQE=1``) turns the
   policy on, and every adaptation is a certified rewrite
@@ -104,6 +109,23 @@ def _stage_dependencies(stages) -> dict[int, set[int]]:
         for u in find_unresolved_shuffles(stage.plan):
             deps.setdefault(u.stage_id, set()).add(stage.stage_id)
     return deps
+
+
+class _MeshPlanningHandle:
+    """Stand-in MeshRuntime used ONLY during scheduler-side planning: the
+    Mesh*Exec constructors store it without touching a device, the serde
+    encoder never serialises it, and the decoding executor replaces it
+    with a real MeshRuntime over its own shards. Executing a plan holding
+    this handle is a bug: it fails loudly."""
+
+    mesh = None
+    runner = None
+
+    def place(self, *_a, **_k):
+        raise PlanError(
+            "planning-only mesh handle executed on the scheduler; mesh "
+            "stages must run on a mesh-capable executor"
+        )
 
 
 @dataclasses.dataclass
@@ -285,7 +307,7 @@ class SchedulerServer:
         from ballista_tpu_torch.plugin import load_plugins
 
         load_plugins(self.config.plugin_dir() or None)
-        self.codec = BallistaCodec(provider=provider)
+        self.codec = BallistaCodec(provider=provider, mesh_runtime=_MeshPlanningHandle())
         self.stage_manager = StageManager()
         self.executor_manager = ExecutorManager()
         self.jobs: dict[str, JobInfo] = {}
@@ -741,6 +763,7 @@ class SchedulerServer:
                 cfg.default_shuffle_partitions(),
                 config=cfg,
                 distributed=True,
+                mesh_runtime=self._mesh_planning_runtime(cfg),
             ).plan(optimized)
             if verify:
                 with self._trace_step(tctx, "verify_physical"):
@@ -750,6 +773,25 @@ class SchedulerServer:
         return self.submit_physical(
             physical, session_id, trace=tctx, cache_key=cache_key
         )
+
+    def _mesh_planning_runtime(self, cfg):
+        """Planning-only mesh handle: when the session keeps collective
+        shuffle on AND some alive executor advertises >= 2 devices
+        (ExecutorSpecification.n_devices), the plan lowers grouped
+        aggregates, partitioned joins and sorts to Mesh*Exec. Between
+        shuffle boundaries those fuse a whole chain (scan -> join ->
+        aggregate) into ONE task that the mesh-capable executor runs over
+        its shards; the scheduler itself never executes this handle (the
+        decoding executor binds its own MeshRuntime through serde)."""
+        if not cfg.collective_shuffle():
+            return None
+        alive = self.executor_manager.get_alive_executors(self.executor_timeout_s)
+        capable = any(
+            (em.specification.n_devices or 1) >= 2
+            for em in self.executor_manager.all_executors()
+            if em.id in alive
+        )
+        return _MeshPlanningHandle() if capable else None
 
     def _serve_cached_result(
         self, entry: tuple[bytes, dict], session_id: str,

@@ -13,8 +13,9 @@ decoding process opens the file itself.
 
 Third-party operators travel as extension nodes through the codec's
 ``PhysicalExtensionCodec`` (its name, its payload, the children's plans),
-as in the reference. The mesh operators (``Mesh*Exec``) have no operator
-in the port and raise ``PlanError`` naming ROADMAP queue 1, item 10b.
+as in the reference. A mesh operator (``Mesh*Exec``) travels without its
+runtime: the decoding side binds its own ``MeshRuntime`` (an executor's,
+over its own shards on its own device).
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ from ballista_tpu_torch.exec.joins import (
     EmptyExec,
     HashJoinExec,
     UnionExec,
+)
+from ballista_tpu_torch.exec.mesh import (
+    MeshAggregateExec,
+    MeshJoinExec,
+    MeshSortExec,
+    MeshWindowExec,
 )
 from ballista_tpu_torch.exec.percentile import PercentileExec
 from ballista_tpu_torch.exec.pipeline import (
@@ -56,8 +63,6 @@ from ballista_tpu_torch.plan import logical as P
 from ballista_tpu_torch.plan.logical import SortExpr
 from ballista_tpu_torch.proto import pb
 from ballista_tpu_torch.scheduler_types import PartitionLocation
-
-_MESH = "ROADMAP queue 1, item 10b (multi-device)"
 
 # ----------------------------------------------------------------- types ----
 
@@ -617,9 +622,25 @@ class BallistaCodec:
         self,
         provider: TableProvider | None = None,
         extension: PhysicalExtensionCodec | None = None,
+        mesh_runtime=None,
+        device="cuda",
     ):
         self.provider = provider
         self.extension = extension or PhysicalExtensionCodec()
+        # binds decoded Mesh*Exec nodes to THIS process's mesh (an executor
+        # decodes a scheduler-planned mesh stage chain against its own
+        # shards); None: one is built at the first mesh node, over the
+        # process's shard count on ``device``
+        self.mesh_runtime = mesh_runtime
+        self.device = device
+
+    def _mesh_runtime(self):
+        if self.mesh_runtime is None:
+            from ballista_tpu_torch.exec.mesh import MeshRuntime
+            from ballista_tpu_torch.parallel import make_mesh
+
+            self.mesh_runtime = MeshRuntime(make_mesh(device=self.device))
+        return self.mesh_runtime
 
     # -- encode --------------------------------------------------------------
     def physical_to_proto(self, plan: ExecutionPlan) -> pb.PhysicalPlanNode:
@@ -688,6 +709,43 @@ class BallistaCodec:
                     input=self.physical_to_proto(plan.input),
                     keys=[expr_to_proto(k) for k in plan.keys],
                     partitions=plan.partitions,
+                )
+            )
+        if isinstance(plan, MeshAggregateExec):
+            return pb.PhysicalPlanNode(
+                mesh_aggregate=pb.PhysicalMeshAggregateNode(
+                    input=self.physical_to_proto(plan.input),
+                    group_exprs=[expr_to_proto(e) for e in plan.group_exprs],
+                    agg_exprs=[expr_to_proto(e) for e in plan.agg_exprs],
+                )
+            )
+        if isinstance(plan, MeshJoinExec):
+            node = pb.PhysicalMeshJoinNode(
+                left=self.physical_to_proto(plan.left),
+                right=self.physical_to_proto(plan.right),
+                on=[
+                    pb.JoinOnPair(left=expr_to_proto(a), right=expr_to_proto(b))
+                    for a, b in plan.on
+                ],
+                join_type=getattr(pb, f"JOIN_{plan.join_type.name}"),
+            )
+            if plan.filter is not None:
+                node.filter.CopyFrom(expr_to_proto(plan.filter))
+            return pb.PhysicalPlanNode(mesh_join=node)
+        if isinstance(plan, MeshSortExec):
+            return pb.PhysicalPlanNode(
+                mesh_sort=pb.PhysicalMeshSortNode(
+                    input=self.physical_to_proto(plan.input),
+                    sort_exprs=_sort_exprs_to_proto(plan.sort_exprs),
+                    fetch=-1 if plan.fetch is None else plan.fetch,
+                )
+            )
+        if isinstance(plan, MeshWindowExec):
+            return pb.PhysicalPlanNode(
+                mesh_window=pb.PhysicalMeshWindowNode(
+                    input=self.physical_to_proto(plan.input),
+                    exprs=[_window_expr_to_proto(w) for w in plan.window_exprs],
+                    names=list(plan.names),
                 )
             )
         if isinstance(plan, CrossJoinExec):
@@ -893,8 +951,42 @@ class BallistaCodec:
                 [expr_from_proto(k) for k in n.keys],
                 int(n.partitions),
             )
-        if kind in ("mesh_aggregate", "mesh_join", "mesh_sort", "mesh_window"):
-            raise PlanError(f"cannot deserialize {kind}: the mesh operators are not ported ({_MESH})")
+        if kind == "mesh_aggregate":
+            n = p.mesh_aggregate
+            return MeshAggregateExec(
+                self.physical_from_proto(n.input),
+                [expr_from_proto(e) for e in n.group_exprs],
+                [expr_from_proto(e) for e in n.agg_exprs],
+                self._mesh_runtime(),
+            )
+        if kind == "mesh_join":
+            n = p.mesh_join
+            return MeshJoinExec(
+                self.physical_from_proto(n.left),
+                self.physical_from_proto(n.right),
+                [(expr_from_proto(o.left), expr_from_proto(o.right)) for o in n.on],
+                P.JoinType[pb.JoinTypeP.Name(n.join_type)[5:]],
+                expr_from_proto(n.filter) if n.HasField("filter") else None,
+                self._mesh_runtime(),
+            )
+        if kind == "mesh_sort":
+            n = p.mesh_sort
+            return MeshSortExec(
+                self.physical_from_proto(n.input),
+                _sort_exprs_from_proto(n.sort_exprs),
+                # unbounded: -1 by the fetch convention above; 0 from plans
+                # encoded before the convention reached this node
+                None if n.fetch <= 0 else int(n.fetch),
+                self._mesh_runtime(),
+            )
+        if kind == "mesh_window":
+            n = p.mesh_window
+            return MeshWindowExec(
+                self.physical_from_proto(n.input),
+                [_window_expr_from_proto(w) for w in n.exprs],
+                list(n.names),
+                self._mesh_runtime(),
+            )
         if kind == "cross_join":
             return CrossJoinExec(
                 self.physical_from_proto(p.cross_join.left),

@@ -32,8 +32,10 @@ def test_current_counts_pinned():
     diff to this test plus its in-code justification comment."""
     used = {k: v["used"] for k, v in budget.ledger().items()}
     assert used == {
-        # the shrink's first-sight count, a sync by design (exec/shrink.py)
-        "devlint": 1,
+        # syncs by design: the shrink's first-sight count (exec/shrink.py),
+        # the mesh layout's live count (parallel/mesh.py) and the mesh
+        # stages' one flag read a step (parallel/stage.py)
+        "devlint": 3,
         # the documented double-checked fast path in testing/faults.py
         "racelint": 1,
         "lifelint": 0,

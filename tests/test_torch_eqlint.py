@@ -32,11 +32,10 @@ def test_tree_is_clean():
     files = eqlint.target_files()
     names = {f.relative_to(eqlint._package_root()).as_posix() for f in files}
     # the lint surface: the port's plan-building, splitting, serializing
-    # and executing modules (no parallel/: the port has no mesh tier)
-    assert {"exec/joins.py", "executor/shuffle.py", "scheduler/server.py", "scheduler/aqe.py",
-            "client/context.py", "obs/profile.py", "distributed_plan.py", "serde.py",
-            "standalone.py", "cli.py", "plugin.py"} <= names
-    assert not any(n.startswith("parallel/") for n in names)
+    # and executing modules, the mesh tier's among them
+    assert {"exec/joins.py", "exec/mesh.py", "executor/shuffle.py", "scheduler/server.py",
+            "scheduler/aqe.py", "client/context.py", "obs/profile.py", "distributed_plan.py",
+            "serde.py", "standalone.py", "cli.py", "plugin.py", "parallel/stage.py"} <= names
     diags = eqlint.lint_paths()
     assert diags == [], "\n".join(str(d) for d in diags)
     assert eqlint.suppression_count() == 0

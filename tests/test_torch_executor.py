@@ -273,13 +273,23 @@ def test_cost_vector_keys_are_the_reference_keys():
     assert COST_KEYS == REF_COST_KEYS
 
 
-def test_executor_advertises_one_device():
-    """The port has no mesh operators, so an executor advertises one device
-    and keeps its task slots (the reference's rule)."""
+def test_executor_advertises_one_device(monkeypatch):
+    """An executor advertises its mesh's shard count: one device without
+    ``BALLISTA_TPU_MESH_SHARDS``, keeping its task slots, and N with it,
+    running one task at a time (the reference's rule: a mesh is one
+    resource)."""
     from ballista_tpu_torch.executor import effective_task_slots
 
+    monkeypatch.delenv("BALLISTA_TPU_MESH_SHARDS", raising=False)
     assert visible_devices() == 1
     assert effective_task_slots(4) == 4
+    monkeypatch.setenv("BALLISTA_TPU_MESH_SHARDS", "8")
+    assert visible_devices() == 8
+    assert effective_task_slots(4) == 1
+    assert effective_task_slots(1) == 1
+    monkeypatch.setenv("BALLISTA_TPU_MESH_SHARDS", "0")
+    with pytest.raises(ValueError, match="BALLISTA_TPU_MESH_SHARDS"):
+        visible_devices()
 
 
 def test_loops_accept_only_prewarm_off(tmp_path, monkeypatch):

@@ -289,11 +289,13 @@ _FILE_SCHEMA = pb.SchemaP(
 )
 # the file scans, ported since: each case is a round trip
 _FILTER = expr_to_proto(L.BinaryExpr(L.Column("k"), L.Operator.GTEQ, L.Literal(7, DataType.INT64)))
+# the mesh operators, ported since: each case is a round trip of an
+# operator over the feature tables (built in the test, see _mesh_plan)
 UNPORTED_KINDS = {
-    "mesh_aggregate": (_node(mesh_aggregate=pb.PhysicalMeshAggregateNode()), "item 10b"),
-    "mesh_join": (_node(mesh_join=pb.PhysicalMeshJoinNode()), "item 10b"),
-    "mesh_sort": (_node(mesh_sort=pb.PhysicalMeshSortNode()), "item 10b"),
-    "mesh_window": (_node(mesh_window=pb.PhysicalMeshWindowNode()), "item 10b"),
+    "mesh_aggregate": (None, "mesh"),
+    "mesh_join": (None, "mesh"),
+    "mesh_sort": (None, "mesh"),
+    "mesh_window": (None, "mesh"),
     "csv": (_node(scan=pb.ScanExecNode(
         table_name="t", kind="csv", path="/d/t.csv", table_schema=_FILE_SCHEMA,
         projection=["s"], has_projection=True, has_header=True, delimiter="|", partitions=3,
@@ -337,13 +339,73 @@ class _MarkerCodec(PhysicalExtensionCodec):
         return _MarkerExec(payload, inputs)
 
 
+class _PlanningHandle:
+    """A mesh runtime that never runs: the scheduler's planning handle."""
+
+
+def _mesh_plan(kind: str, ctx, mesh, lg, plan_mod):
+    """The ``kind`` mesh operator of one package (its ``exec.mesh``
+    module, logical expressions and plan module) over ``ctx``'s feature
+    tables, bound to a planning handle."""
+    rt = _PlanningHandle()
+
+    def scan(name):
+        s = ctx.scan(name, None, 2)
+        s.table_name = name
+        return s
+
+    if kind == "mesh_aggregate":
+        return mesh.MeshAggregateExec(
+            scan("t"), [lg.col("g")],
+            [lg.AggregateExpr(lg.AggFunc.SUM, lg.col("v")), lg.AggregateExpr(lg.AggFunc.COUNT, lg.col("s"))],
+            rt,
+        )
+    if kind == "mesh_join":
+        filt = lg.BinaryExpr(lg.col("v"), lg.Operator.LT, lg.col("w"))
+        return mesh.MeshJoinExec(
+            scan("t"), scan("d"), [(lg.col("g"), lg.col("k"))], plan_mod.JoinType.INNER, filt, rt
+        )
+    if kind == "mesh_sort":
+        return mesh.MeshSortExec(
+            scan("t"), [plan_mod.SortExpr(lg.col("v"), False, True), plan_mod.SortExpr(lg.col("g"))], 10, rt
+        )
+    return mesh.MeshWindowExec(
+        scan("t"),
+        [lg.WindowFunction("row_number", (lg.col("g"),), ((lg.col("v"), False, None),))],
+        ["rn"], rt,
+    )
+
+
 @pytest.mark.parametrize("kind", sorted(UNPORTED_KINDS))
 def test_unported_kinds_raise_naming_their_item(features, kind):
     """Kinds without an operator raise naming their item; the file scans
     (ported since) decode and encode again to the same bytes, as the
     reference's do, without opening the file; an extension operator
-    (ported since) round-trips through its registered codec."""
+    (ported since) round-trips through its registered codec; a mesh
+    operator (ported since) encodes to the reference's bytes, and its
+    decoding, bound to the decoding side's mesh runtime, encodes to them
+    again."""
     node, item = UNPORTED_KINDS[kind]
+    if item == "mesh":
+        import ballista_tpu.exec.mesh as ref_mesh
+        import ballista_tpu.plan.logical as ref_plan
+        import ballista_tpu_torch.exec.mesh as mesh
+        import ballista_tpu_torch.plan.logical as plan_mod
+
+        ref, port = features
+        handle = _PlanningHandle()
+        ref_plan_ = _mesh_plan(kind, ref, ref_mesh, RL, ref_plan)
+        port_plan = _mesh_plan(kind, port, mesh, L, plan_mod)
+        wire = RefCodec(provider=ref, mesh_runtime=handle).physical_to_proto(ref_plan_).SerializeToString()
+        assert pb.PhysicalPlanNode.FromString(wire).WhichOneof("plan") == kind
+        codec = BallistaCodec(provider=port, mesh_runtime=handle)
+        assert codec.physical_to_proto(port_plan).SerializeToString() == wire
+        back = codec.physical_from_proto(pb.PhysicalPlanNode.FromString(wire))
+        assert type(back).__name__ == type(ref_plan_).__name__ and back.runtime is handle
+        assert back.display() == port_plan.display() == ref_plan_.display()
+        assert back.schema().names == ref_plan_.schema().names
+        assert codec.physical_to_proto(back).SerializeToString() == wire
+        return
     if item == "codec":
         # an unregistered codec is refused by both with the reference's
         # message; a registered one decodes the operator and its inputs

@@ -1,10 +1,9 @@
 """Serde-closure audit of the port (``ballista_tpu_torch/analysis/serde_audit.py``),
 the cases of ``tests/test_serde_closure.py``: every expression, logical
 node and physical operator class of the port either round-trips
-byte-stably through the port's codec or carries a written exemption. The
-port has no mesh operators: its audit covers the physical vocabulary
-without them and needs no exemption for them, and a mesh node that
-arrives on the wire is refused by name."""
+byte-stably through the port's codec or carries a written exemption, the
+mesh operators among them, and a mesh node of the reference's wire
+decodes to the port's operator."""
 
 import pytest
 
@@ -34,13 +33,10 @@ def test_logical_vocabulary_closed():
 def test_physical_vocabulary_closed():
     r = audit_physical()
     assert r.ok, r.summary()
-    # the reference's covered classes but its mesh tier (4 classes), with
-    # the shuffle plumbing
-    want = set(ref_audit.audit_physical().covered) - {
-        "MeshAggregateExec", "MeshJoinExec", "MeshSortExec", "MeshWindowExec",
-    }
-    assert set(r.covered) == want, r.summary()
-    assert len(r.covered) >= 21, r.summary()
+    # the reference's covered classes, its mesh tier (4 classes) and the
+    # shuffle plumbing among them
+    assert set(r.covered) == set(ref_audit.audit_physical().covered), r.summary()
+    assert len(r.covered) >= 25, r.summary()
     for cls in ("ShuffleWriterExec", "UnresolvedShuffleExec"):
         assert cls in r.covered, r.summary()
 
@@ -107,16 +103,18 @@ def test_decoded_scan_reencodes():
 
 def test_mesh_window_is_refused_by_name():
     """The reference's mesh-window case: a MeshWindowExec crosses the
-    reference's wire, and the port, which has no mesh tier, refuses the
-    node by name instead of mis-decoding it."""
+    reference's wire, and the port decodes the node by name into its own
+    MeshWindowExec, bound to the decoding side's mesh handle, which
+    encodes to the same bytes (it was refused before the mesh tier was
+    ported)."""
     import pyarrow as pa
 
     from ballista_tpu.exec.context import TpuContext
     from ballista_tpu.exec.mesh import MeshWindowExec
     from ballista_tpu.expr import logical as RL
     from ballista_tpu.serde import BallistaCodec as RefCodec
-    from ballista_tpu_torch.errors import PlanError
     from ballista_tpu_torch.exec.context import TorchContext
+    from ballista_tpu_torch.exec.mesh import MeshWindowExec as PortMeshWindowExec
     from ballista_tpu_torch.proto import pb
     from ballista_tpu_torch.serde import BallistaCodec
 
@@ -137,8 +135,12 @@ def test_mesh_window_is_refused_by_name():
     enc = RefCodec(provider=ref, mesh_runtime=_Handle()).physical_to_proto(plan).SerializeToString()
     ctx = TorchContext(device="cpu")
     ctx.register_table("m", pa.table({"a": [1, 2], "b": [0.5, 1.5]}))
-    with pytest.raises(PlanError, match="mesh_window"):
-        BallistaCodec(provider=ctx).physical_from_proto(pb.PhysicalPlanNode.FromString(enc))
+    handle = _Handle()
+    codec = BallistaCodec(provider=ctx, mesh_runtime=handle)
+    back = codec.physical_from_proto(pb.PhysicalPlanNode.FromString(enc))
+    assert isinstance(back, PortMeshWindowExec) and back.runtime is handle
+    assert back.display() == plan.display()
+    assert codec.physical_to_proto(back).SerializeToString() == enc
 
 
 @pytest.mark.parametrize("domain", ["expr", "logical", "physical"])

@@ -537,6 +537,7 @@ PORTED_SINCE = {
     "ballista.tpu.profile_dir",
     "ballista.tpu.trace",
     "ballista.tpu.prewarm",
+    "ballista.tpu.collective_shuffle",
 }
 
 
@@ -570,7 +571,29 @@ def _ref_context(cfg: BallistaConfig):
 
 
 def _honoured(key: str, cfg: BallistaConfig, tmp_path) -> None:
-    if key == "ballista.tpu.profile_dir":
+    if key == "ballista.tpu.collective_shuffle":
+        # at 8 shards the default plans the mesh operators and false plans
+        # the local ones
+        sql = "SELECT x, COUNT(*) AS c FROM t GROUP BY x"
+        old = os.environ.get("BALLISTA_TPU_MESH_SHARDS")
+        os.environ["BALLISTA_TPU_MESH_SHARDS"] = "8"
+        try:
+            disps = []
+            for c in (cfg, BallistaConfig()):
+                ctx = TorchContext(c, device="cpu")
+                ctx.register_table("t", pa.table({"x": [1, 2, 2, 3]}))
+                disps.append(ctx.create_physical_plan(ctx.sql_to_logical(sql)).display())
+                assert ctx.sql(sql + " ORDER BY x").collect().to_pydict() == {
+                    "x": [1, 2, 3], "c": [1, 2, 1]
+                }
+        finally:
+            if old is None:
+                os.environ.pop("BALLISTA_TPU_MESH_SHARDS")
+            else:
+                os.environ["BALLISTA_TPU_MESH_SHARDS"] = old
+        assert "Mesh" not in disps[0] and "HashAggregateExec" in disps[0], disps[0]
+        assert "MeshAggregateExec" in disps[1], disps[1]
+    elif key == "ballista.tpu.profile_dir":
         # a context takes the key; a task attempt under it writes one
         # TensorBoard trace into the directory (in tmp_path here)
         TorchContext(cfg, device="cpu")

@@ -279,6 +279,57 @@ def test_partitioned_join_bucket_mismatch_fails_alike(ctxs):
     assert v[0] == "error" and "disagree on partition count" in v[1], v
 
 
+class _PlanningHandle:
+    """A mesh runtime that never runs (the scheduler's planning handle)."""
+
+
+def _mesh_node(s, c, case: str):
+    """The reference's or the port's mesh operator of ``case`` over the
+    small tables; a ``*_bad`` case is mutated after construction, as a
+    serde drift would leave it."""
+    import ballista_tpu.exec.mesh as ref_mesh
+    import ballista_tpu_torch.exec.mesh as port_mesh
+
+    mesh = ref_mesh if s is REF else port_mesh
+    L, P, rt = s.L, s.P, _PlanningHandle()
+    t, d = c.scan("t", None, 2), c.scan("d", None, 2)
+    kind = case.split("_")[0]
+    if kind == "join":
+        key = "s" if case == "join_bad" else "g"
+        return mesh.MeshJoinExec(t, d, [(L.col(key), L.col("k"))], P.JoinType.INNER, None, rt)
+    if kind == "agg":
+        node = mesh.MeshAggregateExec(t, [L.col("g")], [L.AggregateExpr(L.AggFunc.SUM, L.col("v"))], rt)
+        if case == "agg_bad":
+            node.group_exprs = [L.col("nope")]
+        return node
+    if kind == "sort":
+        node = mesh.MeshSortExec(t, [P.SortExpr(L.col("v"), False, True)], 5, rt)
+        if case == "sort_bad":
+            node.sort_exprs = [P.SortExpr(L.col("nope"))]
+        return node
+    node = mesh.MeshWindowExec(
+        t, [L.WindowFunction("row_number", (L.col("g"),), ((L.col("v"), False, None),))], ["rn"], rt
+    )
+    if case == "window_bad":
+        node._local.window_exprs = [
+            L.WindowFunction("row_number", (L.col("nope"),), ((L.col("v"), False, None),))
+        ]
+    return node
+
+
+@pytest.mark.parametrize(
+    "case", ["join_ok", "join_bad", "agg_ok", "agg_bad", "sort_ok", "sort_bad", "window_ok", "window_bad"]
+)
+def test_mesh_operators_verify_alike(ctxs, case):
+    """The verifier's arms of the four mesh operators: a sound node passes
+    both verifiers with the same report, a broken one fails both with the
+    same text and operator path."""
+    v = same_verdict(lambda s: (lambda: s.analysis.verify_physical(_mesh_node(s, ctxs[s.name], case))))
+    assert v[0] == ("error" if case.endswith("_bad") else "ok"), v
+    if case == "join_bad":
+        assert "join key dtype mismatch" in v[1], v
+
+
 @pytest.mark.parametrize(
     "sql,token", [("select g,\n       nope\nfrom t", "nope"), ("select g,\n       nope\nfrom t", "t.g"),
                   ("select g,\n       nope\nfrom t", "absent"), (None, "g")],
