@@ -21,8 +21,8 @@ ledger (``budget``):
 - ``stalelint`` over the cache registry ``cachereg`` and ``durlint`` over
   the state registry ``durreg``: staleness and durability.
 
-The reference's ``jaxlint`` is not ported: the host-sync lint of ROADMAP
-queue 1, item 10b takes its slot.
+The reference's ``jaxlint`` has no counterpart: the port's device-program
+and host-sync lint ``devlint`` takes its slot.
 """
 
 from ballista_tpu_torch.errors import PlanVerificationError  # noqa: F401

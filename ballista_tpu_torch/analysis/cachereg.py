@@ -125,8 +125,8 @@ CACHES: tuple[CacheEntry, ...] = (
     CacheEntry(
         name="physical-plan-cache",
         anchors=("ballista_tpu_torch/exec/context.py::TorchContext._physical_cache",),
-        keyed_by="logical-plan serde bytes + sorted session settings + "
-        "_data_version()",
+        keyed_by="logical-plan structural fingerprint (plan_fingerprint) "
+        "+ sorted session settings + _data_version()",
         scope="session",
         coherence="versioned",
         invalidation=(
@@ -489,9 +489,9 @@ VERSION_SOURCES: tuple[VersionSource, ...] = (
     VersionSource(
         name="data-version",
         anchor="ballista_tpu_torch/exec/context.py::TorchContext._data_version",
-        description="registered-data signature (memory-table identity + "
-        "rows, file mtimes); the version every versioned cache key over "
-        "table data must fold in",
+        description="registered-data signature (memory-table registration "
+        "generation + rows, file mtimes); the version every versioned cache "
+        "key over table data must fold in",
     ),
     VersionSource(
         name="job-snapshot-seam",

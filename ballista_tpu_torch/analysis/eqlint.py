@@ -32,8 +32,8 @@ uncertified-stage-write     ``stage.plan = x`` where the receiver is a
 
 Suppression: ``# eqlint: disable=<rule>`` on the offending line or the
 enclosing ``def`` line; :func:`suppression_count` counts them (the port's
-tree has none). The reference's shared budget ledger over all its lints
-(``analysis/budget.py``) is not ported (ROADMAP queue 1, item 11).
+tree has none), and the shared ledger over all the lints
+(``analysis/budget.py``) holds the count to its budget.
 """
 
 from __future__ import annotations

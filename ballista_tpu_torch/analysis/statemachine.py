@@ -13,9 +13,9 @@ it. Consumers:
 
 - :mod:`ballista_tpu_torch.scheduler.stage_manager` derives its legal-transition
   validator from :data:`TASK_TRANSITIONS` — code and spec cannot drift.
-- the reference's ``racelint`` (rule ``undeclared-transition``) checks
-  its own control plane against its copy of these tables; the port has
-  no static lints (ROADMAP queue 1, item 10b).
+- :mod:`ballista_tpu_torch.analysis.racelint` (rule
+  ``undeclared-transition``) checks every status assignment of the
+  control plane against these tables.
 - ``tests/test_torch_scheduler.py`` drives randomized
   retry/recovery/promote sequences and asserts every observed hop is an
   edge of these tables, and that they are the reference's.

@@ -1,6 +1,6 @@
 """Runtime lock-order witness (the dynamic half of ``racelint``).
 
-The static lock-order graph (the reference's ``analysis/racelint.py``, not ported) proves
+The static lock-order graph (:mod:`ballista_tpu_torch.analysis.racelint`) proves
 no *syntactically reachable* acquisition cycle exists; this module checks
 the orders that are *actually taken* at runtime. Every control-plane lock
 is created through :func:`make_lock`. In normal operation that returns a

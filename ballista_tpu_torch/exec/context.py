@@ -18,9 +18,9 @@ TABLE``, ``SHOW TABLES``, ``SHOW COLUMNS`` and ``EXPLAIN [VERBOSE | VERIFY
 
 Physical plans are cached on the optimized logical plan (a structural
 fingerprint), the settings and the registered data's version (a memory
-table's identity, a file's mtime), so a repeated query reuses its
-operators, and a registered table keeps its uploaded device batches for
-warm queries. Every run goes through ``run_with_capacity_retry``: an
+table's registration generation, a file's mtime), so a repeated query
+reuses its operators, and a registered table keeps its uploaded device
+batches for warm queries. Every run goes through ``run_with_capacity_retry``: an
 aggregate that outgrows its group capacity runs again with the capacity
 grown, and a stale plan-cache speculation runs again without it. The
 context keeps the plan cache (join build flags, probe-table sizes, decimal
@@ -44,15 +44,20 @@ EXPLAIN ANALYZE records an ``explain_analyze`` span, under which the
 run's spill passes and callable-cache misses land as events. With
 ``ballista.tpu.collective_shuffle`` on and ``BALLISTA_TPU_MESH_SHARDS`` at
 2 or more, the context plans on a mesh of that many shards of its device
-(``mesh_runtime``, ``exec/mesh.py``). Not ported: the staleness witness.
-A session key whose feature is not ported (``config.UNPORTED``) raises
-here when it is set to another value than its default.
+(``mesh_runtime``, ``exec/mesh.py``). With the staleness witness on
+(``BALLISTA_CACHE_WITNESS``, ``analysis/stalewitness.py``) a sampled
+physical-plan-cache hit is planned again and the two plans' renders are
+compared; the fresh plan is then dropped. A session key whose feature is
+not ported (``config.UNPORTED``) raises here when it is set to another
+value than its default.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import itertools
 import logging
 import pathlib
 import time
@@ -63,6 +68,8 @@ import pyarrow.csv as pacsv
 import pyarrow.parquet as papq
 import torch
 
+from ballista_tpu_torch.analysis import stalewitness
+from ballista_tpu_torch.analysis.witness import make_lock
 from ballista_tpu_torch.columnar.arrow_interop import (
     batch_to_arrow,
     schema_from_arrow,
@@ -89,16 +96,29 @@ from ballista_tpu_torch.sql.planner import Catalog, SqlPlanner
 
 log = logging.getLogger(__name__)
 
+# Registration generations, process-wide: every registration gets the next
+# one, so a memory table's data version changes with each registration even
+# when a freed table's address (its ``id()``) is reused by the next one.
+_generation = itertools.count(1)
+_generation_lock = make_lock("context._generation_lock")
+
+
+def _next_generation() -> int:
+    with _generation_lock:
+        return next(_generation)
+
 
 class _Registered:
     """A registered table: ``kind`` is memory, csv, parquet or avro; ``kw``
     holds the table or the file's path and options, and the table's
-    registration-lifetime caches (``device_cache``, ``scan_cache``)."""
+    registration-lifetime caches (``device_cache``, ``scan_cache``).
+    ``generation`` is stamped by ``TorchContext._registered``."""
 
     def __init__(self, kind: str, schema: Schema, **kw):
         self.kind = kind
         self.schema = schema
         self.kw = kw
+        self.generation = 0
 
 
 def _scans_system_table(logical) -> bool:
@@ -200,6 +220,7 @@ class TorchContext(Catalog, TableProvider):
 
     # -- registration --------------------------------------------------------
     def _registered(self, name: str, reg: _Registered) -> None:
+        reg.generation = _next_generation()
         self.tables[name] = reg
         # new data: learned plan shapes may be stale (they are validated
         # anyway; clearing avoids a certain speculation miss)
@@ -432,8 +453,10 @@ class TorchContext(Catalog, TableProvider):
 
     def _data_version(self) -> tuple:
         """The registered data's signature in the plan cache's key: a
-        swapped memory table (identity and rows) or a rewritten file
-        (mtime) gets a fresh plan, since cached scans hold their data.
+        memory table registered again (its registration generation and
+        rows; every registration, ``append_table``'s too, draws a new
+        generation) or a rewritten file (mtime) gets a fresh plan, since
+        cached scans hold their data.
         System tables are left out: every scan of one re-registers it, and
         a dashboard polling ``system.queries`` must not invalidate every
         cached user plan (plans over system tables are never cached)."""
@@ -446,7 +469,7 @@ class TorchContext(Catalog, TableProvider):
             r = self.tables[name]
             t = r.kw.get("table")
             if t is not None:
-                sig.append((name, id(t), t.num_rows))
+                sig.append((name, r.generation, t.num_rows))
             else:
                 sig.append((name, r.kw["path"], file_mtime(r.kw["path"])))
         return tuple(sig)
@@ -480,6 +503,8 @@ class TorchContext(Catalog, TableProvider):
         )
         cached = self._physical_cache.get(key)
         if cached is not None:
+            if stalewitness.enabled() and stalewitness.should_sample("physical_plan_cache"):
+                self._witness_plan_hit(key, cached, optimized)
             # metrics stay per query
             def _reset(p):
                 p.metrics.reset()
@@ -500,6 +525,21 @@ class TorchContext(Catalog, TableProvider):
             verify_physical(phys, sql=sql)
         self._physical_cache[key] = phys
         return phys
+
+    def _witness_plan_hit(self, key: tuple, cached: ExecutionPlan, optimized: LogicalPlan) -> None:
+        """The staleness witness at a sampled physical-plan-cache hit: plan
+        afresh and compare the renders of the cached and the fresh tree. The
+        fresh plan is dropped unrun (its scans upload nothing at planning).
+        The key's fingerprint is a tuple: its witness key is a short digest
+        of its ``repr``."""
+        fresh = self._planner().plan(optimized)
+        stalewitness.check(
+            "physical_plan_cache",
+            hashlib.sha256(repr(key[0]).encode()).hexdigest()[:16],
+            hashlib.sha256(cached.display().encode()).hexdigest(),
+            hashlib.sha256(fresh.display().encode()).hexdigest(),
+            version=key[2],
+        )
 
     def sql(self, sql: str) -> "DataFrame":
         stmt = parse_sql(sql)

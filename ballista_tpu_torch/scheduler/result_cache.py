@@ -10,9 +10,11 @@ scheduler alone: no stages, no task grants, no executor round-trip.
 
 Invalidation is BY KEY, never by sweep: re-registering or appending to a
 table changes its ``_data_version`` component (memory tables key on
-object identity + row count, files on mtime — the seam
+their registration generation + row count, files on mtime — the seam
 ``exec/context.py`` already uses for its local plan caches), so the next
-submission simply misses and the stale entry ages out of the LRU.
+submission simply misses and the stale entry ages out of the LRU. A
+generation is never reused, where an object's address can be: a table
+dropped and a new one registered never share a key.
 Plans scanning ``system.*`` tables are never keyed at all (they must
 serve the rows as of THIS query). The cache is in-memory only — a
 scheduler restart starts empty by construction, which is exactly the

@@ -10,6 +10,7 @@ NVIDIA card.
     python3 chip_smoke.py --aqe-only [--sf 1]
     python3 chip_smoke.py --hooks-only [--sf 1]
     python3 chip_smoke.py --mesh-only [--sf 1]
+    python3 chip_smoke.py --witness-only [--sf 1]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -467,10 +468,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scheduler's stage plans and the operators the executor reports hold
    the mesh operators, and the result is (b)'s bit for bit. Then the
    launches of (b) and (c) are replayed against the plain versions.
-20. One JSON line of kernel results (the one-hot kernel, the
+20. The runtime witnesses on phase 5's tables. (a) Right after phase 5,
+   on its ``TorchContext`` (so that phase 5's seconds stay as they were):
+   its five queries once unwitnessed (phase 5's capture runs plan afresh
+   and leave one plan cached) and once more with ``analysis/stalewitness``
+   on at sample rate 1; each witnessed run is a physical-plan-cache hit
+   that plans afresh and
+   compares the two plans' renders: one ``physical_plan_cache`` match a
+   query, no stale, each result bit for bit phase 5's warm one. (b) Last,
+   after phase 19: the chaos scenario of
+   ``tests/test_stalewitness_chaos.py`` on a two-executor cluster (the
+   result cache at 64 MB, AQE on, phase 10 (d)'s liveness knobs), with
+   the cache witness sampling every hit and the replay and resource
+   witnesses on: q1 and q3 cold; q3 again (its hit demoted, resolving
+   ``match``); q3 losing executor 1 at its first finished stage (another
+   demoted hit, resolving ``match``); ``customer`` registered again as
+   the same object (its key flips: a miss); rows appended to
+   ``customer`` that q3's segment filter drops (a miss, the same rows).
+   Every result equals collect mode's (phase 9) and the numpy oracle,
+   q3's revenue bit for bit; no stale hit, nothing pending
+   (``pending_count`` drained with a deadline); the replay ledger clean
+   with shuffle and result records; after the cluster closed, no live
+   resource. (c) The replay property of
+   ``tests/test_replay_witness.py``: q3 on a fresh two-executor cluster
+   at fetch concurrency 1, with eager shuffle off and with zstd
+   compression: one key set, every shuffle and result hash equal.
+   Prints the cache counters by outcome, the replay records by kind, the
+   resources acquired by kind and the live count after close, and the
+   seconds of (a), (b) and (c); then its launches are replayed against
+   the plain versions.
+21. One JSON line of kernel results (the one-hot kernel, the
    partition-hash kernel's ids and grouped modes, and the prefix-sum
    kernel at the largest shape the main path gave it, with its launches
-   on phases 4-19), then the card's name and power limit, then the last
+   on phases 4-20), then the card's name and power limit, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
@@ -507,7 +537,11 @@ q1 and q6 and one collect-mode q1 computed here, prints its results as
 one JSON line, and stops. ``--mesh-only`` runs phase 1, builds the
 kernels, generates TPC-H at ``--sf``, runs phase 19 with the oracles of
 q1, q3, q5 and q18 computed here, replays its launches, prints its
-results as one JSON line, and stops.
+results as one JSON line, and stops. ``--witness-only`` runs phase 1,
+builds the kernels, generates TPC-H at ``--sf``, runs phase 5 (with the
+oracles of q1 and q3 and their collect-mode results on its context) and
+phase 20, replays their launches, prints the results as one JSON line,
+and stops.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2299,6 +2333,7 @@ def joins_path(
     out["launches"] = launches
     out["partition_launches"] = plaunches
     out["peak_bytes"] = peak
+    out["ctx"] = ctx  # phase 20 (a) runs on it, then drops it
     return out
 
 
@@ -2963,7 +2998,8 @@ def staged_path(data: dict, oracles: dict, rec: LaunchRecorder, prec: PartitionR
 FLEET_QUERIES = STAGED_QUERIES
 FLEET_K = STAGED_K
 # the session of the fleet's jobs: every shuffle read crosses Flight; eager
-# and push shuffle need a scheduler that publishes locations (ROADMAP 9d)
+# and push shuffle need a scheduler that publishes locations, which the
+# stand-in does not (phase 10 runs them on the port's scheduler)
 FLEET_SETTINGS = {
     "ballista.shuffle.partitions": str(FLEET_K),
     "ballista.tpu.shuffle_local_fastpath": "false",
@@ -2974,8 +3010,8 @@ FLEET_METHODS = ("RegisterExecutor", "HeartBeatFromExecutor", "PollWork", "Updat
 
 
 class StandInScheduler:
-    """The scheduler's part in phase 9, small on purpose: the port's
-    scheduler (ROADMAP queue 1, item 9d) replaces it. Registered through
+    """The scheduler's part in phase 9, small on purpose: it isolates the
+    executors from the port's scheduler, which phase 10 runs. Registered through
     the port's ``scheduler/rpc.add_service``, it answers RegisterExecutor,
     HeartBeatFromExecutor, PollWork and UpdateTaskStatus. ``run_job`` plans
     a query for the distributed tier (K partitions) and splits it into
@@ -6567,6 +6603,410 @@ def mesh_only(sf: float, seed: int) -> dict:
     return out
 
 
+# -- phase 20: the runtime witnesses on the card ----------------------------
+
+WITNESS_QUERIES = ("q1", "q3")
+# (b)'s session: the default partitions (2), the result cache, AQE and
+# phase 10 (d)'s eager wait (its liveness knobs go to the cluster)
+WITNESS_SETTINGS = {"ballista.tpu.result_cache_mb": "64", "ballista.tpu.aqe": "true",
+                    "ballista.tpu.eager_wait_s": "5"}
+# (c): three of the replay property's configurations
+REPLAY_CONFIGS = (
+    {"ballista.tpu.shuffle_fetch_concurrency": "1"},
+    {"ballista.tpu.eager_shuffle": "false"},
+    {"ballista.tpu.shuffle_compression": "zstd"},
+)
+KERNEL_COUNTS = ("onehot", "partition", "grouped", "prefix")
+
+
+class kernel_counts:
+    """The four launch counts of one run: set to 0 on entry (the prefix
+    sum's read as a difference, since the phases' sum is checked), read on
+    exit into ``self.n`` and added to ``totals``."""
+
+    def __init__(self, totals: dict) -> None:
+        self.totals = totals
+
+    def __enter__(self) -> "kernel_counts":
+        from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+
+        onehot_agg.launches = partition.launches = partition.group_launches = 0
+        self.p0 = prefix_sum.launches
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from ballista_tpu_torch.ops import onehot_agg, partition, prefix_sum
+
+        self.n = dict(onehot=onehot_agg.launches, partition=partition.launches,
+                      grouped=partition.group_launches, prefix=prefix_sum.launches - self.p0)
+        for k in KERNEL_COUNTS:
+            self.totals[k] += self.n[k]
+
+
+def witness_plan_cache(ctx, results: dict, rec: "LaunchRecorder", prec: "PartitionRecorder") -> dict:
+    """(a) The context's arm of the staleness witness, on phase 5's
+    ``TorchContext`` after its timed runs: each of phase 5's queries once
+    more with ``stalewitness`` on at sample rate 1. Each run is a
+    physical-plan-cache hit that plans afresh and compares the renders:
+    one ``physical_plan_cache`` match a query, no stale, and each result
+    bit for bit phase 5's warm one. Phase 5's capture runs plan afresh
+    and empty the plan cache as they go, so an unwitnessed run of each
+    query caches its plan again first (``seed_s``)."""
+    from ballista_tpu_torch.analysis import stalewitness
+
+    t0 = time.perf_counter()
+    totals = dict.fromkeys(KERNEL_COUNTS, 0)
+    out: dict = {"runs": {}}
+    stalewitness.reset()
+    stalewitness.set_sample_rate(1.0)
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = True
+
+    def one_run(tag: str, sql: str):
+        rec.tag = prec.tag = tag
+        try:
+            with kernel_counts(totals) as kc:
+                t = time.perf_counter()
+                got = ctx.sql(sql).collect()
+                secs = time.perf_counter() - t
+        finally:
+            rec.tag = prec.tag = None
+        return got, secs, kc.n
+
+    try:
+        seeded = {}
+        for q in JOIN_QUERIES:
+            got, seeded[q], _ = one_run(f"{q}-witness", results[q][0])
+            check(got.equals(results[q][1]), f"{q}-witness seed run: differs from phase 5's warm result")
+        check(len(ctx._physical_cache) >= len(JOIN_QUERIES), "witness (a): the plans were not cached")
+        out["seed_s"] = sum(seeded.values())
+        stalewitness.enable()
+        for q in JOIN_QUERIES:
+            sql, want = results[q]
+            tag = f"{q}-witness"
+            matches = stalewitness.counters().get(("physical_plan_cache", "match"), 0)
+            got, secs, n = one_run(tag, sql)
+            checked = stalewitness.counters().get(("physical_plan_cache", "match"), 0) - matches
+            check(checked == 1, f"{tag}: {checked} physical_plan_cache matches, not 1")
+            check(got.equals(want), f"{tag}: differs from phase 5's warm result")
+            out["runs"][tag] = dict(s=secs, seed_s=seeded[q], **n)
+            log(f"{tag}: ok  {json.dumps(out['runs'][tag])}")
+        hits = stalewitness.hit_counts()
+        check(hits == {"physical_plan_cache": len(JOIN_QUERIES)}, f"witness (a): hits {hits}")
+        stalewitness.assert_no_stale()
+        out["counters"] = {f"{c}:{o}": n for (c, o), n in sorted(stalewitness.counters().items())}
+    finally:
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = False
+        stalewitness.enable(False)
+        stalewitness.reset()
+    out["launches"] = totals
+    out["s"] = time.perf_counter() - t0
+    log(f"witness (a): {json.dumps(out['counters'])}, launches {json.dumps(totals)}, {out['s']:.1f}s")
+    return out
+
+
+def drain_pending(what: str, timeout: float = 60.0) -> None:
+    """Wait, with a deadline, until every demoted hit has resolved: the
+    scheduler repopulates on a thread of its own."""
+    from ballista_tpu_torch.analysis import stalewitness
+
+    deadline = time.monotonic() + timeout
+    while stalewitness.pending_count() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    check(stalewitness.pending_count() == 0, f"{what}: {stalewitness.pending_count()} demoted hits never resolved")
+
+
+def witness_cluster(data: dict, oracles: dict, collected: dict, rec: "LaunchRecorder",
+                    prec: "PartitionRecorder") -> dict:
+    """(b) The chaos scenario of ``tests/test_stalewitness_chaos.py`` on the
+    card: a two-executor cluster (the result cache at 64 MB, AQE on, phase
+    10 (d)'s liveness knobs) with the cache witness sampling every hit and
+    the replay and resource witnesses on. q1 and q3 cold; q3 again (its hit
+    demoted, resolving ``match``); q3 with executor 1 lost at its first
+    finished stage; ``customer`` registered again as the same object (its
+    key flips: q3 misses); rows appended to ``customer`` that q3's segment
+    filter drops (q3 misses again). Every result equals collect mode's and
+    the numpy oracle, money sums bit for bit; no stale hit, nothing
+    pending, at least one ``result_cache`` match; the replay ledger clean
+    with shuffle and result records; after the cluster closed, the
+    resource witness drained."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.analysis import replay, reswitness, stalewitness
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.client.flight import close_pool
+    from ballista_tpu_torch.config import BallistaConfig
+
+    sqls = {q: (ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text() for q in WITNESS_QUERIES}
+    t0 = time.perf_counter()
+    totals = dict.fromkeys(KERNEL_COUNTS, 0)
+    out: dict = {"runs": {}}
+    # earlier phases' clusters have closed, and the witness was off for
+    # them: it records this scenario's resources only
+    reswitness.reset()
+    reswitness.enable(True)
+    stalewitness.reset()
+    stalewitness.enable()
+    stalewitness.set_sample_rate(1.0)
+    replay.reset()
+    replay.enable()
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = True
+    ctx = None
+    try:
+        ctx = BallistaContext.standalone(
+            BallistaConfig(WITNESS_SETTINGS), device="cuda", n_executors=2, concurrent_tasks=2,
+            executor_timeout_s=5.0, expiry_check_interval_s=1.0,
+        )
+        cl = ctx._standalone_cluster
+        sched = cl.scheduler
+        for name, tab in data.items():
+            ctx.register_table(name, tab)
+
+        def one_run(tag: str, q: str) -> dict:
+            cache0 = sched.result_cache.stats()
+            jobs0 = set(sched.jobs)
+            rec.tag = prec.tag = tag
+            try:
+                with kernel_counts(totals) as kc:
+                    t = time.perf_counter()
+                    res = ctx.sql(sqls[q]).collect()
+                    secs = time.perf_counter() - t
+            finally:
+                rec.tag = prec.tag = None
+            new = set(sched.jobs) - jobs0
+            check(len(new) == 1, f"{tag}: {len(new)} jobs ran")
+            job = sched.jobs[new.pop()]
+            check(job.status == "completed", f"{tag}: job {job.job_id} {job.status} {job.error}")
+            want = collected[q]
+            compare_tables(tag, res, want)
+            for c in STAGED_EXACT.get(q, ()):
+                check(res.column(c).equals(want.column(c)), f"{tag}: {c} not bit for bit")
+            compare(tag, res, oracles[q])
+            cache1 = sched.result_cache.stats()
+            run = dict(s=secs, **kc.n, hits=cache1["hits"] - cache0["hits"],
+                       misses=cache1["misses"] - cache0["misses"], task_retries=job.total_retries,
+                       recomputes=job.total_recomputes, rewrites=job.total_rewrites)
+            out["runs"][tag] = run
+            log(f"{tag}: ok  {json.dumps(run)}")
+            return run
+
+        def wait_entries(n: int) -> None:
+            deadline = time.monotonic() + 30
+            while sched.result_cache.stats()["entries"] < n and time.monotonic() < deadline:
+                time.sleep(0.02)
+            check(sched.result_cache.stats()["entries"] >= n, f"witness (b): {sched.result_cache.stats()}")
+
+        # 1. cold; 2. q3's hit, demoted, must resolve match
+        for q in WITNESS_QUERIES:
+            check(one_run(f"{q}-witness-cold", q)["misses"] == 1, f"{q}-witness-cold: not a miss")
+        wait_entries(2)
+        check(one_run("q3-witness-demoted", "q3")["hits"] == 1, "q3-witness-demoted: not a hit")
+        drain_pending("witness (b) demoted")
+        check(stalewitness.counters().get(("result_cache", "match"), 0) == 1,
+              f"witness (b): {stalewitness.summary()}")
+
+        # 3. executor 1 lost at the first finished stage of a demoted q3
+        wait_entries(2)
+        killed: list = []
+        expired: list = []
+        finished, sweep = sched._on_stage_finished, sched.check_expired_executors
+
+        def on_stage_finished(job_id, stage_id):
+            if not killed:
+                killed.append(cl.kill_executor(1))
+            finished(job_id, stage_id)
+
+        def check_expired():
+            ids = sweep()
+            expired.extend(ids)
+            return ids
+
+        sched._on_stage_finished = on_stage_finished
+        sched.check_expired_executors = check_expired
+        try:
+            loss = one_run("q3-witness-loss", "q3")
+        finally:
+            sched._on_stage_finished = finished
+        deadline = time.monotonic() + 15
+        while not expired and time.monotonic() < deadline:
+            time.sleep(0.1)
+        sched.check_expired_executors = sweep
+        check(bool(killed) and expired == killed, f"witness (b): killed {killed}, scheduler reported {expired}")
+        check(loss["hits"] == 1, "q3-witness-loss: not a (demoted) hit")
+        check(loss["task_retries"] + loss["recomputes"] > 0, "q3-witness-loss: nothing was recomputed")
+        drain_pending("witness (b) loss")
+        check(stalewitness.counters().get(("result_cache", "match"), 0) == 2,
+              f"witness (b) after the loss: {stalewitness.summary()}")
+        out["killed"] = killed
+
+        # 4. the same object registered again: a new generation, a miss
+        ctx.register_table("customer", data["customer"])
+        check(one_run("q3-witness-reregistered", "q3")["misses"] == 1,
+              "q3-witness-reregistered: the key did not flip")
+        # 5. rows appended that q3's segment filter drops: a miss, the
+        # same rows
+        cust = data["customer"]
+        extra = cust.slice(0, 8)
+        extra = extra.set_column(
+            0, "c_custkey", pa.array(range(cust.num_rows + 1, cust.num_rows + 9), pa.int64())
+        ).set_column(6, "c_mktsegment", pa.array(["AUTOMOBILE"] * 8))
+        ctx.append_table("customer", extra)
+        check(one_run("q3-witness-appended", "q3")["misses"] == 1, "q3-witness-appended: the key did not flip")
+        drain_pending("witness (b) end")
+
+        stalewitness.assert_no_stale()
+        counters = stalewitness.counters()
+        check(counters.get(("result_cache", "match"), 0) >= 1, f"witness (b): {stalewitness.summary()}")
+        out["cache_counters"] = {f"{c}:{o}": n for (c, o), n in sorted(counters.items())}
+        out["cache_hits"] = stalewitness.hit_counts()
+        replay.assert_clean()
+        records = replay.record_counts()
+        check(records.get("shuffle", 0) > 0 and records.get("result", 0) > 0, f"witness (b): replay {records}")
+        out["replay_records"] = records
+        out["replay"] = replay.summary()
+    finally:
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = False
+        leaked = None
+        try:
+            if ctx is not None:
+                ctx.close()
+            close_pool()
+            deadline = time.monotonic() + 30
+            while reswitness.live() and time.monotonic() < deadline:
+                time.sleep(0.1)
+            out["acquired"] = reswitness.acquired_counts()
+            out["live_after_close"] = len(reswitness.live())
+            try:
+                reswitness.assert_drained()
+            except AssertionError as e:
+                leaked = str(e)
+        finally:
+            reswitness.enable(False)
+            reswitness.reset()
+            stalewitness.enable(False)
+            stalewitness.reset()
+            replay.enable(False)
+            replay.reset()
+    check(leaked is None, f"witness (b): resources live after the cluster closed: {leaked}")
+    check(totals["onehot"] > 0 and totals["grouped"] > 0 and totals["prefix"] > 0,
+          f"witness (b): the queries did not launch every kernel {totals}")
+    out["launches"] = totals
+    out["s"] = time.perf_counter() - t0
+    log(f"witness (b): cache {json.dumps(out['cache_counters'])}; replay records "
+        f"{json.dumps(out['replay_records'])}; resources acquired {json.dumps(out['acquired'])}, "
+        f"live after close {out['live_after_close']}; launches {json.dumps(totals)}, {out['s']:.1f}s")
+    return out
+
+
+def witness_replay(data: dict, collected: dict, rec: "LaunchRecorder", prec: "PartitionRecorder") -> dict:
+    """(c) The replay property of ``tests/test_replay_witness.py`` on the
+    card: q3 on a fresh two-executor cluster under each of
+    ``REPLAY_CONFIGS``, the replay witness on; one key set, and every
+    shuffle and result hash equal across the three."""
+    from ballista_tpu_torch.analysis import replay
+    from ballista_tpu_torch.client.context import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+
+    sql = (ROOT / "benchmarks" / "queries" / "q3.sql").read_text()
+    t0 = time.perf_counter()
+    totals = dict.fromkeys(KERNEL_COUNTS, 0)
+    out: dict = {"runs": {}}
+    snaps = []
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = True
+    try:
+        for settings in REPLAY_CONFIGS:
+            tag = "q3-replay-" + "-".join(f"{k.rsplit('.', 1)[1]}={v}" for k, v in settings.items())
+            replay.reset()
+            replay.enable()
+            ctx = BallistaContext.standalone(BallistaConfig(settings), device="cuda", n_executors=2,
+                                             concurrent_tasks=2)
+            try:
+                for name in ("customer", "orders", "lineitem"):
+                    ctx.register_table(name, data[name])
+                rec.tag = prec.tag = tag
+                try:
+                    with kernel_counts(totals) as kc:
+                        t = time.perf_counter()
+                        res = ctx.sql(sql).collect()
+                        secs = time.perf_counter() - t
+                finally:
+                    rec.tag = prec.tag = None
+            finally:
+                ctx.close()
+            compare_tables(tag, res, collected["q3"])
+            check(res.column("revenue").equals(collected["q3"].column("revenue")), f"{tag}: revenue not bit for bit")
+            replay.assert_clean()
+            records = replay.record_counts()
+            check(records.get("shuffle", 0) > 0 and records.get("result", 0) > 0, f"{tag}: replay {records}")
+            snaps.append((tag, replay.snapshot(strip_job=True)))
+            out["runs"][tag] = dict(s=secs, records=records, **kc.n)
+            log(f"{tag}: ok  {json.dumps(out['runs'][tag])}")
+    finally:
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = False
+        replay.enable(False)
+        replay.reset()
+    base_tag, base = snaps[0]
+    for tag, snap in snaps[1:]:
+        check(set(snap) == set(base), f"{tag}: key set differs from {base_tag}'s: {sorted(set(snap) ^ set(base))[:6]}")
+        diff = [k for k in base if snap[k] != base[k]]
+        check(not diff, f"{tag}: hashes differ from {base_tag}'s at {diff[:6]}")
+    out["keys"] = len(base)
+    out["launches"] = totals
+    out["s"] = time.perf_counter() - t0
+    log(f"witness (c): {len(base)} keys, equal hashes across {len(snaps)} configurations; "
+        f"launches {json.dumps(totals)}, {out['s']:.1f}s")
+    return out
+
+
+def witness_path(data: dict, oracles: dict, collected: dict, rec: "LaunchRecorder",
+                 prec: "PartitionRecorder") -> dict:
+    """Phase 20's (b) and (c) ((a) runs on phase 5's context right after
+    it: ``witness_plan_cache``). Returns their results and launches."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"cluster": witness_cluster(data, oracles, collected, rec, prec),
+           "replay": witness_replay(data, collected, rec, prec)}
+    out["launches"] = {k: out["cluster"]["launches"][k] + out["replay"]["launches"][k] for k in KERNEL_COUNTS}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def witness_only(sf: float, seed: int, warm: int) -> dict:
+    """``--witness-only``: phase 5 and phase 20 alone, on TPC-H at ``sf``:
+    phase 5's queries on one ``TorchContext(device="cuda")`` against their
+    oracles (the context (a) runs on), q1 and q3 in collect mode on it for
+    (b) and (c), then every launch replayed against its plain version."""
+    from ballista_tpu_torch.tpch import gen_all
+
+    t0 = time.perf_counter()
+    data = gen_all(sf, seed)
+    oracles = {"q1": oracle_q1(lineitem_columns(data["lineitem"]))}
+    log(f"tpch sf={sf} seed={seed} and q1's oracle in {time.perf_counter() - t0:.1f}s")
+    with LaunchRecorder() as rec, PartitionRecorder() as prec:
+        jp = joins_path(data, warm, False, rec, prec)
+        replay_launches(rec)
+        replay_partition_launches(prec)
+        oracles.update({q: jp["oracles"][q] for q in ("q3",)})
+        ctx = jp.pop("ctx")
+        collected = {q: ctx.sql((ROOT / "benchmarks" / "queries" / f"{q}.sql").read_text()).collect()
+                     for q in WITNESS_QUERIES}
+        t0 = time.perf_counter()
+        out = {"plan_cache": witness_plan_cache(ctx, jp["results"], rec, prec)}
+        del ctx
+        out.update(witness_path(data, oracles, collected, rec, prec))
+        t = time.perf_counter()
+        out["replays"] = replay_launches(rec) + replay_partition_launches(prec)
+        out["prefix_replays"] = replay_prefix_launches(rec)
+        out["replay_s"] = time.perf_counter() - t
+        check(bool(out["replays"]) and bool(out["prefix_replays"]), "phase 20: no launch replayed")
+        out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6628,6 +7068,12 @@ def main() -> int:
         help="only run phase 19 (the mesh tier: the exchange, SQL on the "
         "mesh against collect mode and the oracles computed here, the "
         "scheduler path), then stop",
+    )
+    ap.add_argument(
+        "--witness-only", action="store_true",
+        help="only run phase 5 and phase 20 (the runtime witnesses: the "
+        "context's plan-cache arm on phase 5's context, a witnessed "
+        "cluster with an executor loss, the replay property), then stop",
     )
     ap.add_argument(
         "--settings", default="{}",
@@ -6712,6 +7158,12 @@ def main() -> int:
     if args.mesh_only:
         cuda_build.build_many(sources)
         log(json.dumps({"phase19": mesh_only(args.sf, args.seed)}, default=str))
+        log(smi)
+        return 0
+
+    if args.witness_only:
+        cuda_build.build_many(sources)
+        log(json.dumps({"phase20": witness_only(args.sf, args.seed, args.warm)}, default=str))
         log(smi)
         return 0
 
@@ -6800,6 +7252,21 @@ def main() -> int:
         preplays = replay_partition_launches(prec)
         prefix_mark(5)
         log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
+
+        # 20 (a). the staleness witness's context arm on phase 5's context,
+        # right after its timed runs; the rest of phase 20 runs last
+        t0 = time.perf_counter()
+        wa = witness_plan_cache(jp.pop("ctx"), jp["results"], rec, prec)
+        witness_replays = replay_launches(rec)
+        witness_preplays = replay_partition_launches(prec)
+        witness_prefix_replays = replay_prefix_launches(rec)
+        # (a)'s queries launch the one-hot kernel (q4, q5) and, as in phase
+        # 5, no prefix sum
+        check(bool(witness_replays), "phase 20 (a): no launch replayed")
+        replays += witness_replays
+        preplays += witness_preplays
+        pl_by_phase[20] = wa["launches"]["prefix"]
+        log(f"phase 20 (a) took {time.perf_counter() - t0:.1f}s")
 
         # 6. the rest of TPC-H, windows and percentiles
         t0 = time.perf_counter()
@@ -6959,6 +7426,22 @@ def main() -> int:
         check(bool(mesh_preplays) and bool(mesh_prefix_replays), "phase 19: no launch replayed")
         pl_by_phase[19] = mh["prefix_launches"]
         log(f"phase 19 took {time.perf_counter() - t0:.1f}s; {smi}")
+
+        # 20 (b), (c). a witnessed cluster with an executor loss; the
+        # replay property across three configurations
+        t0 = time.perf_counter()
+        wp = witness_path(data, oracles, fp["collect"], rec, prec)
+        w_replays = replay_launches(rec)
+        w_preplays = replay_partition_launches(prec)
+        w_prefix_replays = replay_prefix_launches(rec)
+        check(bool(w_replays) and bool(w_preplays) and bool(w_prefix_replays), "phase 20: no launch replayed")
+        replays += w_replays
+        preplays += w_preplays
+        witness_replays += w_replays + witness_preplays + w_preplays
+        witness_prefix_replays += w_prefix_replays
+        pl_by_phase[20] += wp["launches"]["prefix"]
+        log(f"phase 20 took {time.perf_counter() - t0:.1f}s with its replays ((a) {wa['s']:.1f}s after phase 5, "
+            f"(b) {wp['cluster']['s']:.1f}s, (c) {wp['replay']['s']:.1f}s); {smi}")
     prefix_launches = sum(pl_by_phase.values())
     check(prefix_launches + hp["background"]["prewarm_and_q1_launches"]["prefix"] == prefix_sum.launches,
           "prefix-sum launches: the phases do not add up")
@@ -7006,16 +7489,17 @@ def main() -> int:
         + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
         + pg["partition_launches"] + bc["partition_launches"] + ad["partition_launches"]
         + dp["partition_launches"] + hp["partition_launches"] + mh["partition_launches"]
+        + wa["launches"]["partition"] + wp["launches"]["partition"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
         + cp["grouped_launches"] + fl["grouped_launches"] + op["grouped_launches"]
         + aq["grouped_launches"] + pg["grouped_launches"] + bc["grouped_launches"]
         + ad["grouped_launches"] + dp["grouped_launches"] + hp["grouped_launches"]
-        + mh["grouped_launches"]
+        + mh["grouped_launches"] + wa["launches"]["grouped"] + wp["launches"]["grouped"]
     )
 
-    # 18. results
+    # 21. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -7030,7 +7514,7 @@ def main() -> int:
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
             + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
             + pg["launches"] + bc["launches"] + ad["launches"] + dp["launches"] + hp["launches"]
-            + mh["launches"]
+            + mh["launches"] + wa["launches"]["onehot"] + wp["launches"]["onehot"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -7074,7 +7558,8 @@ def main() -> int:
     # the prefix-sum kernel at the largest shape the main path gave it
     # (phases 14 and 16's replays: call, plain, library and bound; device time by
     # torch.profiler), and phase 3's 6,000,000-row case
-    pr = max(prefix_replays + adaptive_prefix_replays + mesh_prefix_replays, key=lambda r: (r["n"] * r["k"], r["n"]))
+    pr = max(prefix_replays + adaptive_prefix_replays + mesh_prefix_replays + witness_prefix_replays,
+             key=lambda r: (r["n"] * r["k"], r["n"]))
     p6m = next(c for c in pfx["cases"] if c["n"] == 6_000_000 and c["k"] == 1)
     kernels.append({
         "name": "prefix_sums",
@@ -7084,7 +7569,7 @@ def main() -> int:
         "launches": prefix_launches,
         # every comparison of phases 3, 14 and 16 is bit for bit
         "max_abs_err": max(r["max_abs_err"] for r in pfx["cases"] + prefix_replays + adaptive_prefix_replays
-                           + mesh_prefix_replays),
+                           + mesh_prefix_replays + witness_prefix_replays),
         "ms": pr["ms"],
         "device_ms": pr["device_ms"],
         "plain_ms": pr["plain_ms"],
@@ -7158,9 +7643,12 @@ def main() -> int:
         "hooks": {k: v for k, v in hp.items() if not k.endswith("launches")},
         "mesh": {k: v for k, v in mh.items() if not k.endswith("launches")},
         "mesh_replays": mesh_replays + mesh_preplays + mesh_prefix_replays,
+        "witness": {"plan_cache": wa, **{k: v for k, v in wp.items() if k != "launches"}},
+        "witness_launches": {k: wa["launches"][k] + wp["launches"][k] for k in KERNEL_COUNTS},
+        "witness_replays": witness_replays + witness_prefix_replays,
         "sf": args.sf,
     }, default=str))
-    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_main:.1f}s")
+    log(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_main:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

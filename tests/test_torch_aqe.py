@@ -583,9 +583,10 @@ def test_policy_vs_certificate_disagreement(n_executors):
 def test_input_skew_flags_final_stage_before_completion():
     """The final stage's input-bucket skew must be flagged at the LAST
     StageFinished — when its producers complete — not first at job
-    completion, with the reference's flags. (The reference's test also
-    reads the ``skew`` trace span; ``ballista.tpu.trace`` is not ported,
-    ROADMAP queue 1, item 10b.)"""
+    completion, with the reference's flags, and the flag comes from the
+    pre-run input pass: a ``skew`` trace span with ``source: input`` and
+    the final stage's id (``ballista.tpu.trace`` on), as the reference's
+    test reads it."""
     rng = np.random.default_rng(3)
     n = 60_000
     # a JOIN, not a groupby: a partitioned join's input buckets carry the
@@ -598,10 +599,17 @@ def test_input_skew_flags_final_stage_before_completion():
              "attr": pa.array((np.arange(500) % 9).astype(np.int64))}
         ),
     }
+    from ballista_tpu.obs import trace as ref_trace
+    from ballista_tpu_torch.obs import trace
+
     sql = "SELECT f.key, h.attr, f.v FROM fact f JOIN hdim h ON f.key = h.key"
     flags = {}
+    trace_of = {"ref": ref_trace, "port": trace}
     for side in ("ref", "port"):
-        ctx = _standalone(data, side=side, ballista__tpu__skew_ratio="2", ballista__tpu__skew_min_rows="64")
+        ctx = _standalone(
+            data, side=side, ballista__tpu__skew_ratio="2", ballista__tpu__skew_min_rows="64",
+            ballista__tpu__trace="on",  # the span-attr proof below
+        )
         sched = ctx._standalone_cluster.scheduler
         at_completion = {}
         orig = sched._on_job_finished
@@ -624,10 +632,18 @@ def test_input_skew_flags_final_stage_before_completion():
             assert any(sid == final for sid, _ in flagged), (
                 f"{side}: final-stage input skew was not flagged before job completion: {flagged}"
             )
+            # and the flag came from the pre-run input pass (trace proof)
+            spans = [sp for sp in job.spans.values() if sp.name == "skew"]
+            assert any(
+                sp.attrs.get("source") == "input" and sp.attrs.get("stage_id") == final for sp in spans
+            ), (side, [sp.attrs for sp in spans])
             flags[side] = sorted(flagged)
         finally:
             sched._on_job_finished = orig
             ctx.close()
+            # the session's trace setting configured the process-wide
+            # recorder: turn it off for the tests after this one
+            trace_of[side].configure("off")
     assert [sid for sid, _ in flags["port"]] == [sid for sid, _ in flags["ref"]]
 
 
