@@ -13,6 +13,39 @@ The port imports nothing of ``ballista_tpu`` and never imports ``jax``.
 Entry points: ``ballista_tpu_torch.exec.context.TorchContext``, the
 cluster client ``ballista_tpu_torch.client.context.BallistaContext``, and
 the shell ``python -m ballista_tpu_torch.cli``.
+
+The packages re-export the reference's API names (``__all__``). A name
+whose module imports torch is imported at its first use (PEP 562
+``__getattr__``), so that ``import ballista_tpu_torch`` and the front end
+(``expr``, ``plan``) stay device-free at import.
 """
 
+import importlib as _importlib
+
+from ballista_tpu_torch.errors import BallistaError
+
 __version__ = "0.1.0"
+
+
+def _lazy(package: str, names: dict[str, str], submodules: tuple[str, ...] = ()):
+    """A module ``__getattr__`` for ``package``: ``names`` maps an exported
+    name to the module that defines it, ``submodules`` are exported as
+    themselves. Each is imported at its first access and then kept in the
+    package's namespace."""
+
+    def __getattr__(name: str):
+        if name in submodules:
+            value = _importlib.import_module(f"{package}.{name}")
+        elif name in names:
+            value = getattr(_importlib.import_module(names[name]), name)
+        else:
+            raise AttributeError(f"module {package!r} has no attribute {name!r}")
+        setattr(_importlib.import_module(package), name, value)
+        return value
+
+    return __getattr__
+
+
+__getattr__ = _lazy(__name__, {"BallistaConfig": "ballista_tpu_torch.config"})
+
+__all__ = ["BallistaConfig", "BallistaError", "__version__"]

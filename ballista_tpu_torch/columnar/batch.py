@@ -280,9 +280,20 @@ class DeviceBatch:
     def device(self) -> torch.device:
         return self.valid.device
 
+    def column(self, name: str) -> torch.Tensor:
+        return self.columns[self.schema.index_of(name)]
+
+    def null_mask(self, name: str) -> torch.Tensor | None:
+        return self.nulls[self.schema.index_of(name)]
+
     def count_valid(self) -> torch.Tensor:
         """Number of live rows, as a device scalar (no sync)."""
         return self.valid.sum(dtype=torch.int32)
+
+    def num_rows(self) -> int:
+        """Number of live rows: waits for the device (host-side use only;
+        no operator calls it)."""
+        return int(self.count_valid().item())  # devlint: disable=host-sync
 
     def with_columns(
         self,

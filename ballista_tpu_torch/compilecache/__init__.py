@@ -26,10 +26,38 @@ loading of torch's kernels. The package:
 The capacity ladder lives with the batch type
 (:mod:`ballista_tpu_torch.columnar.batch`); prewarm enumerates over it.
 
-The package imports none of its modules, and must not: callers import
-the one they use (``from ballista_tpu_torch.compilecache import metrics``).
-A module that imports ``metrics`` through the package while the package
+The package imports none of its modules at its own import, and must not:
+a module that imports ``metrics`` through the package while the package
 imports that module is a cycle, which threads importing at once (the
 analysis gate's analyzers) turn into an ImportError of a partially
-initialized module (``tests/test_torch_tracecache.py``).
+initialized module (``tests/test_torch_tracecache.py``). Its exports
+(``__all__``) are imported at their first access instead.
 """
+
+from ballista_tpu_torch import _lazy
+
+__all__ = [
+    "HintStore",
+    "PrewarmHandle",
+    "expr_key",
+    "hints",
+    "metrics",
+    "prewarm",
+    "registry",
+    "schema_key",
+    "shared_callable",
+    "start_prewarm",
+    "tracecache",
+]
+__getattr__ = _lazy(
+    __name__,
+    {
+        "HintStore": "ballista_tpu_torch.compilecache.hints",
+        "PrewarmHandle": "ballista_tpu_torch.compilecache.prewarm",
+        "start_prewarm": "ballista_tpu_torch.compilecache.prewarm",
+        "expr_key": "ballista_tpu_torch.compilecache.tracecache",
+        "schema_key": "ballista_tpu_torch.compilecache.tracecache",
+        "shared_callable": "ballista_tpu_torch.compilecache.tracecache",
+    },
+    submodules=("hints", "metrics", "prewarm", "registry", "tracecache"),
+)

@@ -390,7 +390,12 @@ class TaskSchedulingPolicy(Enum):
 
 
 class BallistaConfig:
-    """Validated string-keyed settings with typed getters."""
+    """Validated string-keyed settings with typed getters.
+
+    Build one from a dict, or as the reference's builder does:
+    ``BallistaConfig.builder().with_setting("ballista.shuffle.partitions",
+    "4")``; each ``with_setting`` validates its pair and returns a new
+    config."""
 
     def __init__(self, settings: dict[str, str] | None = None):
         self._settings: dict[str, str] = {}
@@ -409,6 +414,14 @@ class BallistaConfig:
             raise ConfigError(
                 f"invalid value {value!r} for {key!r}: {e}"
             ) from e
+
+    @classmethod
+    def builder(cls) -> "BallistaConfig":
+        return cls()
+
+    def with_setting(self, key: str, value: str) -> "BallistaConfig":
+        self._validate(key, value)
+        return BallistaConfig({**self._settings, key: value})
 
     def settings(self) -> dict[str, str]:
         return dict(self._settings)
@@ -432,6 +445,15 @@ class BallistaConfig:
     def default_shuffle_partitions(self) -> int:
         return self._get(BALLISTA_DEFAULT_SHUFFLE_PARTITIONS)
 
+    def default_batch_size(self) -> int:
+        return self._get(BALLISTA_DEFAULT_BATCH_SIZE)
+
+    def device(self) -> str:
+        """The ``ballista.tpu.device`` setting, as the reference keeps it:
+        nothing reads it to choose a device. A context runs on the device
+        its ``device`` argument names."""
+        return self._get(BALLISTA_DEVICE)
+
     def tpu_batch_rows(self) -> int:
         return self._get(BALLISTA_TPU_BATCH_ROWS)
 
@@ -449,6 +471,9 @@ class BallistaConfig:
 
     def repartition_aggregations(self) -> bool:
         return self._get(BALLISTA_REPARTITION_AGGREGATIONS)
+
+    def repartition_windows(self) -> bool:
+        return self._get(BALLISTA_REPARTITION_WINDOWS)
 
     def parquet_pruning(self) -> bool:
         return self._get(BALLISTA_PARQUET_PRUNING)

@@ -372,3 +372,28 @@ def deltas_from_proto(protos) -> list[dict]:
         }
         for p in protos
     ]
+
+
+def quantile_from_cumulative(pairs: list[tuple[float, float]], q: float) -> float:
+    """Quantile estimate from scraped ``_bucket`` samples:
+    ``pairs = [(le, cumulative_count), ...]`` (any order; +Inf as
+    ``math.inf``), e.g. p50 and p99 from ``/api/metrics`` text. The same
+    interpolation as :meth:`Histogram.quantile`, so that in-process and
+    scraped answers agree."""
+    pts = sorted(pairs)
+    if not pts:
+        return 0.0
+    total = pts[-1][1]
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    prev_le, prev_cum = 0.0, 0.0
+    for le, cum in pts:
+        if cum >= rank:
+            if math.isinf(le):
+                return prev_le
+            span = cum - prev_cum
+            frac = (rank - prev_cum) / span if span > 0 else 1.0
+            return prev_le + (le - prev_le) * frac
+        prev_le, prev_cum = le, cum
+    return prev_le

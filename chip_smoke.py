@@ -11,6 +11,7 @@ NVIDIA card.
     python3 chip_smoke.py --hooks-only [--sf 1]
     python3 chip_smoke.py --mesh-only [--sf 1]
     python3 chip_smoke.py --witness-only [--sf 1]
+    python3 chip_smoke.py --surface-only
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -240,8 +241,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    spec constants that select nothing replaced from the data as in phase
    6; rows sorted). (d) A fresh two-executor cluster with tight liveness
    knobs (an executor expires after 5 s without a heartbeat, swept every
-   second; an eager reader waits 5 s for its producer) loses executor 1
-   when q3's first stage finishes: q3 still equals collect mode and the
+   second; an eager reader waits 5 s for its producer) loses, when q3's
+   first stage finishes, the executor that ran its last task: q3 still equals collect mode and the
    scheduler reports the lost executor. (e) ``python -m
    ballista_tpu_torch.scheduler`` and ``python -m
    ballista_tpu_torch.executor --device cuda`` as subprocesses
@@ -296,8 +297,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the processes they start run with ``BALLISTA_TPU_HINT_CACHE=off``,
    so their cold runs stay cold; each child of this phase gets its own
    hint directory, deleted at the end. (a) ``python -m
-   ballista_tpu_torch.cli -f <script> --format csv`` as a child on the
-   card: the script creates the eight tables by DDL and runs q1, q6 and
+   ballista_tpu_torch.cli -f <script> --format csv --batch-size 8192`` as
+   a child on the card: the script creates the eight tables by DDL and runs q1, q6 and
    q3, whose CSV output equals phase 11 (a)'s results (keys and counts
    exactly, floats within rtol 1e-9); prints the child's wall seconds.
    (b) Persisted hints: two fresh children sharing one new hint directory
@@ -481,9 +482,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    result cache at 64 MB, AQE on, phase 10 (d)'s liveness knobs), with
    the cache witness sampling every hit and the replay and resource
    witnesses on: q1 and q3 cold; q3 again (its hit demoted, resolving
-   ``match``); q3 losing executor 1 at its first finished stage (another
-   demoted hit, resolving ``match``); ``customer`` registered again as
-   the same object (its key flips: a miss); rows appended to
+   ``match``); q3 losing, at its first finished stage, the executor that
+   ran that stage's last task (another demoted hit, resolving
+   ``match``); ``customer`` registered again as the same object (its
+   key flips: a miss); rows appended to
    ``customer`` that q3's segment filter drops (a miss, the same rows).
    Every result equals collect mode's (phase 9) and the numpy oracle,
    q3's revenue bit for bit; no stale hit, nothing pending
@@ -497,10 +499,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    resources acquired by kind and the live count after close, and the
    seconds of (a), (b) and (c); then its launches are replayed against
    the plain versions.
-21. One JSON line of kernel results (the one-hot kernel, the
+21. The user surface (``surface_path``): the port's four examples
+   (``ballista_tpu_torch/examples``), in this process. (a) Each through
+   its ``main`` on ``cuda`` and on ``cpu`` at the reference's row counts
+   (100, 1,000, 10,000 and 1,000): the card's printed rows equal the
+   CPU's (keys and counts exactly, floats within rtol 1e-9). (b) Each at
+   the size a user would run: ``dataframe`` at 16,777,216 trips,
+   ``udf_plugin`` at 6,000,000 points, ``standalone_sql`` and
+   ``remote_sql`` at 1,000,000 CSV rows, each result held against a
+   numpy oracle over the example's ``make_data`` (rtol 1e-9), with its
+   seconds. (c) ``python -m ballista_tpu_torch.examples.standalone_sql``
+   as a child with its default device, started first and run beside (a)
+   and (b): it exits 0 and prints (a)'s rows. The launches of (a) and (b)
+   by kernel (at least one) are replayed against the plain versions.
+22. One JSON line of kernel results (the one-hot kernel, the
    partition-hash kernel's ids and grouped modes, and the prefix-sum
    kernel at the largest shape the main path gave it, with its launches
-   on phases 4-20), then the card's name and power limit, then the last
+   on phases 4-21), then the card's name and power limit, then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--prefix-only`` runs phase 1, builds the prefix-sum kernel and runs
@@ -541,7 +556,9 @@ results as one JSON line, and stops. ``--witness-only`` runs phase 1,
 builds the kernels, generates TPC-H at ``--sf``, runs phase 5 (with the
 oracles of q1 and q3 and their collect-mode results on its context) and
 phase 20, replays their launches, prints the results as one JSON line,
-and stops.
+and stops. ``--surface-only`` runs phase 1, builds the kernels, runs
+phase 21, replays its launches, prints its results as one JSON line, and
+stops.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3648,7 +3665,7 @@ def cluster_path(data: dict, oracles: dict, collected: dict, earlier: dict, flee
 
                 def on_stage_finished(job_id, stage_id):
                     if not killed:
-                        killed.append(cl.kill_executor(1))
+                        killed.append(kill_last_writer(cl, job_id, stage_id))
                     finished(job_id, stage_id)
 
                 def check_expired():
@@ -4214,7 +4231,8 @@ def ops_path(data: dict, earlier: dict, files: dict, tmp: pathlib.Path, rec: Lau
             + "".join(earlier[q][0].strip().rstrip(";") + ";\n" for q in SHELL_QUERIES)
         )
         shell = start(
-            ["-m", "ballista_tpu_torch.cli", "-f", str(script), "--format", "csv", "-q", "--device", "cuda"],
+            ["-m", "ballista_tpu_torch.cli", "-f", str(script), "--format", "csv", "-q", "--device", "cuda",
+             "--batch-size", "8192"],
             child_env(str(work / "hints-shell")),
         )
         hint_children = {"first": hint_child("first", str(hints)), "off": hint_child("off", "off")}
@@ -6715,16 +6733,29 @@ def drain_pending(what: str, timeout: float = 60.0) -> None:
     check(stalewitness.pending_count() == 0, f"{what}: {stalewitness.pending_count()} demoted hits never resolved")
 
 
+def kill_last_writer(cl, job_id: str, stage_id: int) -> str:
+    """Kill the executor that ran the last task of a stage that has just
+    finished, so that the loss takes shuffle output which the stage's
+    consumer has yet to read. An executor that holds none of it may leave
+    only running tasks, which the expiry sweep requeues without a retry or
+    a recompute. Returns the dead executor's id."""
+    tasks = cl.scheduler.stage_manager._stages[(job_id, stage_id)].tasks
+    victim = max((t for t in tasks if t.executor_id), key=lambda t: t.ended_s).executor_id
+    index = next(i for i, h in enumerate(cl.executors) if h.alive and h.executor.executor_id == victim)
+    return cl.kill_executor(index)
+
+
 def witness_cluster(data: dict, oracles: dict, collected: dict, rec: "LaunchRecorder",
                     prec: "PartitionRecorder") -> dict:
     """(b) The chaos scenario of ``tests/test_stalewitness_chaos.py`` on the
     card: a two-executor cluster (the result cache at 64 MB, AQE on, phase
     10 (d)'s liveness knobs) with the cache witness sampling every hit and
     the replay and resource witnesses on. q1 and q3 cold; q3 again (its hit
-    demoted, resolving ``match``); q3 with executor 1 lost at its first
-    finished stage; ``customer`` registered again as the same object (its
-    key flips: q3 misses); rows appended to ``customer`` that q3's segment
-    filter drops (q3 misses again). Every result equals collect mode's and
+    demoted, resolving ``match``); q3 losing, at its first finished
+    stage, the executor that ran that stage's last task; ``customer``
+    registered again as the same object (its key flips: q3 misses); rows
+    appended to ``customer`` that q3's segment filter drops (q3 misses
+    again). Every result equals collect mode's and
     the numpy oracle, money sums bit for bit; no stale hit, nothing
     pending, at least one ``result_cache`` match; the replay ledger clean
     with shuffle and result records; after the cluster closed, the
@@ -6804,7 +6835,7 @@ def witness_cluster(data: dict, oracles: dict, collected: dict, rec: "LaunchReco
         check(stalewitness.counters().get(("result_cache", "match"), 0) == 1,
               f"witness (b): {stalewitness.summary()}")
 
-        # 3. executor 1 lost at the first finished stage of a demoted q3
+        # 3. an executor lost at the first finished stage of a demoted q3
         wait_entries(2)
         killed: list = []
         expired: list = []
@@ -6812,7 +6843,7 @@ def witness_cluster(data: dict, oracles: dict, collected: dict, rec: "LaunchReco
 
         def on_stage_finished(job_id, stage_id):
             if not killed:
-                killed.append(cl.kill_executor(1))
+                killed.append(kill_last_writer(cl, job_id, stage_id))
             finished(job_id, stage_id)
 
         def check_expired():
@@ -7007,6 +7038,189 @@ def witness_only(sf: float, seed: int, warm: int) -> dict:
     return out
 
 
+# -- phase 21: the user surface on the card -----------------------------------
+
+SURFACE_EXAMPLES = ("standalone_sql", "remote_sql", "dataframe", "udf_plugin")
+# (b): the size a user would run each example at
+SURFACE_ROWS = {"standalone_sql": 1_000_000, "remote_sql": 1_000_000, "dataframe": 16_777_216,
+                "udf_plugin": 6_000_000}
+
+
+def shown_rows(text: str) -> tuple:
+    """``DataFrame.show()``'s text as (header, rows), each cell an int, a
+    float or a string."""
+
+    def cell(s: str):
+        for kind in (int, float):
+            try:
+                return kind(s)
+            except ValueError:
+                pass
+        return s
+
+    lines = [ln.split() for ln in text.strip().splitlines()]
+    return lines[0], [[cell(c) for c in ln] for ln in lines[1:]]
+
+
+def same_rows(tag: str, got: tuple, want: tuple) -> None:
+    """Keys and counts exactly, floats within rtol 1e-9."""
+    check(got[0] == want[0] and len(got[1]) == len(want[1]) > 0, f"{tag}: {got} vs {want}")
+    for g_row, w_row in zip(got[1], want[1]):
+        check(len(g_row) == len(w_row), f"{tag}: {g_row} vs {w_row}")
+        for g, w in zip(g_row, w_row):
+            if isinstance(w, float):
+                check(abs(g - w) <= 1e-9 * abs(w), f"{tag}: {g_row} vs {w_row}")
+            else:
+                check(g == w and type(g) is type(w), f"{tag}: {g_row} vs {w_row}")
+
+
+def surface_oracle(name: str, data) -> dict:
+    """The example's result computed with numpy from its ``make_data``
+    (group counts and sums by ``bincount``)."""
+    import numpy as np
+
+    if name in ("standalone_sql", "remote_sql"):
+        keys = sorted({r[0] for r in data})
+        pos = {k: i for i, k in enumerate(keys)}
+        idx = np.fromiter((pos[r[0]] for r in data), dtype=np.int64, count=len(data))
+        val = np.fromiter((r[1] for r in data), dtype=np.float64, count=len(data))
+        n, sums = np.bincount(idx, minlength=len(keys)), np.bincount(idx, weights=val, minlength=len(keys))
+        if name == "standalone_sql":
+            return {"region": np.array(keys), "n": n, "total": sums}
+        top = np.argsort(-sums, kind="stable")[:5]
+        return {"customer": np.array(keys)[top], "n": n[top], "spent": sums[top]}
+    cols = {c: data.column(c).to_numpy() for c in data.column_names}
+    if name == "dataframe":
+        keep = cols["passengers"] > 1
+        vendor, fare = cols["vendor"][keep], cols["fare"][keep]
+        n = np.bincount(vendor)
+        keys = np.flatnonzero(n)
+        sums = np.bincount(vendor, weights=fare)[keys]
+        return {"vendor": keys, "trips": n[keys], "revenue": sums, "avg_fare": sums / n[keys]}
+    x, y = cols["x"], cols["y"]
+    return {"n": np.array([len(x)]), "avg_relu_x": np.array([np.maximum(x, 0.0).mean()]),
+            "mean_sq_dist": np.array([((x - y) * (x - y)).mean()])}
+
+
+def held_to_oracle(tag: str, got, want: dict) -> float:
+    """``got`` (an Arrow table) against the oracle's columns: keys and
+    counts exactly, floats within rtol 1e-9. Returns the largest relative
+    difference of a float."""
+    import numpy as np
+
+    check(got.column_names == list(want), f"{tag}: columns {got.column_names} vs {list(want)}")
+    worst = 0.0
+    for c, w in want.items():
+        g = got.column(c).to_numpy()
+        check(len(g) == len(w), f"{tag}: {c} has {len(g)} rows, the oracle {len(w)}")
+        if w.dtype.kind == "f":
+            rel = float((np.abs(g - w) / np.abs(w)).max())
+            check(rel <= 1e-9, f"{tag}: {c} {g.tolist()} vs {w.tolist()} (rel {rel:.3e})")
+            worst = max(worst, rel)
+        else:
+            check(g.tolist() == w.tolist(), f"{tag}: {c} {g.tolist()} vs {w.tolist()}")
+    return worst
+
+
+def surface_path(pkg_root: pathlib.Path, rec: "LaunchRecorder", prec: "PartitionRecorder") -> dict:
+    """Phase 21: (a) the four examples' ``main`` on the card and on the CPU
+    at the reference's row counts, (b) each at a user's size against a
+    numpy oracle, (c) one example as a child with its default device.
+    Returns the results, the seconds and the launches of (a) and (b)."""
+    import contextlib
+    import gc
+    import importlib
+    import io
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    totals = dict.fromkeys(KERNEL_COUNTS, 0)
+    out: dict = {"a": {}, "b": {}}
+    mods = {name: importlib.import_module(f"ballista_tpu_torch.examples.{name}") for name in SURFACE_EXAMPLES}
+    child = subprocess.Popen(
+        [sys.executable, "-m", "ballista_tpu_torch.examples.standalone_sql"],
+        cwd=pkg_root, env=child_env("off"), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = True
+
+    def counted(tag: str, fn):
+        rec.tag = prec.tag = tag
+        try:
+            with kernel_counts(totals) as kc:
+                t = time.perf_counter()
+                res = fn()
+                secs = time.perf_counter() - t
+        finally:
+            rec.tag = prec.tag = None
+        return res, secs, kc.n
+
+    def printed(name: str, device: str) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mods[name].main(["--device", device])
+        return buf.getvalue()
+
+    shown = {}
+    try:
+        # (a) the reference's row counts, on the card and on the CPU
+        for name in SURFACE_EXAMPLES:
+            t = time.perf_counter()
+            want = printed(name, "cpu")
+            cpu_s = time.perf_counter() - t
+            text, secs, n = counted(f"{name}-example", lambda: printed(name, "cuda"))
+            shown[name] = shown_rows(text)
+            same_rows(f"{name} (a)", shown[name], shown_rows(want))
+            out["a"][name] = dict(rows=mods[name].ROWS, s=secs, cpu_s=cpu_s, printed=text.strip().splitlines(), **n)
+            log(f"surface (a) {name}: ok  {json.dumps(out['a'][name])}")
+        # (b) a user's size, against numpy over make_data
+        for name in SURFACE_EXAMPLES:
+            rows = SURFACE_ROWS[name]
+            got, secs, n = counted(f"{name}-user", lambda: mods[name].run(rows, "cuda"))
+            t = time.perf_counter()
+            rel = held_to_oracle(f"{name} (b)", got, surface_oracle(name, mods[name].make_data(rows)))
+            out["b"][name] = dict(rows=rows, s=secs, oracle_s=time.perf_counter() - t, max_rel_diff=rel, **n)
+            log(f"surface (b) {name}: ok  {json.dumps(out['b'][name])}")
+            del got
+        # (c) the module entry point as a user runs it
+        t = time.perf_counter()
+        stdout, stderr = child.communicate(timeout=300)
+        check(child.returncode == 0, f"surface (c): exited {child.returncode}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        same_rows("standalone_sql (c)", shown_rows(stdout), shown["standalone_sql"])
+        out["c"] = dict(wait_s=time.perf_counter() - t, printed=stdout.strip().splitlines())
+        log(f"surface (c): ok  {json.dumps(out['c'])}")
+    finally:
+        rec.keep = prec.keep = rec.keep_on_host = prec.keep_on_host = rec.keep_prefix = False
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    check(sum(totals.values()) > 0, "phase 21: no kernel launched")
+    out["launches"] = totals
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 21: launches {json.dumps(totals)}, {out['s']:.1f}s")
+    return out
+
+
+def surface_replays(rec: "LaunchRecorder", prec: "PartitionRecorder") -> dict:
+    """Phase 21's launches against the plain versions, by kernel."""
+    replays = {"onehot": replay_launches(rec), "partition": replay_partition_launches(prec),
+               "prefix": replay_prefix_launches(rec)}
+    check(any(replays.values()), "phase 21: no launch replayed")
+    return replays
+
+
+def surface_only(pkg_root: pathlib.Path) -> dict:
+    """``--surface-only``: phase 21 alone, then its launches replayed."""
+    with LaunchRecorder() as rec, PartitionRecorder() as prec:
+        out = surface_path(pkg_root, rec, prec)
+        t = time.perf_counter()
+        out["replays"] = surface_replays(rec, prec)
+        out["replay_s"] = time.perf_counter() - t
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -7074,6 +7288,11 @@ def main() -> int:
         help="only run phase 5 and phase 20 (the runtime witnesses: the "
         "context's plan-cache arm on phase 5's context, a witnessed "
         "cluster with an executor loss, the replay property), then stop",
+    )
+    ap.add_argument(
+        "--surface-only", action="store_true",
+        help="only run phase 21 (the four examples on the card against the CPU "
+        "and against numpy oracles at a user's size, one as a child), then stop",
     )
     ap.add_argument(
         "--settings", default="{}",
@@ -7164,6 +7383,12 @@ def main() -> int:
     if args.witness_only:
         cuda_build.build_many(sources)
         log(json.dumps({"phase20": witness_only(args.sf, args.seed, args.warm)}, default=str))
+        log(smi)
+        return 0
+
+    if args.surface_only:
+        cuda_build.build_many(sources)
+        log(json.dumps({"phase21": surface_only(pkg_root)}, default=str))
         log(smi)
         return 0
 
@@ -7442,6 +7667,17 @@ def main() -> int:
         pl_by_phase[20] += wp["launches"]["prefix"]
         log(f"phase 20 took {time.perf_counter() - t0:.1f}s with its replays ((a) {wa['s']:.1f}s after phase 5, "
             f"(b) {wp['cluster']['s']:.1f}s, (c) {wp['replay']['s']:.1f}s); {smi}")
+
+        # 21. the user surface: the four examples on the card
+        t0 = time.perf_counter()
+        su = surface_path(pkg_root, rec, prec)
+        su_replays = surface_replays(rec, prec)
+        replays += su_replays["onehot"]
+        preplays += su_replays["partition"]
+        pl_by_phase[21] = su["launches"]["prefix"]
+        log(f"phase 21 took {time.perf_counter() - t0:.1f}s with its replays ((a) "
+            f"{sum(r['s'] + r['cpu_s'] for r in su['a'].values()):.1f}s, (b) "
+            f"{sum(r['s'] + r['oracle_s'] for r in su['b'].values()):.1f}s); {smi}")
     prefix_launches = sum(pl_by_phase.values())
     check(prefix_launches + hp["background"]["prewarm_and_q1_launches"]["prefix"] == prefix_sum.launches,
           "prefix-sum launches: the phases do not add up")
@@ -7489,7 +7725,7 @@ def main() -> int:
         + fl["partition_launches"] + op["partition_launches"] + aq["partition_launches"]
         + pg["partition_launches"] + bc["partition_launches"] + ad["partition_launches"]
         + dp["partition_launches"] + hp["partition_launches"] + mh["partition_launches"]
-        + wa["launches"]["partition"] + wp["launches"]["partition"]
+        + wa["launches"]["partition"] + wp["launches"]["partition"] + su["launches"]["partition"]
     )
     glaunches = (
         gp["grouped_launches"] + sp["grouped_launches"] + fp["grouped_launches"]
@@ -7497,9 +7733,10 @@ def main() -> int:
         + aq["grouped_launches"] + pg["grouped_launches"] + bc["grouped_launches"]
         + ad["grouped_launches"] + dp["grouped_launches"] + hp["grouped_launches"]
         + mh["grouped_launches"] + wa["launches"]["grouped"] + wp["launches"]["grouped"]
+        + su["launches"]["grouped"]
     )
 
-    # 21. results
+    # 22. results
     kernels = [{
         "name": "onehot_sums",
         "route": "cuda",
@@ -7514,7 +7751,7 @@ def main() -> int:
             mp["launches"] + jp["launches"] + rp["launches"] + gp["launches"] + sp["launches"]
             + fp["launches"] + cp["launches"] + fl["launches"] + op["launches"] + aq["launches"]
             + pg["launches"] + bc["launches"] + ad["launches"] + dp["launches"] + hp["launches"]
-            + mh["launches"] + wa["launches"]["onehot"] + wp["launches"]["onehot"]
+            + mh["launches"] + wa["launches"]["onehot"] + wp["launches"]["onehot"] + su["launches"]["onehot"]
         ),
         "max_abs_err": max(c["max_abs_err"] for c in cases + replays),
         "ms": q1["ms"],
@@ -7558,8 +7795,8 @@ def main() -> int:
     # the prefix-sum kernel at the largest shape the main path gave it
     # (phases 14 and 16's replays: call, plain, library and bound; device time by
     # torch.profiler), and phase 3's 6,000,000-row case
-    pr = max(prefix_replays + adaptive_prefix_replays + mesh_prefix_replays + witness_prefix_replays,
-             key=lambda r: (r["n"] * r["k"], r["n"]))
+    pr = max(prefix_replays + adaptive_prefix_replays + mesh_prefix_replays + witness_prefix_replays
+             + su_replays["prefix"], key=lambda r: (r["n"] * r["k"], r["n"]))
     p6m = next(c for c in pfx["cases"] if c["n"] == 6_000_000 and c["k"] == 1)
     kernels.append({
         "name": "prefix_sums",
@@ -7569,7 +7806,7 @@ def main() -> int:
         "launches": prefix_launches,
         # every comparison of phases 3, 14 and 16 is bit for bit
         "max_abs_err": max(r["max_abs_err"] for r in pfx["cases"] + prefix_replays + adaptive_prefix_replays
-                           + mesh_prefix_replays + witness_prefix_replays),
+                           + mesh_prefix_replays + witness_prefix_replays + su_replays["prefix"]),
         "ms": pr["ms"],
         "device_ms": pr["device_ms"],
         "plain_ms": pr["plain_ms"],
@@ -7646,9 +7883,12 @@ def main() -> int:
         "witness": {"plan_cache": wa, **{k: v for k, v in wp.items() if k != "launches"}},
         "witness_launches": {k: wa["launches"][k] + wp["launches"][k] for k in KERNEL_COUNTS},
         "witness_replays": witness_replays + witness_prefix_replays,
+        "surface": {k: v for k, v in su.items() if k != "launches"},
+        "surface_launches": su["launches"],
+        "surface_replays": su_replays,
         "sf": args.sf,
     }, default=str))
-    log(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_main:.1f}s")
+    log(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_main:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
